@@ -1,0 +1,90 @@
+"""Build a CUDA source of the package with nvcc on first use and load it.
+
+A kernel source under `fabric_tpu_torch/csrc/` exposes a plain C interface
+(raw pointers, ints, a stream) and is compiled for sm_90a into
+`build/torch_kernels/<name>-<sha256 of the source>.so` at the root of the
+checkout, then loaded with ctypes. A changed source gets a new file; an
+unchanged one is built once. Nothing here runs at import time, and a
+missing compiler or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-O3",
+    "-std=c++17",
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
+
+
+def find_nvcc() -> str:
+    for candidate in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if candidate and os.access(candidate, os.X_OK):
+            return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name: str) -> Tuple[Path, Path]:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its content-addressed library exists.
+
+    The compiler's `-Xptxas -v` report goes beside the library as
+    `<library>.ptxas.txt`."""
+    src, lib = _library_path(name)
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed on {src.name} (rc {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    Path(f"{lib}.ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    with _lock:
+        entry = _loaded.get(name)
+        if entry is None:
+            lib = build(name)
+            entry = (ctypes.CDLL(str(lib)), str(lib))
+            _loaded[name] = entry
+        return entry[0]
+
+
+def ptxas_report(name: str) -> str:
+    """The `-Xptxas -v` output recorded when csrc/<name>.cu was built."""
+    _, lib = _library_path(name)
+    return Path(f"{lib}.ptxas.txt").read_text()

@@ -1,0 +1,55 @@
+"""The port imports neither JAX nor the JAX package, and its device entry
+point refuses to run without a card instead of falling back to the CPU."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from fabric_tpu_torch.ops import cudalib
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import fabric_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(fabric_tpu_torch.__path__, "fabric_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
+)
+from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+try:
+    CUDAProvider()
+    refused = None
+except RuntimeError as exc:
+    refused = str(exc)
+print(json.dumps({"modules": names, "leaked": leaked, "refused": refused}))
+"""
+
+
+def test_port_imports_no_jax_and_needs_a_card():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(REPO)],
+        capture_output=True, text=True, check=True, timeout=300, cwd=REPO,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "fabric_tpu_torch.ops.p256_kernel" in report["modules"]
+    assert "fabric_tpu_torch.crypto.cuda_provider" in report["modules"]
+    assert report["leaked"] == []
+    if not torch.cuda.is_available():
+        assert report["refused"], "CUDAProvider() must raise without a card"
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    """A missing compiler is an error, never a silent CPU route."""
+    monkeypatch.setattr(cudalib.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cudalib.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cudalib.build("p256_verify")

@@ -1,0 +1,106 @@
+"""CUDAProvider's own behaviour, with device="cpu" (the kernels' plain
+versions): the key bucket's route choice, off-curve keys, resolvers in any
+order, VerifyError on single verify, the empty batch.
+
+Its masks are held to TPUProvider's in tests/test_torch_p256.py, which
+holds the JAX verify programs TPUProvider runs (one test worker compiles
+them once); here they are held to the oracle on the same vectors.
+"""
+
+import hashlib
+
+import pytest
+
+from fabric_tpu_torch.common import der, p256
+from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError
+from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+
+BAD_DER = b"\x30\x01\x00"
+
+
+def signature_cases(n, num_keys):
+    """(key, signature, digest) rows in the style of test_provider_bytes:
+    valid, wrong digest, bad DER, high-S, and every tenth an off-curve key."""
+    keys = []
+    for k in range(num_keys):
+        priv = (k * 0x9E3779B97F4A7C15 + 77) % (p256.N - 1) + 1
+        keys.append((priv, ECDSAPublicKey(*p256.scalar_mult(priv, p256.GENERATOR))))
+    off_curve = ECDSAPublicKey(keys[0][1].x, (keys[0][1].y + 1) % p256.P)
+    out = []
+    for i in range(n):
+        priv, key = keys[i % num_keys]
+        digest = hashlib.sha256(f"bytes {i}".encode()).digest()
+        kk = (i * 0xD6E8FEB86659FD93 + 3) % (p256.N - 1) + 1
+        r, s = p256.sign_digest(priv, digest, k=kk)
+        kind = i % 5
+        sig = der.marshal_signature(r, s)
+        if kind == 1:
+            digest = hashlib.sha256(b"other").digest()
+        elif kind == 2:
+            sig = BAD_DER
+        elif kind == 3:
+            sig = der.marshal_signature(r, p256.N - s)  # high-S
+        elif i % 10 == 4:
+            key = off_curve
+        out.append((key, sig, digest))
+    return out
+
+
+def columns(cases, key_type=ECDSAPublicKey):
+    """Provider arguments, one key object per distinct key as the MSP
+    cache hands them out."""
+    objs = {}
+    keys = [objs.setdefault((c[0].x, c[0].y), key_type(c[0].x, c[0].y)) for c in cases]
+    return keys, [c[1] for c in cases], [c[2] for c in cases]
+
+
+def oracle(cases):
+    """Fabric's verifyECDSA decision per row, errors as False."""
+    out = []
+    for key, sig, digest in cases:
+        try:
+            r, s = der.unmarshal_signature(sig)
+        except der.DerError:
+            out.append(False)
+            continue
+        out.append(p256.is_low_s(s) and p256.verify_digest(key.point, digest, r, s))
+    return out
+
+
+@pytest.fixture(scope="module")
+def provider():
+    return CUDAProvider(device="cpu")
+
+
+@pytest.mark.parametrize("num_keys,route", [(5, "bytes"), (40, "limbs")])
+def test_key_bucket_picks_the_route_and_gates_off_curve_keys(provider, num_keys, route):
+    cases = signature_cases(40, num_keys)
+    prep, limbs = provider.prep_bytes(*columns(cases))
+    assert (prep is None) == (route == "limbs")
+    ok = (prep or limbs)[-1]
+    for (key, sig, _), lane_ok in zip(cases, ok):
+        if not p256.is_on_curve(key.point) or sig == BAD_DER:
+            assert not lane_ok
+
+
+def test_resolvers_resolve_in_any_order(provider):
+    a_cases, b_cases = signature_cases(40, 5), signature_cases(40, 40)
+    first = provider.batch_verify_async(*columns(a_cases))
+    second = provider.batch_verify_async(*columns(b_cases))
+    assert second() == oracle(b_cases)
+    assert first() == oracle(a_cases)
+
+
+def test_single_verify_keeps_verify_error_semantics(provider):
+    cases = signature_cases(5, 1)
+    key, sig, digest = cases[0]
+    assert provider.verify(key, sig, digest) is True
+    with pytest.raises(VerifyError):
+        provider.verify(*cases[2])  # bad DER
+    with pytest.raises(VerifyError):
+        provider.verify(*cases[3])  # high-S
+
+
+def test_empty_batch_and_backend_label(provider):
+    assert provider.batch_verify([], [], []) == []
+    assert provider.describe_backend() == "cpu-reference"
