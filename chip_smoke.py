@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the P-256 verify kernels from csrc/ with nvcc, holds each against its
-plain PyTorch version on the card, then drives the port's main path, the
-CUDAProvider behind the BCCSP SPI, at the sizes Fabric's block validator
-feeds it:
+Builds the kernels from csrc/ with nvcc (one compiler per source, all
+started together), holds each against its plain PyTorch version on the
+card, then drives the port's two paths at the sizes Fabric feeds them.
+
+The CUDAProvider behind the BCCSP SPI (P-256 verify, K1 and K2):
 
   1. kernel vs plain version, K1 (limbs) and K2 (bytes), 64 lanes with the
      edge cases: masks bit-identical, and equal to the oracle's;
@@ -16,12 +17,30 @@ feeds it:
      1,000-tx block under a 2-of-3 policy);
   4. limb route: 4,096 lanes from 64 keys (past the 32-column key bucket);
   5. launch counts of the main path (phases 2-4), then each kernel's own
-     time (CUDA events), its plain version's time and its bound;
-  6. the card's name and power limit.
+     time (CUDA events), its plain version's time and its bound.
 
-Inputs are signed by the port's oracle with fixed keys and nonces, a known
-subset corrupted (flipped digest, wrong key, s+1, high-S, bad DER, r = 0,
-r = n, off-curve key); the expected masks come from the oracle. Any
+The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
+
+  6. mvcc_kernel_vs_plain: K5 and K6 against their plain versions on seeded
+     columns with a 64-tx alternating chain, keys with no writer, txs with
+     no reads, duplicate writers, deletes and drop-sentinel indices;
+  7. mvcc_5k: BASELINE config #4 (bench.py bench_mvcc), a 5,000-tx block
+     through serialize -> parse -> DeviceValidator: codes and updates equal
+     to the host oracle's, 500 conflicts;
+  8. mvcc_resident_chain: 20 blocks of 5,000 Zipf-skewed txs through
+     kvledger.commit_block_state with a ResidentDeviceValidator over
+     1,000,000 committed keys, against a second state DB behind the host
+     oracle: codes, update batches and the chained commit hash equal every
+     block; blocks 7 (range query) and 13 (metadata write) take the host
+     route, a generation bump before block 16 drops and rebuilds the
+     table, and K6 launches 18 times;
+  9. each kernel's time at its main-path shapes, its plain version's time
+     and its bound, then the card's name and power limit.
+
+Signature inputs are signed by the port's oracle with fixed keys and
+nonces, a known subset corrupted (flipped digest, wrong key, s+1, high-S,
+bad DER, r = 0, r = n, off-curve key); the expected masks come from the
+oracle. MVCC inputs come from fixed numpy seeds. Any
 mismatch or error exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -33,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED_PRIV = 0xC2B2AE3D27D4EB4F
 SEED_NONCE = 12345
@@ -55,6 +75,425 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# MVCC (K5, K6): the ledger's commit-time validate-and-prepare
+# ---------------------------------------------------------------------------
+
+MVCC_SEED = 20261017
+MVCC_TXS = 5000  # BASELINE config #4's block (bench.py bench_mvcc)
+CHAIN_BLOCKS = 20
+CHAIN_KEYS = 1_000_000
+CHAIN_HASHED_KEYS = 50_000
+ZIPF_S = 1.1
+
+
+def mvcc_kernel_cases(np):
+    """Seeded K5 and K6 columns with the edge cases: an alternating
+    invalidation chain of 64 txs, keys with no writer, txs with no reads,
+    duplicate writers of one key, a tx writing one key twice, statically
+    bad reads; for K6 also deletes, init and write indices at the drop
+    sentinel (cap), and reads claiming wrong versions."""
+    rng = np.random.default_rng(MVCC_SEED)
+    T, K = 300, 220
+    r_tx, r_key, w_tx, w_key = [], [], [], []
+    for i in range(64):  # the chain: tx i reads what tx i-1 writes
+        w_tx.append(i)
+        w_key.append(i)
+        if i:
+            r_tx.append(i)
+            r_key.append(i - 1)
+    for t in range(100, 110):  # keys 100-109 have no writer
+        r_tx.append(t)
+        r_key.append(t)
+    for t in range(120, 130):  # ten writers of key 150, one writing it twice
+        w_tx += [t, t] if t == 125 else [t]
+        w_key += [150, 150] if t == 125 else [150]
+        r_tx.append(t + 10)
+        r_key.append(150)
+    n = 600  # random traffic over the rest; txs 64-99 read nothing
+    r_tx += list(rng.integers(140, T, n))
+    r_key += list(rng.integers(0, K, n))
+    w_tx += list(rng.integers(140, T, n))
+    w_key += list(rng.integers(151, K, n))
+    r_bad = rng.random(len(r_tx)) < 0.05
+    r_bad[:63] = False  # keep the chain whole
+    k5 = (np.array(r_tx), np.array(r_key), r_bad, np.array(w_tx), np.array(w_key), T, K)
+
+    cap = 256
+    gid = rng.permutation(cap)[:K]
+    gid[rng.random(K) < 0.05] = cap  # writes to these keys are dropped
+    table = rng.integers(-1, 6, (cap, 2))
+    init_idx = np.concatenate([rng.permutation(cap)[:40], [cap, cap + 7]])
+    init_ver = rng.integers(-1, 6, (len(init_idx), 2))
+    truth = table.copy()
+    keep = init_idx < cap
+    truth[init_idx[keep]] = init_ver[keep]
+    r_gid = gid[k5[1]]
+    r_ver = truth[np.clip(r_gid, 0, cap - 1)].copy()
+    r_ver[r_bad] = (9, 9)
+    w_tx_a, w_key_a = k5[3], k5[4]
+    delete = rng.random(len(w_tx_a)) < 0.1
+    twice = np.flatnonzero(w_tx_a == 125)  # tx 125 puts key 150, then deletes it
+    delete[twice] = [False, True]
+    w_ver = np.stack([np.full(len(w_tx_a), 3), w_tx_a], axis=1)
+    w_ver[delete] = -1  # a tx's lanes on one key differ only by a delete
+    k6 = (table, init_idx, init_ver, r_gid, r_ver, k5[0], k5[1], w_tx_a, w_key_a,
+          gid[w_key_a], w_ver, T, K)
+    return k5, k6
+
+
+def mvcc_config4_rwsets(rw, n_txs=MVCC_TXS):
+    """bench.py bench_mvcc: every tx reads its own key at the committed
+    version and writes it; every 10th (i % 10 == 5) reads its neighbour's
+    key, which the neighbour already wrote: 500 MVCC_READ_CONFLICT."""
+    out = []
+    for i in range(n_txs):
+        read_key = f"k{i - 1}" if i % 10 == 5 else f"k{i}"
+        read_ver = rw.Version(0, i - 1 if i % 10 == 5 else i)
+        out.append(rw.TxRwSet((rw.NsRwSet(
+            "cc", (rw.KVRead(read_key, read_ver),), (rw.KVWrite(f"k{i}", False, b"v1"),),
+        ),)))
+    return out
+
+
+def batches_as_values(batch):
+    return {k: (e.value, (e.version.block_num, e.version.tx_num), e.metadata)
+            for k, e in batch.items()}
+
+
+class ChainTraffic:
+    """The resident chain's blocks: per tx 2 reads and 2 writes drawn Zipf
+    (s = 1.1) over the 1,000,000 public keys, 10% of txs with one hashed
+    read and write (Zipf over the 50,000 hashed keys), 5% of writes deletes,
+    5% of txs arriving with another code than VALID; reads claim the
+    version committed as of the previous block."""
+
+    def __init__(self, np, rw, TxValidationCode):
+        self.np, self.rw, self.codes = np, rw, TxValidationCode
+        self.rng = np.random.default_rng(MVCC_SEED + 1)
+
+        def zipf_cdf(n):
+            w = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** ZIPF_S
+            return np.cumsum(w) / w.sum()
+
+        self.cdf = zipf_cdf(CHAIN_KEYS)
+        self.hcdf = zipf_cdf(CHAIN_HASHED_KEYS)
+        # hot ranks land anywhere in the key space
+        self.perm = self.rng.permutation(CHAIN_KEYS)
+        self.hperm = self.rng.permutation(CHAIN_HASHED_KEYS)
+
+    @staticmethod
+    def key(i: int) -> str:
+        return f"k{i:07d}"
+
+    @staticmethod
+    def key_hash(i: int) -> bytes:
+        return hashlib.sha256(b"h%d" % i).digest()
+
+    def draw(self, cdf, perm, n):
+        ranks = self.np.minimum(self.np.searchsorted(cdf, self.rng.random(n)), len(cdf) - 1)
+        return perm[ranks]
+
+    def block(self, number: int, db, n_txs=MVCC_TXS):
+        np, rw, codes = self.np, self.rw, self.codes
+        keys = self.draw(self.cdf, self.perm, 4 * n_txs).reshape(n_txs, 4)
+        hashed = self.rng.random(n_txs) < 0.10
+        hkeys = self.draw(self.hcdf, self.hperm, n_txs)
+        deletes = self.rng.random((n_txs, 3)) < 0.05
+        invalid = self.rng.random(n_txs) < 0.05
+        rwsets, incoming = [], []
+        for t in range(n_txs):
+            k = [self.key(int(i)) for i in keys[t]]
+            reads = tuple(rw.KVRead(x, db.get_version("cc", x)) for x in k[:2])
+            writes = tuple(
+                rw.KVWrite(x, bool(deletes[t, j]), b"" if deletes[t, j] else b"v%d.%d" % (number, t))
+                for j, x in enumerate(k[2:])
+            )
+            colls, rqs, md = (), (), ()
+            if hashed[t]:
+                kh = self.key_hash(int(hkeys[t]))
+                colls = (rw.CollHashedRwSet(
+                    "coll0",
+                    (rw.KVReadHash(kh, db.get_key_hash_version("cc", "coll0", kh)),),
+                    (rw.KVWriteHash(kh, bool(deletes[t, 2]), b"" if deletes[t, 2] else hashlib.sha256(kh).digest()),),
+                ),)
+            if number == 7 and t == 11:  # a range query: the block takes the host route
+                start = int(keys[t, 0])
+                rqs = (rw.RangeQueryInfo(
+                    self.key(start), self.key(start + 6), True,
+                    tuple(rw.KVRead(x, vv.version) for x, vv in
+                          db.get_state_range("cc", self.key(start), self.key(start + 6), False)),
+                ),)
+                invalid[t] = False
+            if number == 13 and t == 17:  # a metadata write: the host route
+                md = (rw.KVMetadataWrite(k[2], (("owner", b"org1MSP"),)),)
+                invalid[t] = False
+            rwsets.append(rw.TxRwSet((rw.NsRwSet("cc", reads, writes, rqs, colls, md),)))
+            incoming.append(codes.ENDORSEMENT_POLICY_FAILURE if invalid[t] else codes.VALID)
+        return rwsets, incoming
+
+
+def seeded_chain_db(statedb, rw):
+    """Two identical VersionedDBs: 1,000,000 committed public keys (names
+    zero-padded, so bisect.insort appends) and 50,000 hashed keys of one
+    collection."""
+    seed = statedb.UpdateBatch()
+    for i in range(CHAIN_KEYS):
+        seed.put("cc", ChainTraffic.key(i), b"v0", rw.Version(0, i))
+    hseed = statedb.HashedUpdateBatch()
+    for i in range(CHAIN_HASHED_KEYS):
+        kh = ChainTraffic.key_hash(i)
+        hseed.put("cc", "coll0", kh, hashlib.sha256(kh).digest(), rw.Version(0, i))
+    dbs = []
+    for _ in range(2):
+        db = statedb.VersionedDB()
+        db.apply_updates(seed, hashed=hseed)
+        dbs.append(db)
+    return dbs
+
+
+def mvcc_bytes(R: int, W: int, T: int, sweeps: int, I: int = 0, K: int = 0,
+               resident: bool = False) -> int:
+    """Bytes K5 (or K6) must move for this run's data: each sweep reads the
+    read and write columns (tx and key ids, 8 bytes each) and writes the
+    mask; once, the static-bad flags in and the mask out. K6 adds the init
+    scatter (index and version in, row out), the gather (slot, claimed
+    version and table row per read) and the commit (slot and version per
+    write, at most one row per key out)."""
+    n = sweeps * (8 * R + 8 * W + T) + R + T
+    if resident:
+        n += 20 * I + 20 * R + 12 * W + 8 * K
+    return n
+
+
+def device_ms(torch, launch, reps: int, prepare=None) -> float:
+    """Mean device time of `launch()` over `reps` launches, from CUDA events
+    around each launch. The launches are queued behind a sleep kernel, so
+    the events time the device's work and not the host's enqueue.
+    `prepare()`, when given, runs on the stream before each launch, outside
+    its events (a fresh copy of a table the kernel updates in place)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    pairs = []
+    for _ in range(reps):
+        if prepare is not None:
+            prepare()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def mvcc_phases(torch, np, dev):
+    """The MVCC phases; returns the K5 and K6 entries of the kernels line."""
+    from fabric_tpu_torch.common.txflags import TxValidationCode
+    from fabric_tpu_torch.ledger import kvledger, mvcc, statedb
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ledger import rwset as rw
+    from fabric_tpu_torch.ledger.rwset_proto import serialize_tx_rwset
+    from fabric_tpu_torch.ledger.txparse import parse_tx_rwset
+
+    VALID = TxValidationCode.VALID
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    def k5_vs_plain(args, T, K):
+        valid, status = md.resolve(*args, T, K)
+        torch.cuda.synchronize()
+        pvalid, pstatus = md.resolve_ref(*args, T, K)
+        sweeps = md.converged_sweeps(status.cpu())
+        if valid.tolist() != pvalid.tolist() or status.tolist() != pstatus.tolist():
+            raise AssertionError("mvcc_resolve: kernel and plain version differ")
+        return int((valid.int() - pvalid.int()).abs().max().item()) if T else 0, sweeps
+
+    def k6_vs_plain(table, args, T, K):
+        kt, pt = table.clone(), table.clone()
+        valid, status = md.resolve_resident(kt, *args, T, K)
+        torch.cuda.synchronize()
+        pvalid, pstatus = md.resolve_resident_ref(pt, *args, T, K)
+        sweeps = md.converged_sweeps(status.cpu())
+        if (valid.tolist() != pvalid.tolist() or status.tolist() != pstatus.tolist()
+                or not torch.equal(kt, pt)):
+            raise AssertionError("mvcc_resolve_resident: kernel and plain version differ")
+        err = max(int((valid.int() - pvalid.int()).abs().max().item()) if T else 0,
+                  int((kt - pt).abs().max().item()))
+        return err, sweeps
+
+    # --- kernel vs plain version on the edge-case columns -----------------
+    t_phase = time.perf_counter()
+    k5, k6 = mvcc_kernel_cases(np)
+    r_tx, r_key, r_bad, w_tx, w_key, T, K = k5
+    err5, sweeps5 = k5_vs_plain(
+        (i32(r_tx), i32(r_key), torch.from_numpy(r_bad).to(dev), i32(w_tx), i32(w_key)), T, K)
+    table, *cols, T6, K6 = k6
+    err6, sweeps6 = k6_vs_plain(i32(table), tuple(i32(c) for c in cols), T6, K6)
+    if sweeps5 < 64 or sweeps6 < 64:
+        raise AssertionError(f"the 64-tx chain took {sweeps5} / {sweeps6} sweeps")
+    emit({"phase": "mvcc_kernel_vs_plain", "txs": T, "keys": K, "reads": len(r_tx),
+          "writes": len(w_tx), "sweeps": [sweeps5, sweeps6], "max_abs_err": [err5, err6],
+          "identical": True, "seconds": time.perf_counter() - t_phase})
+
+    captured = {}
+    real_resolve, real_resident = md.resolve, md.resolve_resident
+
+    def capture_resolve(*args, **kw):
+        captured["k5"] = (args, kw)
+        return real_resolve(*args, **kw)
+
+    def capture_resident(versions, *args, **kw):
+        captured["k6"] = (versions.clone(), args, kw)
+        return real_resident(versions, *args, **kw)
+
+    # --- mvcc_5k: BASELINE config #4 through DeviceValidator --------------
+    t_phase = time.perf_counter()
+    db = statedb.VersionedDB()
+    seed = statedb.UpdateBatch()
+    for i in range(MVCC_TXS):
+        seed.put("cc", f"k{i}", b"v0", rw.Version(0, i))
+    db.apply_updates(seed)
+    txs = mvcc_config4_rwsets(rw)
+    t0 = time.perf_counter()
+    raw = [serialize_tx_rwset(t) for t in txs]
+    t1 = time.perf_counter()
+    parsed = [parse_tx_rwset(b) for b in raw]
+    t2 = time.perf_counter()
+    if parsed != txs:
+        raise AssertionError("config #4 rwsets do not survive serialize -> parse")
+    incoming = [VALID] * MVCC_TXS
+    host_ms = []
+    for _ in range(3):
+        t3 = time.perf_counter()
+        want = mvcc.Validator(db).validate_and_prepare_batch(1, parsed, incoming)
+        host_ms.append((time.perf_counter() - t3) * 1e3)
+    conflicts = sum(c == TxValidationCode.MVCC_READ_CONFLICT for c in want[0])
+    if conflicts != MVCC_TXS // 10:
+        raise AssertionError(f"config #4: the host oracle found {conflicts} conflicts")
+    dv = md.DeviceValidator(db, device=dev)
+    md.resolve = capture_resolve
+    for k in md.LAUNCHES:
+        md.LAUNCHES[k] = 0
+    try:
+        splits, block_ms = [], []
+        for _ in range(3):
+            t3 = time.perf_counter()
+            got = dv.validate_and_prepare_batch(1, parsed, incoming)
+            block_ms.append((time.perf_counter() - t3) * 1e3)
+            if dv.last_path != "device":
+                raise AssertionError("config #4 block did not take the device route")
+            if (got[0] != want[0] or batches_as_values(got[1]) != batches_as_values(want[1])
+                    or batches_as_values(got[2]) != batches_as_values(want[2])):
+                raise AssertionError("config #4: device codes or updates differ from the oracle's")
+            splits.append(dict(dv.last_ms))
+    finally:
+        md.resolve = real_resolve
+    launches5 = md.LAUNCHES["mvcc_resolve"]
+    if launches5 == 0:
+        raise AssertionError("mvcc_resolve never launched on the MVCC path")
+    args5, kw5 = captured["k5"]
+    err5b, sweeps5b = k5_vs_plain(args5, kw5["num_txs"], kw5["num_keys"])
+    ms5 = device_ms(torch, lambda: real_resolve(*args5, **kw5), 20)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    md.resolve_ref(*args5, **kw5)
+    torch.cuda.synchronize()
+    plain5 = (time.perf_counter() - t3) * 1e3
+    R5, W5 = args5[0].numel(), args5[3].numel()
+    bound5 = mvcc_bytes(R5, W5, kw5["num_txs"], sweeps5b) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "mvcc_5k", "txs": MVCC_TXS, "conflicts": conflicts, "reads": R5,
+          "writes": W5, "keys": kw5["num_keys"], "sweeps": dv.last_sweeps,
+          "serialize_ms": (t1 - t0) * 1e3, "parse_ms": (t2 - t1) * 1e3,
+          "host_oracle_ms": host_ms, "device_ms": block_ms, "device_split_ms": splits,
+          "kernel_ms": ms5, "codes_equal_oracle": True, "updates_equal_oracle": True,
+          "seconds": time.perf_counter() - t_phase})
+
+    # --- mvcc_resident_chain: 20 blocks, 1M keys, the commit hash chain ----
+    t_phase = t0 = time.perf_counter()
+    dev_db, host_db = seeded_chain_db(statedb, rw)
+    traffic = ChainTraffic(np, rw, TxValidationCode)
+    setup_s = time.perf_counter() - t0
+    res = md.ResidentDeviceValidator(dev_db, device=dev)
+    host = mvcc.Validator(host_db)
+    prev_d = prev_h = b""
+    blocks = []
+    md.resolve_resident = capture_resident
+    for k in md.LAUNCHES:
+        md.LAUNCHES[k] = 0
+    try:
+        for number in range(1, CHAIN_BLOCKS + 1):
+            if number == 16:  # state changed behind the validator's back
+                dev_db.bump_generation()
+                host_db.bump_generation()
+            rwsets, codes = traffic.block(number, host_db)
+            raw = [serialize_tx_rwset(r) for r in rwsets]
+            t1 = time.perf_counter()
+            d = kvledger.commit_block_state(res, number, raw, codes, prev_d)
+            t2 = time.perf_counter()
+            h = kvledger.commit_block_state(host, number, raw, codes, prev_h)
+            t3 = time.perf_counter()
+            if (d.flags.tobytes() != h.flags.tobytes() or d.commit_hash != h.commit_hash
+                    or batches_as_values(d.updates) != batches_as_values(h.updates)
+                    or batches_as_values(d.hashed) != batches_as_values(h.hashed)):
+                raise AssertionError(f"resident chain block {number} differs from the oracle's")
+            prev_d, prev_h = d.commit_hash, h.commit_hash
+            flags = d.flags.asarray()
+            blocks.append({
+                "block": number, "path": res.last_path,
+                "valid": int((flags == int(VALID)).sum()),
+                "mvcc_conflicts": int((flags == int(TxValidationCode.MVCC_READ_CONFLICT)).sum()),
+                "phantom_conflicts": int((flags == int(TxValidationCode.PHANTOM_READ_CONFLICT)).sum()),
+                "commit_ms": (t2 - t1) * 1e3, "host_commit_ms": (t3 - t2) * 1e3,
+                "split_ms": dict(res.last_ms) if res.last_path == "device" else None,
+                "sweeps": res.last_sweeps if res.last_path == "device" else None,
+            })
+    finally:
+        md.resolve_resident = real_resident
+    launches6 = md.LAUNCHES["mvcc_resolve_resident"]
+    paths = [b["path"] for b in blocks]
+    want_paths = ["host" if n in (7, 13) else "device" for n in range(1, CHAIN_BLOCKS + 1)]
+    if paths != want_paths or launches6 != CHAIN_BLOCKS - 2:
+        raise AssertionError(f"resident chain routes {paths}, {launches6} launches")
+    if res.invalidations != 1:
+        raise AssertionError(f"the stale table was dropped {res.invalidations} times, not once")
+    table6, args6, kw6 = captured["k6"]
+    err6b, sweeps6b = k6_vs_plain(table6, args6, kw6["num_txs"], kw6["num_keys"])
+    scratch = torch.empty_like(table6)
+    ms6 = device_ms(torch, lambda: real_resident(scratch, *args6, **kw6), 10,
+                    prepare=lambda: scratch.copy_(table6))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    md.resolve_resident_ref(table6.clone(), *args6, **kw6)
+    torch.cuda.synchronize()
+    plain6 = (time.perf_counter() - t3) * 1e3
+    I6, R6, W6 = args6[0].numel(), args6[2].numel(), args6[5].numel()
+    bound6 = mvcc_bytes(R6, W6, kw6["num_txs"], sweeps6b, I6, kw6["num_keys"],
+                        resident=True) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "mvcc_resident_chain", "blocks": CHAIN_BLOCKS, "txs_per_block": MVCC_TXS,
+          "committed_keys": CHAIN_KEYS, "hashed_keys": CHAIN_HASHED_KEYS,
+          "setup_seconds": setup_s, "capacity": res.capacity, "slots_used": res.slots_used,
+          "invalidations": res.invalidations, "device_blocks": launches6,
+          "last_block": {"inits": I6, "reads": R6, "writes": W6, "keys": kw6["num_keys"],
+                         "sweeps": sweeps6b},
+          "kernel_ms": ms6, "commit_hash": prev_d.hex(), "per_block": blocks,
+          "codes_updates_hashes_equal_oracle": True, "seconds": time.perf_counter() - t_phase})
+
+    return [
+        {"name": "mvcc_resolve", "route": "cuda", "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
+         "replaces": "fabric_tpu/ledger/mvcc_device.py:85", "launches": launches5,
+         "max_abs_err": max(err5, err5b), "ms": ms5, "plain_ms": plain5, "bound_ms": bound5,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "mvcc_resolve_resident", "route": "cuda",
+         "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
+         "replaces": "fabric_tpu/ledger/mvcc_device.py:268", "launches": launches6,
+         "max_abs_err": max(err6, err6b), "ms": ms6, "plain_ms": plain6, "bound_ms": bound6,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -73,14 +512,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    # --- build -----------------------------------------------------------
+    # --- build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    cudalib.load("p256_verify")
+    sources = ("p256_verify", "mvcc_resolve")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cudalib.build, sources))
+    for name in sources:
+        cudalib.load(name)
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
-        "ptxas": [ln for ln in cudalib.ptxas_report("p256_verify").splitlines()
-                  if "registers" in ln or "spill" in ln or "stack" in ln],
+        "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
+                         if "registers" in ln or "spill" in ln or "stack" in ln]
+                  for name in sources},
     })
 
     # --- inputs ----------------------------------------------------------
@@ -349,6 +793,9 @@ def main() -> int:
         })
     emit({"phase": "block_kernel", "lanes": 4096, "live_lanes": shapes["block"]["live"],
           "ms": shapes["block"]["ms"], "bound_ms": shapes["block"]["bound_ms"]})
+
+    # --- MVCC: kernel vs plain, config #4, the resident chain --------------
+    kernels += mvcc_phases(torch, np, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz,
           "imad_per_verify": pk.IMAD_PER_VERIFY})

@@ -1,0 +1,323 @@
+"""Proto3 wire format for the ledger's rwset messages, without protobuf.
+
+The port's ledger path runs where no protobuf runtime is installed, so the
+few messages it reads and writes are described here as tables (field number
+-> `Field`) and one reader and one writer walk them. The tables follow the
+JAX package's `protos/src/{kv_rwset,rwset,txmgr_updates}.proto`.
+
+A decoded message is a dict that holds only the fields present on the wire:
+a scalar or string under its name (read it with `.get(name, default)`), a
+repeated field as a list, an embedded message as a dict. The key of an
+embedded message is present whenever the message was on the wire, even
+empty, which keeps proto's `HasField`.
+
+Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
+
+- unknown fields are skipped, groups included, and so is a known field that
+  arrives with another wire type than its own;
+- a singular scalar, string or bytes field keeps its last value; a repeated
+  field appends; a singular message that appears twice is merged, field by
+  field; a member of a oneof replaces the other member, and merges only
+  with itself;
+- truncated input, a varint longer than 10 bytes, a tag longer than 5 bytes
+  or above 2^32 - 1, field number 0, wire types 6 and 7, an unmatched group
+  end, messages and groups nested more than 100 deep, and a string field
+  that is not UTF-8 raise `WireError`.
+
+Encoding writes what protobuf's `SerializeToString` writes for the same
+message: fields in field-number order, proto3 defaults (0, false, empty
+string or bytes) left out of singular fields, embedded messages whenever
+present (an empty dict writes an empty but present message), every element
+of a repeated field.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional
+
+_VARINT, _I64, _LEN, _SGROUP, _EGROUP, _I32 = 0, 1, 2, 3, 4, 5
+_MASK64 = (1 << 64) - 1
+_MASK32 = (1 << 32) - 1
+
+_VARINT_KINDS = frozenset(("uint64", "uint32", "bool", "enum"))
+# protobuf's nesting limit: embedded messages and groups together
+_MAX_DEPTH = 100
+
+
+class WireError(ValueError):
+    """Malformed proto wire bytes (protobuf's DecodeError)."""
+
+
+class Field(NamedTuple):
+    name: str
+    kind: str  # uint64, uint32, bool, enum, string, bytes or message
+    repeated: bool = False
+    message: Optional[Dict[int, "Field"]] = None
+    oneof: Optional[str] = None
+
+    @property
+    def wire_type(self) -> int:
+        return _VARINT if self.kind in _VARINT_KINDS else _LEN
+
+
+Schema = Dict[int, Field]
+
+
+def _msg(name: str, schema: Schema, repeated: bool = False, oneof: Optional[str] = None) -> Field:
+    return Field(name, "message", repeated, schema, oneof)
+
+
+# kvrwset (kv_rwset.proto)
+VERSION: Schema = {1: Field("block_num", "uint64"), 2: Field("tx_num", "uint64")}
+KV_READ: Schema = {1: Field("key", "string"), 2: _msg("version", VERSION)}
+KV_WRITE: Schema = {
+    1: Field("key", "string"),
+    2: Field("is_delete", "bool"),
+    3: Field("value", "bytes"),
+}
+KV_METADATA_ENTRY: Schema = {1: Field("name", "string"), 2: Field("value", "bytes")}
+KV_METADATA_WRITE: Schema = {
+    1: Field("key", "string"),
+    2: _msg("entries", KV_METADATA_ENTRY, repeated=True),
+}
+QUERY_READS: Schema = {1: _msg("kv_reads", KV_READ, repeated=True)}
+QUERY_READS_MERKLE_SUMMARY: Schema = {
+    1: Field("max_degree", "uint32"),
+    2: Field("max_level", "uint32"),
+    3: Field("max_level_hashes", "bytes", repeated=True),
+}
+RANGE_QUERY_INFO: Schema = {
+    1: Field("start_key", "string"),
+    2: Field("end_key", "string"),
+    3: Field("itr_exhausted", "bool"),
+    4: _msg("raw_reads", QUERY_READS, oneof="reads_info"),
+    5: _msg("reads_merkle_hashes", QUERY_READS_MERKLE_SUMMARY, oneof="reads_info"),
+}
+KV_RWSET: Schema = {
+    1: _msg("reads", KV_READ, repeated=True),
+    2: _msg("range_queries_info", RANGE_QUERY_INFO, repeated=True),
+    3: _msg("writes", KV_WRITE, repeated=True),
+    4: _msg("metadata_writes", KV_METADATA_WRITE, repeated=True),
+}
+KV_READ_HASH: Schema = {1: Field("key_hash", "bytes"), 2: _msg("version", VERSION)}
+KV_WRITE_HASH: Schema = {
+    1: Field("key_hash", "bytes"),
+    2: Field("is_delete", "bool"),
+    3: Field("value_hash", "bytes"),
+}
+KV_METADATA_WRITE_HASH: Schema = {
+    1: Field("key_hash", "bytes"),
+    2: _msg("entries", KV_METADATA_ENTRY, repeated=True),
+}
+HASHED_RWSET: Schema = {
+    1: _msg("hashed_reads", KV_READ_HASH, repeated=True),
+    2: _msg("hashed_writes", KV_WRITE_HASH, repeated=True),
+    3: _msg("metadata_writes", KV_METADATA_WRITE_HASH, repeated=True),
+}
+
+# rwset (rwset.proto)
+COLLECTION_HASHED_RWSET: Schema = {
+    1: Field("collection_name", "string"),
+    2: Field("hashed_rwset", "bytes"),
+    3: Field("pvt_rwset_hash", "bytes"),
+}
+NS_RWSET: Schema = {
+    1: Field("namespace", "string"),
+    2: Field("rwset", "bytes"),
+    3: _msg("collection_hashed_rwset", COLLECTION_HASHED_RWSET, repeated=True),
+}
+TX_RWSET: Schema = {
+    1: Field("data_model", "enum"),
+    2: _msg("ns_rwset", NS_RWSET, repeated=True),
+}
+
+# txmgr (txmgr_updates.proto): the commit hash's update bytes
+TXMGR_KV_WRITE: Schema = {
+    1: Field("namespace", "bytes"),
+    2: Field("collection", "bytes"),
+    3: Field("key", "bytes"),
+    4: Field("isDelete", "bool"),
+    5: Field("value", "bytes"),
+    6: Field("version_bytes", "bytes"),
+}
+UPDATES: Schema = {1: _msg("kvwrites", TXMGR_KV_WRITE, repeated=True)}
+
+
+# ---------------------------------------------------------------------------
+# Reader
+# ---------------------------------------------------------------------------
+
+
+def _varint(buf: bytes, pos: int, end: int):
+    result = 0
+    shift = 0
+    while True:
+        if pos >= end:
+            raise WireError("truncated varint")
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if b < 0x80:
+            return result & _MASK64, pos
+        shift += 7
+        if shift >= 70:
+            raise WireError("varint longer than 10 bytes")
+
+
+def _tag(buf: bytes, pos: int, end: int):
+    result = 0
+    shift = 0
+    while True:
+        if pos >= end:
+            raise WireError("truncated tag")
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if b < 0x80:
+            break
+        shift += 7
+        if shift >= 35:
+            raise WireError("tag longer than 5 bytes")
+    if result > _MASK32:
+        raise WireError("tag above 2^32 - 1")
+    number, wire_type = result >> 3, result & 7
+    if number == 0:
+        raise WireError("field number 0")
+    return number, wire_type, pos
+
+
+def _length(buf: bytes, pos: int, end: int):
+    n, pos = _varint(buf, pos, end)
+    if n > end - pos:
+        raise WireError("length-delimited field runs past its message")
+    return pos + n, pos
+
+
+def _skip(buf: bytes, pos: int, end: int, number: int, wire_type: int, depth: int) -> int:
+    """Skip one field whose tag was just read; returns the position after it."""
+    if wire_type == _VARINT:
+        return _varint(buf, pos, end)[1]
+    if wire_type == _I64 or wire_type == _I32:
+        pos += 8 if wire_type == _I64 else 4
+        if pos > end:
+            raise WireError("truncated fixed-width field")
+        return pos
+    if wire_type == _LEN:
+        return _length(buf, pos, end)[0]
+    if wire_type == _SGROUP:
+        if depth >= _MAX_DEPTH:
+            raise WireError("groups nested too deep")
+        while True:
+            inner, inner_type, pos = _tag(buf, pos, end)
+            if inner_type == _EGROUP:
+                if inner != number:
+                    raise WireError("group end does not match its start")
+                return pos
+            pos = _skip(buf, pos, end, inner, inner_type, depth + 1)
+    if wire_type == _EGROUP:
+        raise WireError("group end without a start")
+    raise WireError(f"invalid wire type {wire_type}")
+
+
+def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, depth: int) -> None:
+    while pos < end:
+        number, wire_type, pos = _tag(buf, pos, end)
+        field = schema.get(number)
+        if field is None or wire_type != field.wire_type:
+            pos = _skip(buf, pos, end, number, wire_type, depth)
+            continue
+        kind = field.kind
+        if wire_type == _VARINT:
+            value, pos = _varint(buf, pos, end)
+            if kind == "bool":
+                value = value != 0
+            elif kind != "uint64":
+                value &= _MASK32
+        else:
+            stop, pos = _length(buf, pos, end)
+            if kind == "message":
+                if field.repeated:
+                    value = {}
+                else:
+                    value = out.get(field.name)
+                    if value is None:
+                        if field.oneof is not None:
+                            for other in schema.values():
+                                if other.oneof == field.oneof:
+                                    out.pop(other.name, None)
+                        value = {}
+                        out[field.name] = value
+                if depth >= _MAX_DEPTH:
+                    raise WireError("messages nested too deep")
+                _decode_into(field.message, buf, pos, stop, value, depth + 1)
+                pos = stop
+                if field.repeated:
+                    out.setdefault(field.name, []).append(value)
+                continue
+            value = buf[pos:stop]
+            pos = stop
+            if kind == "string":
+                try:
+                    value = value.decode("utf-8")
+                except UnicodeDecodeError as exc:
+                    raise WireError(f"field {field.name} is not UTF-8") from exc
+        if field.repeated:
+            out.setdefault(field.name, []).append(value)
+        else:
+            out[field.name] = value
+
+
+def decode(schema: Schema, data: bytes) -> dict:
+    """Parse `data` as the message `schema` describes, or raise WireError."""
+    buf = bytes(data)
+    out: dict = {}
+    _decode_into(schema, buf, 0, len(buf), out, 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Writer
+# ---------------------------------------------------------------------------
+
+
+def _put_varint(out: bytearray, n: int) -> None:
+    n &= _MASK64
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+
+
+def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
+    for number in sorted(schema):
+        field = schema[number]
+        value = msg.get(field.name)
+        if value is None:
+            continue
+        values: List = value if field.repeated else [value]
+        for v in values:
+            if field.kind == "message":
+                body = bytearray()
+                _encode_into(field.message, v, body)
+                _put_varint(out, number << 3 | _LEN)
+                _put_varint(out, len(body))
+                out += body
+            elif field.wire_type == _VARINT:
+                if not v and not field.repeated:
+                    continue
+                _put_varint(out, number << 3 | _VARINT)
+                _put_varint(out, int(v))
+            else:
+                raw = v.encode("utf-8") if field.kind == "string" else bytes(v)
+                if not raw and not field.repeated:
+                    continue
+                _put_varint(out, number << 3 | _LEN)
+                _put_varint(out, len(raw))
+                out += raw
+
+
+def encode(schema: Schema, msg: dict) -> bytes:
+    """Serialize `msg` (a dict in `decode`'s form) byte for byte as protobuf would."""
+    out = bytearray()
+    _encode_into(schema, msg, out)
+    return bytes(out)

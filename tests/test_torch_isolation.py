@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package, and its device entry
-point refuses to run without a card instead of falling back to the CPU."""
+"""The port imports neither JAX, nor the JAX package, nor protobuf (the
+card's machine has none), and its device entry points refuse to run without
+a card instead of falling back to the CPU."""
 
 import json
 import subprocess
@@ -23,13 +24,20 @@ for name in names:
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
+    or m == "google.protobuf" or m.startswith("google.protobuf.")
 )
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
-try:
-    CUDAProvider()
-    refused = None
-except RuntimeError as exc:
-    refused = str(exc)
+from fabric_tpu_torch.ledger.mvcc_device import DeviceValidator, ResidentDeviceValidator
+from fabric_tpu_torch.ledger.statedb import VersionedDB
+refused = {}
+for name, make in (("CUDAProvider", CUDAProvider),
+                   ("DeviceValidator", lambda: DeviceValidator(VersionedDB())),
+                   ("ResidentDeviceValidator", lambda: ResidentDeviceValidator(VersionedDB()))):
+    try:
+        make()
+        refused[name] = None
+    except RuntimeError as exc:
+        refused[name] = str(exc)
 print(json.dumps({"modules": names, "leaked": leaked, "refused": refused}))
 """
 
@@ -42,9 +50,12 @@ def test_port_imports_no_jax_and_needs_a_card():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fabric_tpu_torch.ops.p256_kernel" in report["modules"]
     assert "fabric_tpu_torch.crypto.cuda_provider" in report["modules"]
+    assert "fabric_tpu_torch.ledger.mvcc_device" in report["modules"]
+    assert "fabric_tpu_torch.protos.wire" in report["modules"]
     assert report["leaked"] == []
     if not torch.cuda.is_available():
-        assert report["refused"], "CUDAProvider() must raise without a card"
+        for name, refused in report["refused"].items():
+            assert refused, f"{name}() must raise without a card"
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
