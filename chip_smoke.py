@@ -27,14 +27,18 @@ The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
   7. mvcc_5k: BASELINE config #4 (bench.py bench_mvcc), a 5,000-tx block
      through serialize -> parse -> DeviceValidator: codes and updates equal
      to the host oracle's, 500 conflicts;
-  8. mvcc_resident_chain: 20 blocks of 5,000 Zipf-skewed txs through
-     kvledger.commit_block_state with a ResidentDeviceValidator over
-     1,000,000 committed keys, against a second state DB behind the host
-     oracle: codes, update batches and the chained commit hash equal every
-     block; blocks 7 (range query) and 13 (metadata write) take the host
-     route, a generation bump before block 16 drops and rebuilds the
-     table, and K6 launches 18 times;
-  9. each kernel's time at its main-path shapes, its plain version's time
+  8. mvcc_resident_5k: config #4's resident blocks (bench.py bench_mvcc,
+     its resident variant), 4 blocks through kvledger.commit_block_state
+     with a ResidentDeviceValidator against a second state DB behind the
+     host oracle: codes, update batches and the chained commit hash equal,
+     500 conflicts a block; K6's time and bound are taken at block 4, in
+     the steady state;
+  9. mvcc_resident_chain, a correctness and capacity check: 20 blocks of
+     5,000 Zipf-skewed txs over 1,000,000 committed keys, held to the host
+     oracle block by block as in 8; blocks 7 (range query) and 13 (metadata
+     write) take the host route, a generation bump before block 16 drops
+     and rebuilds the table, and K6 launches 18 times;
+ 10. each kernel's time at its main-path shapes, its plain version's time
      and its bound, then the card's name and power limit.
 
 Signature inputs are signed by the port's oracle with fixed keys and
@@ -81,6 +85,7 @@ def nvidia_smi(query: str) -> str:
 
 MVCC_SEED = 20261017
 MVCC_TXS = 5000  # BASELINE config #4's block (bench.py bench_mvcc)
+RESIDENT_BLOCKS = 4  # block 1 seeds the table; 2-4 are the steady state
 CHAIN_BLOCKS = 20
 CHAIN_KEYS = 1_000_000
 CHAIN_HASHED_KEYS = 50_000
@@ -142,16 +147,18 @@ def mvcc_kernel_cases(np):
     return k5, k6
 
 
-def mvcc_config4_rwsets(rw, n_txs=MVCC_TXS):
+def mvcc_config4_rwsets(rw, n_txs=MVCC_TXS, ver=None):
     """bench.py bench_mvcc: every tx reads its own key at the committed
     version and writes it; every 10th (i % 10 == 5) reads its neighbour's
-    key, which the neighbour already wrote: 500 MVCC_READ_CONFLICT."""
+    key, which the neighbour already wrote: 500 MVCC_READ_CONFLICT. `ver`
+    maps key i to its committed version (the resident blocks' bookkeeping);
+    without it every key is at (0, i)."""
     out = []
     for i in range(n_txs):
-        read_key = f"k{i - 1}" if i % 10 == 5 else f"k{i}"
-        read_ver = rw.Version(0, i - 1 if i % 10 == 5 else i)
+        rk = i - 1 if i % 10 == 5 else i
+        read_ver = rw.Version(*ver[rk]) if ver is not None else rw.Version(0, rk)
         out.append(rw.TxRwSet((rw.NsRwSet(
-            "cc", (rw.KVRead(read_key, read_ver),), (rw.KVWrite(f"k{i}", False, b"v1"),),
+            "cc", (rw.KVRead(f"k{rk}", read_ver),), (rw.KVWrite(f"k{i}", False, b"v1"),),
         ),)))
     return out
 
@@ -252,18 +259,35 @@ def seeded_chain_db(statedb, rw):
     return dbs
 
 
-def mvcc_bytes(R: int, W: int, T: int, sweeps: int, I: int = 0, K: int = 0,
-               resident: bool = False) -> int:
-    """Bytes K5 (or K6) must move for this run's data: each sweep reads the
-    read and write columns (tx and key ids, 8 bytes each) and writes the
-    mask; once, the static-bad flags in and the mask out. K6 adds the init
-    scatter (index and version in, row out), the gather (slot, claimed
-    version and table row per read) and the commit (slot and version per
-    write, at most one row per key out)."""
-    n = sweeps * (8 * R + 8 * W + T) + R + T
-    if resident:
-        n += 20 * I + 20 * R + 12 * W + 8 * K
-    return n
+def k5_bytes(R: int, W: int, T: int) -> int:
+    """Bytes K5's function must move, each input read once and each output
+    written once: the read and write columns (tx and key ids, 8 bytes a
+    read and a write), a static-bad flag a read, the mask and the status
+    word. The kernel reads the columns once a sweep; its sweeps are a cost
+    of the design, which is why it sits above this bound."""
+    return 9 * R + 8 * W + T + 4
+
+
+def k6_bytes(np, cap: int, args, valid) -> int:
+    """Bytes K6's function must move for this run's data, each once: the
+    columns (init slot and version, 12 bytes an init; slot, claimed
+    version, tx and key id, 20 bytes a read; tx, key id, slot and version,
+    20 bytes a write), the mask and the status word; each distinct table
+    row gathered that no init overwrites (8 bytes in) and each distinct row
+    seeded or committed (8 bytes out). `valid` is the launch's mask: a row
+    is committed where the last valid writer of its key writes it."""
+    init_idx, _iv, r_gid, _rv, _rt, _rk, w_tx, w_key, w_gid, _wv = (
+        a.cpu().numpy() for a in args)
+    valid = np.asarray(valid, dtype=bool)
+    I, R, W, T = len(init_idx), len(r_gid), len(w_tx), len(valid)
+    seeded = set(init_idx[(init_idx >= 0) & (init_idx < cap)].tolist())
+    gathered = set(np.clip(r_gid, 0, cap - 1).tolist()) - seeded
+    live = valid[w_tx] if W else np.zeros(0, dtype=bool)
+    last = np.full(int(w_key.max()) + 1 if W else 0, -1)
+    np.maximum.at(last, w_key[live], w_tx[live])
+    commit = live & (w_tx == last[w_key]) & (w_gid >= 0) & (w_gid < cap)
+    written = seeded | set(w_gid[commit].tolist())
+    return 12 * I + 20 * R + 20 * W + T + 4 + 8 * len(gathered) + 8 * len(written)
 
 
 def device_ms(torch, launch, reps: int, prepare=None) -> float:
@@ -322,7 +346,7 @@ def mvcc_phases(torch, np, dev):
             raise AssertionError("mvcc_resolve_resident: kernel and plain version differ")
         err = max(int((valid.int() - pvalid.int()).abs().max().item()) if T else 0,
                   int((kt - pt).abs().max().item()))
-        return err, sweeps
+        return err, sweeps, valid.cpu().numpy()
 
     # --- kernel vs plain version on the edge-case columns -----------------
     t_phase = time.perf_counter()
@@ -331,7 +355,7 @@ def mvcc_phases(torch, np, dev):
     err5, sweeps5 = k5_vs_plain(
         (i32(r_tx), i32(r_key), torch.from_numpy(r_bad).to(dev), i32(w_tx), i32(w_key)), T, K)
     table, *cols, T6, K6 = k6
-    err6, sweeps6 = k6_vs_plain(i32(table), tuple(i32(c) for c in cols), T6, K6)
+    err6, sweeps6, _ = k6_vs_plain(i32(table), tuple(i32(c) for c in cols), T6, K6)
     if sweeps5 < 64 or sweeps6 < 64:
         raise AssertionError(f"the 64-tx chain took {sweeps5} / {sweeps6} sweeps")
     emit({"phase": "mvcc_kernel_vs_plain", "txs": T, "keys": K, "reads": len(r_tx),
@@ -403,13 +427,75 @@ def mvcc_phases(torch, np, dev):
     torch.cuda.synchronize()
     plain5 = (time.perf_counter() - t3) * 1e3
     R5, W5 = args5[0].numel(), args5[3].numel()
-    bound5 = mvcc_bytes(R5, W5, kw5["num_txs"], sweeps5b) / HBM_BYTES_PER_S * 1e3
+    bound5 = k5_bytes(R5, W5, kw5["num_txs"]) / HBM_BYTES_PER_S * 1e3
     emit({"phase": "mvcc_5k", "txs": MVCC_TXS, "conflicts": conflicts, "reads": R5,
           "writes": W5, "keys": kw5["num_keys"], "sweeps": dv.last_sweeps,
           "serialize_ms": (t1 - t0) * 1e3, "parse_ms": (t2 - t1) * 1e3,
           "host_oracle_ms": host_ms, "device_ms": block_ms, "device_split_ms": splits,
           "kernel_ms": ms5, "codes_equal_oracle": True, "updates_equal_oracle": True,
           "seconds": time.perf_counter() - t_phase})
+
+    # --- mvcc_resident_5k: config #4's resident blocks (bench.py:679-725) --
+    t_phase = time.perf_counter()
+    dev_db, host_db = statedb.VersionedDB(), statedb.VersionedDB()
+    dev_db.apply_updates(seed)
+    host_db.apply_updates(seed)
+    res = md.ResidentDeviceValidator(dev_db, device=dev)
+    host = mvcc.Validator(host_db)
+    ver = {i: (0, i) for i in range(MVCC_TXS)}
+    prev_d = prev_h = b""
+    blocks = []
+    md.resolve_resident = capture_resident
+    for k in md.LAUNCHES:
+        md.LAUNCHES[k] = 0
+    try:
+        for number in range(1, RESIDENT_BLOCKS + 1):
+            raw = [serialize_tx_rwset(r) for r in mvcc_config4_rwsets(rw, ver=ver)]
+            incoming = [VALID] * MVCC_TXS
+            t1 = time.perf_counter()
+            d = kvledger.commit_block_state(res, number, raw, incoming, prev_d)
+            t2 = time.perf_counter()
+            h = kvledger.commit_block_state(host, number, raw, incoming, prev_h)
+            t3 = time.perf_counter()
+            if (d.flags.tobytes() != h.flags.tobytes() or d.commit_hash != h.commit_hash
+                    or batches_as_values(d.updates) != batches_as_values(h.updates)):
+                raise AssertionError(f"config #4 resident block {number} differs from the oracle's")
+            conflicts = int((d.flags.asarray() == int(TxValidationCode.MVCC_READ_CONFLICT)).sum())
+            if conflicts != MVCC_TXS // 10 or res.last_path != "device":
+                raise AssertionError(f"config #4 resident block {number}: {conflicts} "
+                                     f"conflicts, path {res.last_path}")
+            prev_d, prev_h = d.commit_hash, h.commit_hash
+            for i in range(MVCC_TXS):  # bench.py: the valid txs' writes committed
+                if i % 10 != 5:
+                    ver[i] = (number, i)
+            blocks.append({"block": number, "commit_ms": (t2 - t1) * 1e3,
+                           "host_commit_ms": (t3 - t2) * 1e3, "split_ms": dict(res.last_ms),
+                           "sweeps": res.last_sweeps})
+    finally:
+        md.resolve_resident = real_resident
+    launches6 = md.LAUNCHES["mvcc_resolve_resident"]
+    if launches6 != RESIDENT_BLOCKS:
+        raise AssertionError(f"config #4 resident: {launches6} K6 launches")
+    # K6's kernels entry: the last block, in the steady state
+    table6, args6, kw6 = captured["k6"]
+    err6b, sweeps6b, valid6 = k6_vs_plain(table6, args6, kw6["num_txs"], kw6["num_keys"])
+    scratch = torch.empty_like(table6)
+    ms6 = device_ms(torch, lambda: real_resident(scratch, *args6, **kw6), 20,
+                    prepare=lambda: scratch.copy_(table6))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    md.resolve_resident_ref(table6.clone(), *args6, **kw6)
+    torch.cuda.synchronize()
+    plain6 = (time.perf_counter() - t3) * 1e3
+    cap6 = table6.shape[0]
+    I6, R6, W6 = args6[0].numel(), args6[2].numel(), args6[6].numel()
+    bound6 = k6_bytes(np, cap6, args6, valid6) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "mvcc_resident_5k", "blocks": RESIDENT_BLOCKS, "txs_per_block": MVCC_TXS,
+          "committed_keys": MVCC_TXS, "capacity": res.capacity, "slots_used": res.slots_used,
+          "last_block": {"inits": I6, "reads": R6, "writes": W6, "keys": kw6["num_keys"],
+                         "sweeps": sweeps6b},
+          "kernel_ms": ms6, "commit_hash": prev_d.hex(), "per_block": blocks,
+          "codes_updates_hashes_equal_oracle": True, "seconds": time.perf_counter() - t_phase})
 
     # --- mvcc_resident_chain: 20 blocks, 1M keys, the commit hash chain ----
     t_phase = t0 = time.perf_counter()
@@ -452,45 +538,38 @@ def mvcc_phases(torch, np, dev):
             })
     finally:
         md.resolve_resident = real_resident
-    launches6 = md.LAUNCHES["mvcc_resolve_resident"]
+    chain_launches = md.LAUNCHES["mvcc_resolve_resident"]
     paths = [b["path"] for b in blocks]
     want_paths = ["host" if n in (7, 13) else "device" for n in range(1, CHAIN_BLOCKS + 1)]
-    if paths != want_paths or launches6 != CHAIN_BLOCKS - 2:
-        raise AssertionError(f"resident chain routes {paths}, {launches6} launches")
+    if paths != want_paths or chain_launches != CHAIN_BLOCKS - 2:
+        raise AssertionError(f"resident chain routes {paths}, {chain_launches} launches")
     if res.invalidations != 1:
         raise AssertionError(f"the stale table was dropped {res.invalidations} times, not once")
-    table6, args6, kw6 = captured["k6"]
-    err6b, sweeps6b = k6_vs_plain(table6, args6, kw6["num_txs"], kw6["num_keys"])
-    scratch = torch.empty_like(table6)
-    ms6 = device_ms(torch, lambda: real_resident(scratch, *args6, **kw6), 10,
-                    prepare=lambda: scratch.copy_(table6))
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    md.resolve_resident_ref(table6.clone(), *args6, **kw6)
-    torch.cuda.synchronize()
-    plain6 = (time.perf_counter() - t3) * 1e3
-    I6, R6, W6 = args6[0].numel(), args6[2].numel(), args6[5].numel()
-    bound6 = mvcc_bytes(R6, W6, kw6["num_txs"], sweeps6b, I6, kw6["num_keys"],
-                        resident=True) / HBM_BYTES_PER_S * 1e3
+    tablec, argsc, kwc = captured["k6"]
+    errc, sweepsc, _ = k6_vs_plain(tablec, argsc, kwc["num_txs"], kwc["num_keys"])
+    scratchc = torch.empty_like(tablec)
+    msc = device_ms(torch, lambda: real_resident(scratchc, *argsc, **kwc), 10,
+                    prepare=lambda: scratchc.copy_(tablec))
     emit({"phase": "mvcc_resident_chain", "blocks": CHAIN_BLOCKS, "txs_per_block": MVCC_TXS,
           "committed_keys": CHAIN_KEYS, "hashed_keys": CHAIN_HASHED_KEYS,
           "setup_seconds": setup_s, "capacity": res.capacity, "slots_used": res.slots_used,
-          "invalidations": res.invalidations, "device_blocks": launches6,
-          "last_block": {"inits": I6, "reads": R6, "writes": W6, "keys": kw6["num_keys"],
-                         "sweeps": sweeps6b},
-          "kernel_ms": ms6, "commit_hash": prev_d.hex(), "per_block": blocks,
+          "invalidations": res.invalidations, "device_blocks": chain_launches,
+          "last_block": {"inits": argsc[0].numel(), "reads": argsc[2].numel(),
+                         "writes": argsc[6].numel(), "keys": kwc["num_keys"],
+                         "sweeps": sweepsc, "max_abs_err": errc},
+          "kernel_ms": msc, "commit_hash": prev_d.hex(), "per_block": blocks,
           "codes_updates_hashes_equal_oracle": True, "seconds": time.perf_counter() - t_phase})
 
     return [
         {"name": "mvcc_resolve", "route": "cuda", "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
          "replaces": "fabric_tpu/ledger/mvcc_device.py:85", "launches": launches5,
          "max_abs_err": max(err5, err5b), "ms": ms5, "plain_ms": plain5, "bound_ms": bound5,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "sweeps": sweeps5b, "library_ms": None},
         {"name": "mvcc_resolve_resident", "route": "cuda",
          "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
          "replaces": "fabric_tpu/ledger/mvcc_device.py:268", "launches": launches6,
-         "max_abs_err": max(err6, err6b), "ms": ms6, "plain_ms": plain6, "bound_ms": bound6,
-         "bound_by": "bytes", "library_ms": None},
+         "max_abs_err": max(err6, err6b, errc), "ms": ms6, "plain_ms": plain6,
+         "bound_ms": bound6, "bound_by": "bytes", "sweeps": sweeps6b, "library_ms": None},
     ]
 
 

@@ -36,11 +36,13 @@
 // (lexicographic; a delete, (-1, -1), over a put), which is the host
 // oracle's rule that a transaction's delete of a key wins over its put.
 //
-// Bound. Both kernels move few bytes and do almost no arithmetic: a sweep
-// reads r_tx, r_key, w_tx, w_key (8 bytes per read and per write) and the
-// validity mask, so at a 5,000-transaction block a sweep is about 85 KB,
-// 25 ns at 3.35 TB/s. What bounds them is latency: each phase is a
-// dependent round trip to L2 or device memory behind a block-wide barrier,
+// Bound. Both kernels move few bytes and do almost no arithmetic. The
+// function needs each column once: at a 5,000-transaction block with one
+// read and one write a transaction, K5's r_tx, r_key, w_tx, w_key, flags
+// and mask are about 90 KB, 27 ns at 3.35 TB/s. This design reads the
+// columns again in every sweep, which is one reason it sits above that
+// bound; the larger one is latency: each phase is a dependent round trip
+// to L2 or device memory behind a block-wide barrier,
 // four barriers a sweep, and the launch itself. The design takes that
 // head on in the simplest form: one launch runs every sweep (no host round
 // trip between sweeps), and one block of 1,024 threads makes the barrier a

@@ -14,7 +14,7 @@ as the JAX package's own variant test traces them: the same math (that test
 holds the variants to the oracle) with a sixth of the graph, which XLA:CPU
 compiles in about 8 GB where the default CPU variant takes about 20 GB.
 Every JAX verify program of the port's tests lives in this module and runs
-in a child process of its own, which hands that memory back when it exits.
+in one child process, which hands that memory back when it exits.
 """
 
 import hashlib
@@ -166,11 +166,10 @@ def _torch(a):
     return t.to(torch.int64) if t.dtype == torch.uint32 else t
 
 
-def _jax_child(route):
+def _jax_child():
     """Run in a child process (see `jax_side`): print, as one JSON line,
-    the JAX kernel's mask on the edge batch and TPUProvider's mask on the
-    provider vectors of one route, through the one compiled program of
-    that route."""
+    the JAX kernels' masks on the edge batch and TPUProvider's masks on the
+    provider vectors, through the same two compiled programs."""
     import jax
 
     from fabric_tpu.crypto.bccsp import ECDSAPublicKey as JaxKey
@@ -181,61 +180,55 @@ def _jax_child(route):
     jax.config.update("jax_platforms", "cpu")
     enable_compile_cache()
     batch = _build_batch()
-    program = jax.jit(
-        {"limbs": jpk.verify_batch_device, "bytes": jpk.verify_batch_bytes_device}[route]
-    )
-    calls = []
+    calls = {"limbs": 0, "bytes": 0}
+    limb_jit = jax.jit(jpk.verify_batch_device)
+    bytes_jit = jax.jit(jpk.verify_batch_bytes_device)
 
-    def counted(*args):
-        calls.append(route)
-        return program(*args)
+    def limbs(*args):
+        calls["limbs"] += 1
+        return limb_jit(*args)
 
-    def other(*args):
-        calls.append("other")
-        raise AssertionError(f"the {route} route called the other program")
+    def bytes_(*args):
+        calls["bytes"] += 1
+        return bytes_jit(*args)
 
-    out = {route: [bool(v) for v in np.asarray(counted(*batch[route]))]}
+    def mask(out):
+        return [bool(v) for v in np.asarray(out)]
+
+    out = {"limbs": mask(limbs(*batch["limbs"])), "bytes": mask(bytes_(*batch["bytes"]))}
     tpu = TPUProvider()
-    tpu._pk = SimpleNamespace(
-        verify_batch_jit=counted if route == "limbs" else other,
-        verify_batch_bytes_jit=counted if route == "bytes" else other,
-    )
-    cases = _provider_vectors()[route]
-    out[f"tpu_{route}"] = tpu.batch_verify(*columns(cases, JaxKey))
+    tpu._pk = SimpleNamespace(verify_batch_jit=limbs, verify_batch_bytes_jit=bytes_)
+    for route, cases in _provider_vectors().items():
+        out[f"tpu_{route}"] = tpu.batch_verify(*columns(cases, JaxKey))
     out["calls"] = calls
     print(json.dumps(out))
 
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """The JAX side, computed once per module in one child process per
-    route, one after the other: XLA:CPU's compile memory (about 6 GB for
-    one program, 7.5 GB for both in one process) is returned when each
-    child exits instead of staying with the test worker for the rest of
-    the run."""
+    """The JAX side, computed once per module in a child process: XLA:CPU's
+    compile memory (about 8 GB for the two programs) is returned when the
+    child exits instead of staying with the test worker for the rest of the
+    run."""
     env = dict(os.environ)
     env.update(
         JAX_PLATFORMS="cpu",
         FABRIC_TPU_CIOS_UNROLL="0",
         FABRIC_TPU_KERNEL_VARIANT="micro",
     )
-    out = {}
-    for route in ROUTES:
-        code = (
-            "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
-            f"import test_torch_p256; test_torch_p256._jax_child({route!r})"
-        )
-        proc = subprocess.run(
-            [sys.executable, "-c", code, str(TESTS), str(TESTS.parent)],
-            capture_output=True, text=True, env=env, timeout=1200, check=False,
-        )
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        part = json.loads(proc.stdout.strip().splitlines()[-1])
-        # one direct call of the route's program and one through
-        # TPUProvider: no provider batch fell back to its software path
-        # or reached the other route
-        assert part.pop("calls") == [route, route]
-        out.update(part)
+    code = (
+        "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+        "import test_torch_p256; test_torch_p256._jax_child()"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(TESTS), str(TESTS.parent)],
+        capture_output=True, text=True, env=env, timeout=1200, check=False,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    # one direct call of each program and one through each TPUProvider
+    # route: no provider batch fell back to its software path
+    assert out.pop("calls") == {"limbs": 2, "bytes": 2}
     return out
 
 
