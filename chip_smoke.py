@@ -39,12 +39,31 @@ The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
      write) take the host route, a generation bump before block 16 drops
      and rebuilds the table, and K6 launches 18 times;
  10. each kernel's time at its main-path shapes, its plain version's time
-     and its bound, then the card's name and power limit.
+     and its bound.
+
+Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
+
+ 11. idemix_kernel_vs_plain: K3 (the G1 MSM) at K = 8 over edge lanes
+     (identity bases, zero scalars, e = 1, e = r - 1, r * G = O, equal
+     bases, random) and K4 (the Ate2 pairing check) at 8 lanes (true,
+     false, None, identity ABar), every output word against the plain
+     versions, the Miller values and final-exponentiated values included;
+ 12. idemix_config3: bench.py's config #3 (8 unique signatures from
+     random.Random(1234), every attribute hidden, an unsigned
+     ALG_NO_REVOCATION CRI) tiled to 64 and 256 signatures through
+     verify_signatures_batch: masks all True and equal to the scheme
+     oracle, ms per signature, the host/K4/K3/challenge split, each
+     kernel's time, the oracle's ms per signature over 4 signatures;
+ 13. idemix_mask: a mixed batch (wrong message, proof_s_sk + 1, a wrong
+     disclosed value, ABar doubled, ABar and A' the identity, a wrong count
+     of s-values) held lane by lane to the scheme oracle;
+ 14. the kernels line, then the card's name and power limit.
 
 Signature inputs are signed by the port's oracle with fixed keys and
 nonces, a known subset corrupted (flipped digest, wrong key, s+1, high-S,
 bad DER, r = 0, r = n, off-curve key); the expected masks come from the
-oracle. MVCC inputs come from fixed numpy seeds. Any
+oracle. MVCC inputs come from fixed numpy seeds, Idemix inputs from
+random.Random seeds. Any
 mismatch or error exits non-zero. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -573,6 +592,309 @@ def mvcc_phases(torch, np, dev):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Idemix (K3, K4): BASELINE config #3's batch verification
+# ---------------------------------------------------------------------------
+
+IDEMIX_SEED = 1234  # bench.py bench_idemix's random.Random(1234)
+
+
+def word_diff(torch, a, b) -> int:
+    """Largest absolute difference of two integer tensors, word by word
+    (int32 words are read as unsigned)."""
+    a, b = a.cpu().to(torch.int64), b.cpu().to(torch.int64)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} and {tuple(b.shape)}")
+    return int((a & 0xFFFFFFFF).sub(b & 0xFFFFFFFF).abs().max().item()) if a.numel() else 0
+
+
+def msm_edge_lanes(host, rng):
+    """K = 8 lanes with the edge cases of the MSM: identity bases, zero
+    scalars, e = 1, e = r - 1, r * G = O, equal bases (doubling inside the
+    complete addition), and random bases and scalars."""
+    def rand_point():
+        return host.g1_mul(host.G1_GEN, rng.randrange(1, host.R))
+
+    g, r = host.G1_GEN, host.R
+    p, q = rand_point(), rand_point()
+    lanes = [
+        ([None] * 8, [rng.randrange(r) for _ in range(8)]),  # identity bases
+        ([rand_point() for _ in range(8)], [0] * 8),  # zero scalars
+        ([g] + [None] * 7, [1] + [0] * 7),  # e = 1
+        ([g] + [None] * 7, [r - 1] + [0] * 7),  # e = r - 1
+        ([g, g] + [None] * 6, [r - 1, 1] + [0] * 6),  # r * G = O
+        ([p, p, p, p] + [None] * 4, [5, 5, 2 ** 200 + 7, 3] + [0] * 4),  # equal bases
+        ([p, q, p, q, g, None, p, q], [rng.randrange(r) for _ in range(8)]),
+    ]
+    lanes += [([rand_point() for _ in range(8)], [rng.randrange(r) for _ in range(8)])
+              for _ in range(5)]
+    return lanes
+
+
+def idemix_kernel_vs_plain(torch, np, dev):
+    """K3 and K4 against their plain versions on the card at small sizes,
+    every output word compared; returns each kernel's largest difference."""
+    import random
+
+    from fabric_tpu_torch.common import fp256bn as host
+    from fabric_tpu_torch.ops import bn256_kernel as bk
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+
+    t_phase = time.perf_counter()
+    rng = random.Random(IDEMIX_SEED + 1)
+    lanes = msm_edge_lanes(host, rng)
+    bases, scalars = bk.pack_batch([b for b, _ in lanes], [e for _, e in lanes])
+    bases, scalars = torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev)
+    got = bk.msm_batch(bases, scalars)
+    torch.cuda.synchronize()
+    plain = bk.msm_batch_ref(bases, scalars)
+    torch.cuda.synchronize()
+    err3 = word_diff(torch, got, plain)
+    want = []
+    for bs, es in lanes:
+        acc = None
+        for b, e in zip(bs, es):
+            acc = host.g1_add(acc, host.g1_mul(b, e))
+        want.append(acc)
+    if err3 or bk.unpack_points(got) != want:
+        raise AssertionError(f"bn256_msm: kernel, plain version and oracle differ ({err3})")
+
+    gamma = rng.randrange(1, host.R)
+    w = host.g2_mul(host.G2_GEN, gamma)
+    tables = pkn.Ate2Kernel(w, device=dev).tables
+    a = [host.g1_mul(host.G1_GEN, rng.randrange(1, host.R)) for _ in range(6)]
+    pairs = [
+        (a[0], host.g1_mul(a[0], gamma)),  # true
+        (a[1], host.g1_mul(a[1], (gamma + 1) % host.R)),  # false
+        None,
+        (a[2], None),  # ABar = identity
+        (a[3], host.g1_mul(a[3], gamma)),
+        (a[4], host.g1_add(host.g1_mul(a[4], gamma), host.G1_GEN)),
+        (a[5], host.g1_mul(a[5], gamma)),
+        (host.G1_GEN, host.g1_mul(host.G1_GEN, gamma)),
+    ]
+    want4 = [True, False, False, False, True, False, True, True]
+    cols = pkn.lane_columns(pairs, dev)
+    words = pkn.miller2_words(tables, *cols[:4])
+    torch.cuda.synchronize()
+    plain_words = pkn.miller2_values_ref_words(tables, *cols[:4])
+    err4 = word_diff(torch, words, plain_words)
+    mask = pkn.unity_check(tables, *cols)
+    torch.cuda.synchronize()
+    plain_mask = pkn.unity_check_ref(tables, *cols)
+    if err4 or mask.tolist() != plain_mask.tolist():
+        raise AssertionError(f"ate2_unity: kernel and plain version differ ({err4})")
+    if mask.tolist() != want4:
+        raise AssertionError(f"ate2_unity: mask {mask.tolist()}, expected {want4}")
+    f1, f2, fe = pkn.words_to_host(words)[0]  # the true pair
+    if (f1 != host.miller_loop(w, pairs[0][0]) or f2 != host.miller_loop(host.G2_GEN, pairs[0][1])
+            or not host.gt_is_unity(fe)):
+        raise AssertionError("ate2_debug: lane 0 differs from the host oracle's")
+    emit({"phase": "idemix_kernel_vs_plain", "msm_lanes": len(lanes), "msm_k": 8,
+          "pairing_lanes": len(pairs), "max_abs_err": {"bn256_msm": err3, "ate2_unity": err4},
+          "mask": mask.tolist(), "identical": True, "seconds": time.perf_counter() - t_phase})
+    return {"bn256_msm": err3, "ate2_unity": err4}
+
+
+IDEMIX_ATTRS = ["OU", "Role", "EnrollmentID", "RevocationHandle"]
+IDEMIX_VALUES = [11, 22, 33, 44]
+IDEMIX_RH_INDEX = 3
+IDEMIX_MSG = b"idemix bench message"
+IDEMIX_SIZES = (64, 256)  # bench.py's ladder sizes from which it accepts (bench.py:555-563)
+IDEMIX_UNIQUE = 8
+IDEMIX_ORACLE_SIGS = 4  # bench.py's n_host
+
+
+def idemix_world(random):
+    """bench.py bench_idemix (bench.py:439-606) with the port's issuance:
+    random.Random(1234), four attributes with values 11, 22, 33, 44, the
+    revocation handle at 3, an unsigned ALG_NO_REVOCATION CRI, every
+    attribute hidden, and 8 unique signatures of one message."""
+    from fabric_tpu_torch import idemix
+    from fabric_tpu_torch.common import fp256bn as host
+
+    rng = random.Random(IDEMIX_SEED)
+    ik = idemix.new_issuer_key(IDEMIX_ATTRS, rng)
+    ipk = ik["ipk"]
+    sk = host.rand_mod_order(rng)
+    nonce = host.big_to_bytes(host.rand_mod_order(rng))
+    req = idemix.new_cred_request(sk, nonce, ipk, rng)
+    cred = idemix.new_credential(ik, req, IDEMIX_VALUES, rng)
+    cri = {"revocation_alg": idemix.ALG_NO_REVOCATION}
+
+    def sign(disclosure, msg):
+        nym, r_nym = idemix.make_nym(sk, ipk, rng)
+        return idemix.new_signature(cred, sk, nym, r_nym, ipk, disclosure, msg,
+                                    IDEMIX_RH_INDEX, cri, rng)
+
+    uniq = [sign([0, 0, 0, 0], IDEMIX_MSG) for _ in range(IDEMIX_UNIQUE)]
+    return ipk, uniq, sign
+
+
+def idemix_phases(torch, np, dev, imad_rate):
+    """The Idemix phases; returns the K3 and K4 entries of the kernels line."""
+    import copy
+    import random
+
+    from fabric_tpu_torch.common import fp256bn as host
+    from fabric_tpu_torch.idemix import batch as ib
+    from fabric_tpu_torch.idemix import scheme
+    from fabric_tpu_torch.ops import bn256_kernel as bk
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+
+    errs = idemix_kernel_vs_plain(torch, np, dev)
+
+    # --- idemix_config3: BASELINE config #3 through verify_signatures_batch --
+    t_phase = time.perf_counter()
+    ipk, uniq, sign = idemix_world(random)
+    setup_s = time.perf_counter() - t_phase
+    hidden = [0, 0, 0, 0]
+
+    def batch_args(count):
+        return ([uniq[i % len(uniq)] for i in range(count)], [hidden] * count, ipk,
+                [IDEMIX_MSG] * count, [[None] * 4] * count, IDEMIX_RH_INDEX)
+
+    ib.verify_signatures_batch(*batch_args(1), backend="scheme")  # warm-up
+    t0 = time.perf_counter()
+    oracle_sample = ib.verify_signatures_batch(*batch_args(IDEMIX_ORACLE_SIGS), backend="scheme")
+    oracle_ms_per_sig = (time.perf_counter() - t0) * 1e3 / IDEMIX_ORACLE_SIGS
+    oracle_uniq = ib.verify_signatures_batch(*batch_args(IDEMIX_UNIQUE), backend="scheme")
+    if not all(oracle_sample) or not all(oracle_uniq):
+        raise AssertionError("config #3: the scheme oracle rejects a signature")
+
+    captured = {}
+    real_unity, real_msm = pkn.unity_check, bk.msm_batch
+
+    def capture_unity(*args):
+        captured["k4"] = args
+        return real_unity(*args)
+
+    def capture_msm(*args):
+        captured["k3"] = args
+        return real_msm(*args)
+
+    sizes = {}
+    pkn.unity_check, bk.msm_batch = capture_unity, capture_msm
+    ib.verify_signatures_batch(*batch_args(IDEMIX_SIZES[0]), device=dev)  # warm-up
+    for k in pkn.LAUNCHES:
+        pkn.LAUNCHES[k] = 0
+    bk.LAUNCHES["bn256_msm"] = 0
+    try:
+        for size in IDEMIX_SIZES:
+            ms, splits = [], []
+            for _ in range(3):
+                split = {}
+                t0 = time.perf_counter()
+                mask = ib.verify_signatures_batch(*batch_args(size), device=dev, split_ms=split)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                splits.append(split)
+                if not all(mask) or mask[:IDEMIX_UNIQUE] != oracle_uniq[:size]:
+                    raise AssertionError(f"config #3 at {size}: mask differs from the oracle's")
+            sizes[size] = {"ms_per_sig": [m / size for m in ms], "split_ms": splits,
+                           "k4": captured["k4"], "k3": captured["k3"]}
+    finally:
+        pkn.unity_check, bk.msm_batch = real_unity, real_msm
+    launches = {"ate2_unity": pkn.LAUNCHES["ate2_unity"], "bn256_msm": bk.LAUNCHES["bn256_msm"]}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched on the config #3 path")
+
+    # each kernel's time at the path's shapes (CUDA events), its plain
+    # version's on the same inputs, its bound
+    for size, sh in sizes.items():
+        k4, k3 = sh["k4"], sh["k3"]
+        sh["k4_ms"] = device_ms(torch, lambda: real_unity(*k4), 3)
+        sh["k3_ms"] = device_ms(torch, lambda: real_msm(*k3), 3)
+    big = sizes[IDEMIX_SIZES[-1]]
+    k4, k3 = big["k4"], big["k3"]
+    got4, got3 = real_unity(*k4), real_msm(*k3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain4 = pkn.unity_check_ref(*k4)
+    torch.cuda.synchronize()
+    plain4_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain3 = bk.msm_batch_ref(*k3)
+    torch.cuda.synchronize()
+    plain3_ms = (time.perf_counter() - t0) * 1e3
+    err4 = max(errs["ate2_unity"], word_diff(torch, got4, plain4))
+    err3 = max(errs["bn256_msm"], word_diff(torch, got3, plain3))
+    if err4 or err3:
+        raise AssertionError(f"config #3 shapes: kernels and plain versions differ ({err4}, {err3})")
+    tables4, cols4 = k4[0], k4[1:]
+    lanes4 = cols4[0].shape[1]
+    live4 = int(cols4[4].sum().item())
+    bytes4 = (sum(c.numel() * c.element_size() for c in cols4) + lanes4
+              + 2 * tables4.words(dev).numel() * 4 + pkn.STEPS * 4)
+    bound4 = max(live4 * pkn.IMAD_PER_LANE / imad_rate, bytes4 / HBM_BYTES_PER_S)
+    by4 = "operations" if live4 * pkn.IMAD_PER_LANE / imad_rate >= bytes4 / HBM_BYTES_PER_S else "bytes"
+    k_count, lanes3 = k3[0].shape[0], k3[0].shape[-1]
+    bytes3 = sum(t.numel() * t.element_size() for t in k3) + 3 * 20 * 8 * lanes3
+    ops3 = lanes3 * bk.imad_per_lane(k_count) / imad_rate
+    bound3 = max(ops3, bytes3 / HBM_BYTES_PER_S)
+    by3 = "operations" if ops3 >= bytes3 / HBM_BYTES_PER_S else "bytes"
+    emit({"phase": "idemix_config3", "setup_seconds": setup_s, "unique_signatures": IDEMIX_UNIQUE,
+          "oracle_ms_per_sig": oracle_ms_per_sig, "oracle_sigs": IDEMIX_ORACLE_SIGS,
+          "sizes": {str(s): {"ms_per_sig": sh["ms_per_sig"], "split_ms": sh["split_ms"],
+                             "pairing_lanes": sh["k4"][1].shape[1],
+                             "msm_lanes": sh["k3"][0].shape[-1], "msm_k": sh["k3"][0].shape[0],
+                             "k4_kernel_ms": sh["k4_ms"], "k3_kernel_ms": sh["k3_ms"]}
+                    for s, sh in sizes.items()},
+          "launches": launches, "masks_all_true_and_equal_oracle": True,
+          "seconds": time.perf_counter() - t_phase})
+
+    # --- idemix_mask: a mixed batch held lane by lane to the oracle ------
+    t_phase = time.perf_counter()
+    disclosed = [0, 1, 0, 0]
+    sig_disclosed = sign(disclosed, b"m1")
+
+    def changed(sig, **fields):
+        out = copy.deepcopy(sig)
+        out.update(fields)
+        return out
+
+    abar0 = host.g1_mul(scheme.ecp_from_proto(uniq[3]["a_bar"]), 2)
+    s_sk = (host.big_from_bytes(uniq[2]["proof_s_sk"]) + 1) % host.R
+    lanes = [
+        ("valid", uniq[0], hidden, IDEMIX_MSG, [None] * 4),
+        ("valid-disclosed", sig_disclosed, disclosed, b"m1", [None, 22, None, None]),
+        ("wrong-message", uniq[1], hidden, b"WRONG", [None] * 4),
+        ("proof-s-sk+1", changed(uniq[2], proof_s_sk=host.big_to_bytes(s_sk)), hidden,
+         IDEMIX_MSG, [None] * 4),
+        ("wrong-disclosed-value", sig_disclosed, disclosed, b"m1", [None, 999, None, None]),
+        ("abar-doubled", changed(uniq[3], a_bar=scheme.ecp_to_proto(abar0)), hidden, IDEMIX_MSG,
+         [None] * 4),
+        ("abar-identity", changed(uniq[4], a_bar=scheme.ecp_to_proto(None)), hidden, IDEMIX_MSG,
+         [None] * 4),
+        ("aprime-identity", changed(uniq[5], a_prime=scheme.ecp_to_proto(None)), hidden, IDEMIX_MSG,
+         [None] * 4),
+        ("wrong-s-value-count", changed(uniq[6], proof_s_attrs=uniq[6]["proof_s_attrs"][:-1]),
+         hidden, IDEMIX_MSG, [None] * 4),
+        ("valid-2", uniq[7], hidden, IDEMIX_MSG, [None] * 4),
+    ]
+    cols = [list(c) for c in zip(*lanes)]
+    args = (cols[1], cols[2], ipk, cols[3], cols[4], IDEMIX_RH_INDEX)
+    got = ib.verify_signatures_batch(*args, device=dev)
+    want = ib.verify_signatures_batch(*args, backend="scheme")
+    expected = [True, True] + [False] * 7 + [True]
+    if got != want or want != expected:
+        raise AssertionError(f"idemix_mask: device {got}, oracle {want}, expected {expected}")
+    emit({"phase": "idemix_mask", "lanes": cols[0], "mask": got, "mask_equal_oracle": True,
+          "seconds": time.perf_counter() - t_phase})
+
+    source = "fabric_tpu_torch/csrc/bn256.cu"
+    return [
+        {"name": "bn256_msm", "route": "cuda", "source": source,
+         "replaces": "fabric_tpu/ops/bn256_kernel.py:201", "launches": launches["bn256_msm"],
+         "max_abs_err": err3, "ms": big["k3_ms"], "plain_ms": plain3_ms, "bound_ms": bound3 * 1e3,
+         "bound_by": by3, "lanes": lanes3, "k": k_count, "library_ms": None},
+        {"name": "ate2_unity", "route": "cuda", "source": source,
+         "replaces": "fabric_tpu/ops/pairing_kernel.py:233", "launches": launches["ate2_unity"],
+         "max_abs_err": err4, "ms": big["k4_ms"], "plain_ms": plain4_ms, "bound_ms": bound4 * 1e3,
+         "bound_by": by4, "lanes": lanes4, "live_lanes": live4, "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -593,7 +915,7 @@ def main() -> int:
 
     # --- build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = ("p256_verify", "mvcc_resolve")
+    sources = ("p256_verify", "mvcc_resolve", "bn256")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cudalib.build, sources))
     for name in sources:
@@ -875,6 +1197,8 @@ def main() -> int:
 
     # --- MVCC: kernel vs plain, config #4, the resident chain --------------
     kernels += mvcc_phases(torch, np, dev)
+    # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
+    kernels += idemix_phases(torch, np, dev, imad_rate)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz,
           "imad_per_verify": pk.IMAD_PER_VERIFY})

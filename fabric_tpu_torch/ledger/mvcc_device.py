@@ -175,29 +175,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _kernel_device(device: torch.device) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); anything else raises."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"no MVCC kernel for device {device}")
-
-
 def _launch_check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -224,12 +201,12 @@ def resolve(
     n_r = r_tx.shape[0] if r_tx.dim() == 1 else -1
     n_w = w_tx.shape[0] if w_tx.dim() == 1 else -1
     for name, t in (("r_tx", r_tx), ("r_key", r_key)):
-        _check(name, t, torch.int32, (n_r,), device)
-    _check("r_static_bad", r_static_bad, torch.bool, (n_r,), device)
+        cudalib.check_tensor(name, t, torch.int32, (n_r,), device)
+    cudalib.check_tensor("r_static_bad", r_static_bad, torch.bool, (n_r,), device)
     for name, t in (("w_tx", w_tx), ("w_key", w_key)):
-        _check(name, t, torch.int32, (n_w,), device)
+        cudalib.check_tensor(name, t, torch.int32, (n_w,), device)
     _sizes(num_txs, num_keys)
-    if not _kernel_device(device):
+    if not cudalib.kernel_device(device, "MVCC"):
         return resolve_ref(r_tx, r_key, r_static_bad, w_tx, w_key, num_txs, num_keys)
     valid = torch.empty(num_txs, dtype=torch.bool, device=device)
     status = torch.empty(1, dtype=torch.int32, device=device)
@@ -284,9 +261,9 @@ def resolve_resident(
         ("w_key", w_key, (n_w,)), ("w_gid", w_gid, (n_w,)), ("w_ver", w_ver, (n_w, 2)),
     )
     for name, t, shape in checks:
-        _check(name, t, torch.int32, shape, device)
+        cudalib.check_tensor(name, t, torch.int32, shape, device)
     _sizes(num_txs, num_keys)
-    if not _kernel_device(device):
+    if not cudalib.kernel_device(device, "MVCC"):
         return resolve_resident_ref(
             versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key, w_gid,
             w_ver, num_txs, num_keys,
@@ -328,15 +305,6 @@ def converged_sweeps(status: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no MVCC kernel for device {dev}")
-    return dev
-
-
 def _i32(vals, device: torch.device, shape=None) -> torch.Tensor:
     a = np.asarray(vals, dtype=np.int32)
     if shape is not None:
@@ -355,7 +323,7 @@ class DeviceValidator:
 
     def __init__(self, db: VersionedDB, device=None):
         self.db = db
-        self.device = _resolve_device(device)
+        self.device = cudalib.resolve_device(device, "MVCC")
         self._host = Validator(db)
         self.last_path = "host"
         self.last_sweeps = 0

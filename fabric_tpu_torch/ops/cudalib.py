@@ -1,4 +1,5 @@
-"""Build a CUDA source of the package with nvcc on first use and load it.
+"""Build a CUDA source of the package with nvcc on first use and load it;
+the checks every kernel wrapper makes before it launches.
 
 A kernel source under `fabric_tpu_torch/csrc/` exposes a plain C interface
 (raw pointers, ints, a stream) and is compiled for sm_90a into
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -88,3 +91,39 @@ def ptxas_report(name: str) -> str:
     """The `-Xptxas -v` output recorded when csrc/<name>.cu was built."""
     _, lib = _library_path(name)
     return Path(f"{lib}.ptxas.txt").read_text()
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device`: what a kernel takes."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def kernel_device(device: torch.device, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); anything else raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} kernel for device {device}")
+
+
+def resolve_device(device, what: str) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for "cpu"; without a card, a request for it raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {what} kernel for device {dev}")
+    return dev

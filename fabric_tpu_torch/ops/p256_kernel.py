@@ -374,29 +374,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _kernel_device(device: torch.device) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); anything else raises."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"no P-256 verify kernel for device {device}")
-
-
 def _launch_check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -415,9 +392,9 @@ def verify_batch(
     device = e.device
     batch = e.shape[1] if e.dim() == 2 else -1
     for name, t in (("e", e), ("r", r), ("s", s), ("qx", qx), ("qy", qy)):
-        _check(name, t, torch.int64, (bn.NLIMBS, batch), device)
-    _check("valid_in", valid_in, torch.bool, (batch,), device)
-    if not _kernel_device(device):
+        cudalib.check_tensor(name, t, torch.int64, (bn.NLIMBS, batch), device)
+    cudalib.check_tensor("valid_in", valid_in, torch.bool, (batch,), device)
+    if not cudalib.kernel_device(device, "P-256 verify"):
         return verify_batch_ref(e, r, s, qx, qy, valid_in)
     out = torch.empty(batch, dtype=torch.bool, device=device)
     if batch == 0:
@@ -447,12 +424,12 @@ def verify_batch_bytes(
     batch = e_b.shape[0] if e_b.dim() == 2 else -1
     nkeys = kx.shape[1] if kx.dim() == 2 else -1
     for name, t in (("e_b", e_b), ("r_b", r_b), ("s_b", s_b)):
-        _check(name, t, torch.uint8, (batch, 32), device)
+        cudalib.check_tensor(name, t, torch.uint8, (batch, 32), device)
     for name, t in (("kx", kx), ("ky", ky)):
-        _check(name, t, torch.int64, (bn.NLIMBS, nkeys), device)
-    _check("key_idx", key_idx, torch.int32, (batch,), device)
-    _check("valid_in", valid_in, torch.bool, (batch,), device)
-    if not _kernel_device(device):
+        cudalib.check_tensor(name, t, torch.int64, (bn.NLIMBS, nkeys), device)
+    cudalib.check_tensor("key_idx", key_idx, torch.int32, (batch,), device)
+    cudalib.check_tensor("valid_in", valid_in, torch.bool, (batch,), device)
+    if not cudalib.kernel_device(device, "P-256 verify"):
         return verify_batch_bytes_ref(e_b, r_b, s_b, kx, ky, key_idx, valid_in)
     out = torch.empty(batch, dtype=torch.bool, device=device)
     if batch == 0:

@@ -1,9 +1,10 @@
-"""Proto3 wire format for the ledger's rwset messages, without protobuf.
+"""Proto3 wire format for the port's messages, without protobuf.
 
-The port's ledger path runs where no protobuf runtime is installed, so the
-few messages it reads and writes are described here as tables (field number
--> `Field`) and one reader and one writer walk them. The tables follow the
-JAX package's `protos/src/{kv_rwset,rwset,txmgr_updates}.proto`.
+The port's paths run where no protobuf runtime is installed, so the few
+messages they read and write are described as tables (field number ->
+`Field`) and one reader and one writer walk them. The tables here follow the
+JAX package's `protos/src/{kv_rwset,rwset,txmgr_updates}.proto`; those of
+`idemix.proto` are in `protos/idemix.py`.
 
 A decoded message is a dict that holds only the fields present on the wire:
 a scalar or string under its name (read it with `.get(name, default)`), a
@@ -15,6 +16,8 @@ Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
 
 - unknown fields are skipped, groups included, and so is a known field that
   arrives with another wire type than its own;
+- an int32 or int64 field is two's complement: a negative value arrives as
+  a 10-byte varint, and an int32 keeps the low 32 bits of what it reads;
 - a singular scalar, string or bytes field keeps its last value; a repeated
   field appends; a singular message that appears twice is merged, field by
   field; a member of a oneof replaces the other member, and merges only
@@ -26,7 +29,8 @@ Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
 
 Encoding writes what protobuf's `SerializeToString` writes for the same
 message: fields in field-number order, proto3 defaults (0, false, empty
-string or bytes) left out of singular fields, embedded messages whenever
+string or bytes) left out of singular fields, a negative int32 or int64 as
+the 10-byte varint of its two's complement, embedded messages whenever
 present (an empty dict writes an empty but present message), every element
 of a repeated field.
 """
@@ -39,7 +43,7 @@ _VARINT, _I64, _LEN, _SGROUP, _EGROUP, _I32 = 0, 1, 2, 3, 4, 5
 _MASK64 = (1 << 64) - 1
 _MASK32 = (1 << 32) - 1
 
-_VARINT_KINDS = frozenset(("uint64", "uint32", "bool", "enum"))
+_VARINT_KINDS = frozenset(("uint64", "uint32", "int64", "int32", "bool", "enum"))
 # protobuf's nesting limit: embedded messages and groups together
 _MAX_DEPTH = 100
 
@@ -50,7 +54,7 @@ class WireError(ValueError):
 
 class Field(NamedTuple):
     name: str
-    kind: str  # uint64, uint32, bool, enum, string, bytes or message
+    kind: str  # uint64, uint32, int64, int32, bool, enum, string, bytes or message
     repeated: bool = False
     message: Optional[Dict[int, "Field"]] = None
     oneof: Optional[str] = None
@@ -231,6 +235,11 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
             value, pos = _varint(buf, pos, end)
             if kind == "bool":
                 value = value != 0
+            elif kind == "int64":
+                value -= (value >> 63) << 64
+            elif kind == "int32":
+                value &= _MASK32
+                value -= (value >> 31) << 32
             elif kind != "uint64":
                 value &= _MASK32
         else:

@@ -1,6 +1,7 @@
-"""The port imports neither JAX, nor the JAX package, nor protobuf (the
-card's machine has none), and its device entry points refuse to run without
-a card instead of falling back to the CPU."""
+"""The port imports neither JAX, nor the JAX package, nor protobuf, nor
+cryptography (the card's machine has neither of the last two), and its device
+entry points refuse to run without a card instead of falling back to the
+CPU."""
 
 import json
 import subprocess
@@ -25,14 +26,23 @@ leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
     or m == "google.protobuf" or m.startswith("google.protobuf.")
+    or m == "cryptography" or m.startswith("cryptography.")
 )
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
 from fabric_tpu_torch.ledger.mvcc_device import DeviceValidator, ResidentDeviceValidator
 from fabric_tpu_torch.ledger.statedb import VersionedDB
+from fabric_tpu_torch.common import fp256bn
+from fabric_tpu_torch.idemix.batch import verify_signatures_batch
+from fabric_tpu_torch.ops.pairing_kernel import Ate2Kernel, kernel_for_issuer
 refused = {}
 for name, make in (("CUDAProvider", CUDAProvider),
                    ("DeviceValidator", lambda: DeviceValidator(VersionedDB())),
-                   ("ResidentDeviceValidator", lambda: ResidentDeviceValidator(VersionedDB()))):
+                   ("ResidentDeviceValidator", lambda: ResidentDeviceValidator(VersionedDB())),
+                   ("verify_signatures_batch", lambda: verify_signatures_batch(
+                       [{}], [[0]], {"attribute_names": ["a"]}, [b""], [[None]], 0)),
+                   ("Ate2Kernel", lambda: Ate2Kernel(fp256bn.G2_GEN)),
+                   ("kernel_for_issuer", lambda: kernel_for_issuer(
+                       fp256bn.g2_to_bytes(fp256bn.G2_GEN)))):
     try:
         make()
         refused[name] = None
@@ -52,6 +62,9 @@ def test_port_imports_no_jax_and_needs_a_card():
     assert "fabric_tpu_torch.crypto.cuda_provider" in report["modules"]
     assert "fabric_tpu_torch.ledger.mvcc_device" in report["modules"]
     assert "fabric_tpu_torch.protos.wire" in report["modules"]
+    for name in ("common.fp256bn", "ops.bn256_kernel", "ops.fp12", "ops.pairing_kernel",
+                 "protos.idemix", "idemix.scheme", "idemix.batch"):
+        assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     if not torch.cuda.is_available():
         for name, refused in report["refused"].items():
