@@ -828,9 +828,15 @@ def idemix_phases(torch, np, dev, imad_rate):
               + 2 * tables4.words(dev).numel() * 4 + pkn.STEPS * 4)
     bound4 = max(live4 * pkn.IMAD_PER_LANE / imad_rate, bytes4 / HBM_BYTES_PER_S)
     by4 = "operations" if live4 * pkn.IMAD_PER_LANE / imad_rate >= bytes4 / HBM_BYTES_PER_S else "bytes"
+    # the bound of the same check with the hard part by the x-power chain
+    bound4_xchain = max(live4 * pkn.IMAD_PER_LANE_XCHAIN / imad_rate, bytes4 / HBM_BYTES_PER_S)
     k_count, lanes3 = k3[0].shape[0], k3[0].shape[-1]
     bytes3 = sum(t.numel() * t.element_size() for t in k3) + 3 * 20 * 8 * lanes3
-    ops3 = lanes3 * bk.imad_per_lane(k_count) / imad_rate
+    # count the work of each lane's real bases only: t1 and t3 pad 3 bases
+    # to K with identity bases (Z = 0) and zero scalars
+    real3 = ((k3[0][:, 2] != 0).any(dim=1) & (k3[1] != 0).any(dim=1)).sum(dim=0).tolist()
+    k_real = {str(k): real3.count(k) for k in sorted(set(real3))}
+    ops3 = sum(bk.imad_per_lane(k) for k in real3) / imad_rate
     bound3 = max(ops3, bytes3 / HBM_BYTES_PER_S)
     by3 = "operations" if ops3 >= bytes3 / HBM_BYTES_PER_S else "bytes"
     emit({"phase": "idemix_config3", "setup_seconds": setup_s, "unique_signatures": IDEMIX_UNIQUE,
@@ -887,11 +893,12 @@ def idemix_phases(torch, np, dev, imad_rate):
         {"name": "bn256_msm", "route": "cuda", "source": source,
          "replaces": "fabric_tpu/ops/bn256_kernel.py:201", "launches": launches["bn256_msm"],
          "max_abs_err": err3, "ms": big["k3_ms"], "plain_ms": plain3_ms, "bound_ms": bound3 * 1e3,
-         "bound_by": by3, "lanes": lanes3, "k": k_count, "library_ms": None},
+         "bound_by": by3, "lanes": lanes3, "k": k_count, "k_real": k_real, "library_ms": None},
         {"name": "ate2_unity", "route": "cuda", "source": source,
          "replaces": "fabric_tpu/ops/pairing_kernel.py:233", "launches": launches["ate2_unity"],
          "max_abs_err": err4, "ms": big["k4_ms"], "plain_ms": plain4_ms, "bound_ms": bound4 * 1e3,
-         "bound_by": by4, "lanes": lanes4, "live_lanes": live4, "library_ms": None},
+         "bound_by": by4, "bound_ms_xchain": bound4_xchain * 1e3, "lanes": lanes4,
+         "live_lanes": live4, "library_ms": None},
     ]
 
 

@@ -44,12 +44,17 @@
 // q * p, and 8 32-bit low products, 2 * 128 + 8 = 264 IMAD issue slots.
 // K3 lane with K bases: 3K + 3 multiplies for the radix change, K tables of
 // one doubling (9 multiplies) and one addition (14), 128 windows of 2
-// doublings and K additions: 16,851 multiplies at K = 8. K4 lane: 4 for the
+// doublings and K additions: 16,851 multiplies at K = 8. The K3 bound
+// counts each lane's real bases only (7,761 multiplies at the 3 bases of a
+// t1 or t3 job, whatever the padding). K4 lane: 4 for the
 // radix change; 65 steps of (square 63 + line 12 + multiply 108) for each
 // loop, 22 addition steps of (line 12 + multiply 108) for each, 2 correction
 // lines for each; 2 inverses of 585 (2 Fp12 multiplies, 9 Fp2 products, 4
 // multiplies, Fermat 329) and 3 Fp12 multiplies and a Frobenius of 18 around
 // them; the hard part 768 squares and 408 multiplies: 123,514 multiplies.
+// That hard part is the replaced program's algorithm; the x-power chain
+// computes the same value in 51,847 multiplies a lane
+// (ops/pairing_kernel.IMAD_PER_LANE_XCHAIN), a lever not taken yet.
 // The bytes are small beside that (K3 reads 8K * 60 + 8 * 60 bytes a lane;
 // K4 reads 4 * 160 bytes a lane and the schedules once). PERF.md's bounds
 // are computed from these counts (ops/bn256_kernel.muls_per_lane,

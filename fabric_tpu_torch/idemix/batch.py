@@ -12,16 +12,17 @@ batch splits Signature.Ver into:
   three MSM lanes a signature, padded to the largest job with identity
   bases and zero scalars.
 
-Routes (`backend`): "device" (the default: K4 then K3), "msm" (the host
-oracle's pairing with K3, as in the JAX package) and "scheme" (the
-per-signature oracle loop of `idemix/scheme.py`). The device routes run on
+Routes (`backend`): "device" (the default: K4 then K3) and "scheme" (the
+per-signature oracle loop of `idemix/scheme.py`). The device route runs on
 the card unless the caller passes `device="cpu"`, where the kernel wrappers
-run their plain versions; without a card they raise. A lane that fails to
+run their plain versions; without a card it raises. A lane that fails to
 parse or fails the pairing is False, as in `verify_signature`; a device
 error is never turned into a verdict.
 
 Departures from the JAX package: no hostbn rung and no process pool, no
-`idemix.verdict` fault seam and no fabobs counters.
+`idemix.verdict` fault seam and no fabobs counters, and neither the
+`device_pairing` flag nor the "msm" route (the host oracle's pairing, about
+a second a signature, with K3): the device route always runs K4.
 """
 
 from __future__ import annotations
@@ -130,7 +131,6 @@ def verify_signatures_batch(
     msgs: Sequence[bytes],
     attribute_values_list: Sequence[Sequence[Optional[int]]],
     rh_index: int,
-    device_pairing: bool = False,
     backend: Optional[str] = None,
     device=None,
     split_ms: Optional[Dict[str, float]] = None,
@@ -138,24 +138,20 @@ def verify_signatures_batch(
     """Batch Signature.Ver: the per-signature validity mask, equal to
     `verify_signature`'s verdicts lane by lane on every route.
 
-    `backend` is "device" (the default; `device_pairing=True` asks for it
-    too), "msm" or "scheme"; `device` is where the device routes run (the
-    card unless "cpu"). A device route fills `split_ms`, when given, with
-    its host-clock milliseconds: parse, pairing (K4 launch and wait, or the
-    host oracle), msm (K3 launch and wait) and challenge."""
-    if device_pairing:
-        backend = "device"
+    `backend` is "device" (the default) or "scheme"; `device` is where the
+    device route runs (the card unless "cpu"). The device route fills
+    `split_ms`, when given, with its host-clock milliseconds: parse,
+    pairing (K4 launch and wait), msm (K3 launch and wait) and challenge."""
     backend = backend or "device"
     if backend == "scheme":
         return _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index)
-    if backend not in ("device", "msm"):
+    if backend != "device":
         raise ValueError(f"unknown idemix batch backend {backend!r}")
     dev = cudalib.resolve_device(device, "Idemix")
     if not signatures:
         return []
     return _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
-                          device_pairing=(backend == "device"), device=dev,
-                          split_ms={} if split_ms is None else split_ms)
+                          device=dev, split_ms={} if split_ms is None else split_ms)
 
 
 def _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list,
@@ -171,28 +167,17 @@ def _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list,
     return out
 
 
-def _host_pairing(w, p: Optional[_Parsed]) -> bool:
-    if p is None:
-        return False
-    t = bn.fp12_mul(bn.ate(w, p.a_prime), bn.fp12_inv(bn.ate(bn.G2_GEN, p.a_bar)))
-    return bn.gt_is_unity(bn.fexp(t))
-
-
 def _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
-                   device_pairing: bool, device, split_ms: Dict[str, float]) -> List[bool]:
-    """K4 over every lane (or the host oracle's pairing), then one K3 batch
-    of three MSM lanes for each signature that passed it."""
+                   device, split_ms: Dict[str, float]) -> List[bool]:
+    """K4 over every lane, then one K3 batch of three MSM lanes for each
+    signature that passed it."""
     t0 = time.perf_counter()
     parsed = _parse_lanes(signatures, disclosures, ipk, attribute_values_list, rh_index)
     w = ecp2_from_proto(ipk.get("w"))
     t1 = time.perf_counter()
     # pairing structure check: e(W, A') * e(g2, ABar)^-1 == 1
-    if device_pairing:
-        kernel = pairing_kernel.kernel_for_issuer(bn.g2_to_bytes(w), device)
-        pairing_ok = kernel.check(
-            [(p.a_prime, p.a_bar) if p is not None else None for p in parsed])
-    else:
-        pairing_ok = [_host_pairing(w, p) for p in parsed]
+    kernel = pairing_kernel.kernel_for_issuer(bn.g2_to_bytes(w), device)
+    pairing_ok = kernel.check([(p.a_prime, p.a_bar) if p is not None else None for p in parsed])
     t2 = time.perf_counter()
 
     jobs: List[Tuple[list, list]] = []

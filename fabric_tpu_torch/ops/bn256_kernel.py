@@ -22,7 +22,8 @@ The plain version stacks the independent multiplies of each formula into
 one Montgomery multiply; the values are those of the one-by-one sequence.
 
 `msm_host_batch` is the host API of the Idemix batch: affine points (None
-for the identity) and integer scalars per lane in, affine points out.
+for the identity) and integer scalars per lane in, affine points out. It
+runs on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -301,10 +302,12 @@ def pack_batch(bases_per_lane, scalars_per_lane):
     return bases.astype(np.int64), scalars
 
 
-def msm_host_batch(bases_per_lane, scalars_per_lane, device="cpu") -> List[host.G1Point]:
+def msm_host_batch(bases_per_lane, scalars_per_lane, device=None) -> List[host.G1Point]:
     """Host API: per-lane lists of affine bases and int scalars, all lanes
-    with the same K, through `msm_batch` on `device`. Returns affine
+    with the same K, through `msm_batch` on `device` (the card unless the
+    caller asks for "cpu"; without a card it raises). Returns affine
     points."""
+    dev = cudalib.resolve_device(device, "FP256BN MSM")
     bases, scalars = pack_batch(bases_per_lane, scalars_per_lane)
-    out = msm_batch(torch.from_numpy(bases).to(device), torch.from_numpy(scalars).to(device))
+    out = msm_batch(torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev))
     return unpack_points(out)

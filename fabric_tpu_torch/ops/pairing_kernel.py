@@ -178,6 +178,7 @@ MULS_FP_INV = 14 + 63 * 5  # Fermat, 4-bit fixed window
 MULS_FP12_INV = 2 * MULS_FP12_MUL + 9 * 3 + 2 + MULS_FP_INV + 2 + 3 * 3
 MULS_FROB2 = 6 * 3
 _HARD_BITS = bin(host._HARD_EXP)[2:]
+MULS_HARD = len(_HARD_BITS) * MULS_FP12_SQR + _HARD_BITS.count("1") * MULS_FP12_MUL
 MULS_PER_LANE = (
     4  # the G1 coordinates from R = 2^260 to R = 2^256
     + 2 * STEPS * (MULS_FP12_SQR + MULS_LINE + MULS_FP12_MUL)
@@ -185,9 +186,23 @@ MULS_PER_LANE = (
     + 2 * 2 * (MULS_LINE + MULS_FP12_MUL)
     + MULS_FP12_INV + MULS_FP12_MUL  # f1 * inv(f2)
     + MULS_FP12_INV + 2 * MULS_FP12_MUL + MULS_FROB2  # the easy part
-    + len(_HARD_BITS) * MULS_FP12_SQR + _HARD_BITS.count("1") * MULS_FP12_MUL
+    + MULS_HARD
 )
 IMAD_PER_LANE = MULS_PER_LANE * IMAD_PER_MONT_MUL
+
+# The same lane with the hard part by the x-power chain of the JAX
+# package's crypto/hostbn.py (lambda0 + lambda1 * p + lambda2 * p^2 + p^3:
+# three |u|-power chains, then 11 squares, 14 multiplies and 3 Frobenius
+# maps), counted at the kernel's operation costs. The kernel runs the
+# replaced program's square and multiply; this is the count of the
+# cheaper algorithm for the same value, a lever it has not taken yet.
+_U_BITS = bin(abs(host.U))[2:]
+MULS_HARD_XCHAIN = (
+    (3 * (len(_U_BITS) - 1) + 11) * MULS_FP12_SQR
+    + (3 * (_U_BITS.count("1") - 1) + 14) * MULS_FP12_MUL
+    + 3 * MULS_FROB2
+)
+IMAD_PER_LANE_XCHAIN = (MULS_PER_LANE - MULS_HARD + MULS_HARD_XCHAIN) * IMAD_PER_MONT_MUL
 
 # Kernel launches, counted by the wrappers where they launch (never for the
 # plain versions): the verdict entry and the debug entry of the test hook.
@@ -399,10 +414,11 @@ def kernel_for_issuer(w_bytes: bytes, device=None) -> Ate2Kernel:
 
 
 def miller2_values(w: host.G2Point, pairs: Sequence[Tuple[host.G1Point, host.G1Point]],
-                   device="cpu"):
+                   device=None):
     """Test hook: per lane (f1, f2, fexp(f1 * inv(f2))) as host Fp12 values,
     f1 the Miller value of (W, P1) and f2 of (g2, P2), from the kernel's
-    debug entry on a CUDA device or from the plain version on the CPU."""
+    debug entry on the card (the default; without one it raises) or from
+    the plain version when the caller passes `device="cpu"`."""
     dev = cudalib.resolve_device(device, "Ate2 pairing")
     tables = _Tables(LineSchedule(w))
     p1x, p1y, p2x, p2y, _ = lane_columns(pairs, dev)

@@ -269,8 +269,10 @@ def masks(worlds):
     assert [pb.encode(pb.SIGNATURE, s) for s in psigs] == [s.SerializeToString() for s in jsigs]
     args = (disclosures, port["ipk"], msgs, values, RH_INDEX)
     jargs = (disclosures, jax_world["ipk"], msgs, values, RH_INDEX)
+    split = {}
     return {
-        "port-device": verify_signatures_batch(psigs, *args, device="cpu"),
+        "port-device": verify_signatures_batch(psigs, *args, device="cpu", split_ms=split),
+        "port-split": split,
         "port-scheme": verify_signatures_batch(psigs, *args, backend="scheme"),
         "jax-scheme": jax_batch(jsigs, *jargs, backend="scheme"),
         "jax-hostbn": jax_batch(jsigs, *jargs, backend="hostbn"),
@@ -284,22 +286,18 @@ def test_batch_mask_matches_jax(masks, lane):
             == masks["jax-hostbn"][i] == EXPECTED[i])
 
 
-def test_msm_route_matches_scheme(worlds, masks):
-    """The host oracle's pairing with K3's plain version, on the lanes that
-    reach the MSM and one that fails the pairing."""
-    port = worlds[1]
-    sigs, disclosures, msgs, values = _batch(port, idemix)
-    pick = [0, 2, 5]
-    got = verify_signatures_batch([sigs[i] for i in pick], [disclosures[i] for i in pick],
-                                  port["ipk"], [msgs[i] for i in pick],
-                                  [values[i] for i in pick], RH_INDEX, backend="msm",
-                                  device="cpu")
-    assert got == [masks["jax-scheme"][i] for i in pick] == [True, False, False]
+def test_device_route_reports_its_split(masks):
+    split = masks["port-split"]
+    assert sorted(split) == ["challenge", "msm", "pairing", "parse"]
+    assert all(v >= 0 for v in split.values())
 
 
-def test_batch_rejects_unknown_backend_and_empty(worlds):
+@pytest.mark.parametrize("backend", ["hostbn", "msm"])
+def test_batch_rejects_unknown_backend_and_empty(worlds, backend):
+    """The port has the device and scheme routes only: the JAX package's
+    hostbn rung and its host-pairing "msm" route are not ported."""
     port = worlds[1]
     with pytest.raises(ValueError):
-        verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, backend="hostbn",
+        verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, backend=backend,
                                 device="cpu")
     assert verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, device="cpu") == []

@@ -33,7 +33,8 @@ from fabric_tpu_torch.ledger.mvcc_device import DeviceValidator, ResidentDeviceV
 from fabric_tpu_torch.ledger.statedb import VersionedDB
 from fabric_tpu_torch.common import fp256bn
 from fabric_tpu_torch.idemix.batch import verify_signatures_batch
-from fabric_tpu_torch.ops.pairing_kernel import Ate2Kernel, kernel_for_issuer
+from fabric_tpu_torch.ops.bn256_kernel import msm_host_batch
+from fabric_tpu_torch.ops.pairing_kernel import Ate2Kernel, kernel_for_issuer, miller2_values
 refused = {}
 for name, make in (("CUDAProvider", CUDAProvider),
                    ("DeviceValidator", lambda: DeviceValidator(VersionedDB())),
@@ -42,7 +43,10 @@ for name, make in (("CUDAProvider", CUDAProvider),
                        [{}], [[0]], {"attribute_names": ["a"]}, [b""], [[None]], 0)),
                    ("Ate2Kernel", lambda: Ate2Kernel(fp256bn.G2_GEN)),
                    ("kernel_for_issuer", lambda: kernel_for_issuer(
-                       fp256bn.g2_to_bytes(fp256bn.G2_GEN)))):
+                       fp256bn.g2_to_bytes(fp256bn.G2_GEN))),
+                   ("msm_host_batch", lambda: msm_host_batch([[fp256bn.G1_GEN]], [[1]])),
+                   ("miller2_values", lambda: miller2_values(
+                       fp256bn.G2_GEN, [(fp256bn.G1_GEN, fp256bn.G1_GEN)]))):
     try:
         make()
         refused[name] = None

@@ -4,11 +4,12 @@ against the JAX package and the host oracle.
 (a) The plain tower (`ops/fp12`) against the JAX package's `ops/fp12` on two
 seeded lanes, the JAX operations in one jit as `tests/test_pairing_kernel.py`
 runs them: the Montgomery limbs are equal, row for row. Inverse and fixed
-powers, which the JAX suite keeps out of tier-1, are held to the host
-oracle. (b) The port's `LineSchedule` arrays against the JAX package's
-(host numpy). (c) The plain Miller values and final-exponentiated values
-against the host `miller_loop` / `fexp`, and (d) the unity verdicts of
-`Ate2Kernel(w, device="cpu").check` against the host oracle, on true, false,
+powers, which the JAX suite keeps out of tier-1, are held to the JAX
+package's host oracle (`fabric_tpu.common.fp256bn`, pure Python). (b) The
+port's `LineSchedule` arrays against the JAX package's (host numpy). (c)
+The plain Miller values and final-exponentiated values against that
+oracle's `miller_loop` / `fexp`, and (d) the unity verdicts of
+`Ate2Kernel(w, device="cpu").check` against that oracle, on true, false,
 None and identity lanes: the hold the JAX package's own tests put on its
 K4 program (`test_pairing_kernel.py`), whose XLA:CPU run takes minutes and
 is not repeated here. All comparisons are exact.
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from fabric_tpu.common import fp256bn as jhost
 from fabric_tpu.ops import bignum as jbn
 from fabric_tpu.ops import fp12 as jf12
 from fabric_tpu.ops import pairing_kernel as jpk
@@ -79,11 +81,11 @@ def tower():
         outs = fn(x.numpy().astype(np.uint32), y.numpy().astype(np.uint32))
     jax_out = dict(zip(TOWER_OPS, (np.asarray(o) for o in outs)))
     want = {
-        "mul": [host.fp12_mul(a, b) for a, b in zip(xs, ys)],
-        "sqr": [host.fp12_sqr(a) for a in xs],
-        "frobenius-1": [host.fp12_frobenius(a, 1) for a in xs],
-        "frobenius-2": [host.fp12_frobenius(a, 2) for a in xs],
-        "conj": [host.fp12_conj(a) for a in xs],
+        "mul": [jhost.fp12_mul(a, b) for a, b in zip(xs, ys)],
+        "sqr": [jhost.fp12_sqr(a) for a in xs],
+        "frobenius-1": [jhost.fp12_frobenius(a, 1) for a in xs],
+        "frobenius-2": [jhost.fp12_frobenius(a, 2) for a in xs],
+        "conj": [jhost.fp12_conj(a) for a in xs],
     }
     return xs, port, jax_out, want
 
@@ -98,9 +100,9 @@ def test_tower_op_matches_jax(tower, op):
 def test_inverse_and_power_match_oracle(tower):
     xs = tower[0]
     x = f12.from_host(xs)
-    assert f12.to_host(f12.inv(x)) == [host.fp12_inv(a) for a in xs]
+    assert f12.to_host(f12.inv(x)) == [jhost.fp12_inv(a) for a in xs]
     e = 0xDEADBEEF12345
-    assert f12.to_host(f12.pow_const(x, e)) == [host.fp12_pow(a, e) for a in xs]
+    assert f12.to_host(f12.pow_const(x, e)) == [jhost.fp12_pow(a, e) for a in xs]
     one = f12.one(2, "cpu")
     assert f12.equal(f12.mul(x, f12.inv(x)), one).tolist() == [True, True]
 
@@ -168,9 +170,9 @@ def test_miller_values_match_oracle(issuer, lanes, miller, lane):
     w = issuer[1]
     p1, p2 = _lane_points(lanes[lane])
     f1, f2, fe = miller[lane]
-    assert f1 == host.miller_loop(w, p1)
-    assert f2 == host.miller_loop(host.G2_GEN, p2)
-    assert fe == host.fexp(host.fp12_mul(f1, host.fp12_inv(f2)))
+    assert f1 == jhost.miller_loop(w, p1)
+    assert f2 == jhost.miller_loop(jhost.G2_GEN, p2)
+    assert fe == jhost.fexp(jhost.fp12_mul(f1, jhost.fp12_inv(f2)))
 
 
 @pytest.fixture(scope="module")
@@ -185,8 +187,8 @@ def verdicts(issuer, lanes):
 def _oracle(w, pair) -> bool:
     if pair is None or pair[0] is None or pair[1] is None:
         return False
-    t = host.fp12_mul(host.ate(w, pair[0]), host.fp12_inv(host.ate(host.G2_GEN, pair[1])))
-    return host.gt_is_unity(host.fexp(t))
+    t = jhost.fp12_mul(jhost.ate(w, pair[0]), jhost.fp12_inv(jhost.ate(jhost.G2_GEN, pair[1])))
+    return jhost.gt_is_unity(jhost.fexp(t))
 
 
 @pytest.mark.parametrize("lane", LANES)
