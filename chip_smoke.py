@@ -5,7 +5,7 @@
 
 Builds the kernels from csrc/ with nvcc (one compiler per source, all
 started together), holds each against its plain PyTorch version on the
-card, then drives the port's two paths at the sizes Fabric feeds them.
+card, then drives the port's paths at the sizes Fabric feeds them.
 
 The CUDAProvider behind the BCCSP SPI (P-256 verify, K1 and K2):
 
@@ -57,7 +57,30 @@ Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
  13. idemix_mask: a mixed batch (wrong message, proof_s_sk + 1, a wrong
      disclosed value, ABar doubled, ABar and A' the identity, a wrong count
      of s-values) held lane by lane to the scheme oracle;
- 14. the kernels line, then the card's name and power limit.
+
+Block validation of BASELINE config #2 and the policy circuit (K7,
+csrc/policy_eval.cu; K2 and K6 on the validator's path):
+
+ 14. policy_kernel_vs_plain: K7 against its plain version and the host
+     oracle on tests/test_policy.py's exhaustive and random policies and on
+     edge lanes (S in {31, 32, 33, 64, 65, 100}, n = 0, n above the child
+     count, NOutOf with no children, failing branches that claimed signers,
+     depth 23, B = 1); B = 0 launches nothing;
+ 15. validator_config2: bench.py's config #2 (Org1-3 minted by the port's
+     cryptogen, a 1,000-tx block of 3,000 signature lanes from 3 keys under
+     OutOf(2, ...)) through BlockValidator over CUDAProvider, a warm-up and
+     5 timed runs on fresh validators: all VALID, K2 once a block, ms per
+     block and its split; then K7 on the block's 1,000 satisfaction rows,
+     its verdicts equal to the flags and the plain version, and its time;
+ 16. validator_mask: 70 txs of ten kinds (valid, flipped creator signature,
+     flipped endorsement, unknown MSP, unknown chaincode, bad txid, in-block
+     duplicate, nil envelope, unparseable payload, a CRL-revoked endorser),
+     the flags lane by lane equal to the codes the JAX validator gives
+     (tests/test_torch_validator.py) and to the oracle provider's;
+ 17. validator_commit: three config #2 blocks validated and committed
+     through kvledger.commit_block_state with a ResidentDeviceValidator
+     (K6), commit hashes equal to the host route's on a second state DB;
+ 18. the kernels line, then the card's name and power limit.
 
 Signature inputs are signed by the port's oracle with fixed keys and
 nonces, a known subset corrupted (flipped digest, wrong key, s+1, high-S,
@@ -902,6 +925,403 @@ def idemix_phases(torch, np, dev, imad_rate):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Block validation of BASELINE config #2 (K2 through the validator) and K7
+# ---------------------------------------------------------------------------
+
+CONFIG2_SEED = 2026
+CONFIG2_TXS = 1000  # bench.py bench_block_1k
+CONFIG2_RUNS = 5  # timed runs after one warm-up, each on a fresh validator
+CONFIG2_CHANNEL = "benchchan"
+CONFIG2_POLICY = "OutOf(2,'Org1MSP.member','Org2MSP.member','Org3MSP.member')"
+# validator_mask: the kind of tx i is MASK_KINDS[i % 10]; each dup_txid tx
+# repeats the valid envelope 6 places before it
+MASK_KINDS = ("valid", "bad_creator_sig", "bad_endorsement", "unknown_msp", "unknown_cc",
+              "bad_txid", "dup_txid", "nil", "bad_payload", "revoked_endorser")
+MASK_TXS = 70
+# the codes the JAX validator gives each kind (tests/test_torch_validator.py
+# holds the JAX validator to them on this construction)
+MASK_CODES = {"valid": 0, "bad_creator_sig": 4, "bad_endorsement": 10, "unknown_msp": 4,
+              "unknown_cc": 25, "bad_txid": 8, "dup_txid": 9, "nil": 1, "bad_payload": 2,
+              "revoked_endorser": 10}
+
+
+class Config2Net:
+    """BASELINE config #2's network as bench.py's `_Net` builds it
+    (bench.py:314-388), minted by the port's cryptogen from a seed: Org1-3,
+    Org1's user as client, Org1's and Org2's peers endorsing, OutOf(2, ...)
+    on benchcc; plus a peer of Org2 that Org2's CRL revokes and a user of an
+    org no MSP manager knows, for validator_mask."""
+
+    def __init__(self, seed=CONFIG2_SEED):
+        import random
+
+        from fabric_tpu_torch.msp.cryptogen import generate_org
+        from fabric_tpu_torch.msp.identity import MSP, MSPManager
+        from fabric_tpu_torch.msp.signer import SigningIdentity
+        from fabric_tpu_torch.policy.ast import from_dsl
+
+        rng = random.Random(seed)
+        self.rng = rng
+        self.orgs = [generate_org(f"org{i}.bench", f"Org{i}MSP", rng=rng) for i in (1, 2, 3)]
+        revoked = self.orgs[1].ca.enroll("peer9.org2.bench", ou="peer")
+        self.orgs[1].ca.revoke(revoked)
+        self.revoked = SigningIdentity(revoked, rng)
+        self.stranger = SigningIdentity(generate_org("org9.bench", "Org9MSP", rng=rng).users[0], rng)
+        self.client = SigningIdentity(self.orgs[0].users[0], rng)
+        self.endorsers = [SigningIdentity(o.peers[0], rng) for o in self.orgs[:2]]
+        self.policy = from_dsl(CONFIG2_POLICY)
+        # one MSP manager for every validator, as bench.py shares its
+        # `mgr`: an identity's chain is validated once, then memoized
+        self.managers = {crl: MSPManager([MSP(c) for c in self.msp_configs(crl)])
+                         for crl in (False, True)}
+
+    def msp_configs(self, with_crl=False):
+        return [o.msp_config(with_crl=with_crl) for o in self.orgs]
+
+    def validator(self, provider, with_crl=False):
+        from fabric_tpu_torch.validation.validator import (
+            BlockValidator, ChaincodeDefinition, ChaincodeRegistry)
+
+        registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", self.policy)])
+        return BlockValidator(CONFIG2_CHANNEL, self.managers[with_crl], provider, registry)
+
+    def envelope(self, i, cc="benchcc", client=None, endorsers=None):
+        """bench.py make_block's tx i: one write of k{i} in benchcc."""
+        from fabric_tpu_torch.endorser import txbuilder as tb
+        from fabric_tpu_torch.ledger import rwset as rw
+        from fabric_tpu_torch.ledger.rwset_proto import serialize_tx_rwset
+
+        client = client or self.client
+        results = serialize_tx_rwset(rw.TxRwSet((rw.NsRwSet(
+            "benchcc", (), (rw.KVWrite(f"k{i}", False, b"v"),)),)))
+        bundle = tb.create_proposal(client, CONFIG2_CHANNEL, cc, [b"invoke", b"%d" % i])
+        responses = [tb.endorse_proposal(bundle, e, results) for e in endorsers or self.endorsers]
+        return tb.create_signed_tx(bundle, client, responses)
+
+    @staticmethod
+    def make_block(datas, number):
+        from fabric_tpu_torch.protos import protoutil
+
+        block = protoutil.new_block(number, b"\x33" * 32)
+        block["data"]["data"] = list(datas)
+        return protoutil.seal_block(block)
+
+    def block(self, n_txs, number=1):
+        from fabric_tpu_torch.protos import fabric, wire
+
+        # every call draws fresh nonces, so fresh txids over the same keys
+        return self.make_block([wire.encode(fabric.ENVELOPE, self.envelope(i))
+                                for i in range(n_txs)], number)
+
+    def mask_block(self):
+        """validator_mask's block and the codes expected lane by lane."""
+        from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+        def resigned(env, change):
+            payload = wire.decode(fabric.PAYLOAD, env["payload"])
+            change(payload)
+            raw = wire.encode(fabric.PAYLOAD, payload)
+            return {"payload": raw, "signature": self.client.sign(raw)}
+
+        def flip_endorsement(payload):
+            tx = wire.decode(fabric.TRANSACTION, payload["data"])
+            cap = wire.decode(fabric.CHAINCODE_ACTION_PAYLOAD, tx["actions"][0]["payload"])
+            sig = bytearray(cap["action"]["endorsements"][1]["signature"])
+            sig[-1] ^= 0xFF
+            cap["action"]["endorsements"][1]["signature"] = bytes(sig)
+            tx["actions"][0]["payload"] = wire.encode(fabric.CHAINCODE_ACTION_PAYLOAD, cap)
+            payload["data"] = wire.encode(fabric.TRANSACTION, tx)
+
+        def bad_txid(payload):
+            chdr = wire.decode(fabric.CHANNEL_HEADER, payload["header"]["channel_header"])
+            chdr["tx_id"] = "deadbeef" * 8
+            payload["header"]["channel_header"] = wire.encode(fabric.CHANNEL_HEADER, chdr)
+
+        datas, want = [], []
+        for i in range(MASK_TXS):
+            kind = MASK_KINDS[i % len(MASK_KINDS)]
+            env = None
+            if kind == "valid":
+                env = self.envelope(i)
+            elif kind == "bad_creator_sig":
+                env = self.envelope(i)
+                env["signature"] = env["signature"][:-1] + bytes([env["signature"][-1] ^ 0x01])
+            elif kind == "bad_endorsement":
+                env = resigned(self.envelope(i), flip_endorsement)
+            elif kind == "unknown_msp":
+                env = self.envelope(i, client=self.stranger)
+            elif kind == "unknown_cc":
+                env = self.envelope(i, cc="ghostcc")
+            elif kind == "bad_txid":
+                env = resigned(self.envelope(i), bad_txid)
+            elif kind == "bad_payload":
+                env = {"payload": b"\x0a\x05abc", "signature": self.client.sign(b"\x0a\x05abc")}
+            elif kind == "revoked_endorser":
+                env = self.envelope(i, endorsers=[self.endorsers[0], self.revoked])
+            if kind == "dup_txid":
+                datas.append(datas[i - 6])
+            else:
+                datas.append(b"" if kind == "nil" else wire.encode(fabric.ENVELOPE, env))
+            want.append(MASK_CODES[kind])
+        return self.make_block(datas, 2), want
+
+
+def oracle_provider():
+    """The port's P-256 oracle behind the provider SPI: the reference the
+    validator's device route is held to."""
+    from fabric_tpu_torch.common import p256
+    from fabric_tpu_torch.crypto.bccsp import Provider, parse_and_precheck
+
+    class OracleProvider(Provider):
+        def verify(self, key, signature, digest):
+            r, s = parse_and_precheck(signature)
+            return p256.verify_digest(key.point, digest, r, s)
+
+    return OracleProvider()
+
+
+def policy_cases():
+    """(rule, num_principals, sat) cases for K7: tests/test_policy.py's five
+    policies on every 2 x 2 sat matrix (:105-123) and its 25 random policies
+    (random.Random(1234), :125-136); edge lanes at S in {31, 32, 33, 64, 65,
+    100} (n = 0, n above the child count, NOutOf with no children, a failing
+    branch whose children claimed signers, a leaf root, depth 23); B = 1."""
+    import itertools
+    import random
+
+    import numpy as np
+
+    from fabric_tpu_torch.policy.ast import NOutOf, SignedBy, from_dsl
+
+    cases = []
+    for text in ("AND('A.member','B.member')", "OR('A.member','B.member')",
+                 "AND('A.member','A.member')",
+                 "OutOf(1, AND('A.member','B.member'), 'B.member')",
+                 "OutOf(2, 'A.member', 'B.member', 'A.member')"):
+        env = from_dsl(text)
+        P = len(env.identities)
+        sat = np.stack([np.array(bits, dtype=bool).reshape(2, P)
+                        for bits in itertools.product([0, 1], repeat=2 * P)])
+        cases.append((env.rule, P, sat))
+
+    def random_policy(rng, num_p, depth=0):
+        if depth >= 2 or rng.random() < 0.4:
+            return SignedBy(rng.randrange(num_p))
+        k = rng.randint(1, 3)
+        return NOutOf(rng.randint(1, k), [random_policy(rng, num_p, depth + 1) for _ in range(k)])
+
+    rng = random.Random(1234)
+    for trial in range(25):
+        num_p, num_s = rng.randint(1, 4), rng.randint(1, 4)
+        rule = random_policy(rng, num_p)
+        cases.append((rule, num_p, np.random.default_rng(trial).random((16, num_s, num_p)) < 0.45))
+
+    deep = SignedBy(0)
+    for _ in range(22):
+        deep = NOutOf(1, [NOutOf(3, [SignedBy(1), SignedBy(0), SignedBy(2)]), deep])
+    edges = [
+        NOutOf(0, [SignedBy(0), SignedBy(1)]),
+        NOutOf(3, [SignedBy(0), SignedBy(1)]),
+        NOutOf(0, []),
+        NOutOf(1, []),
+        NOutOf(1, [NOutOf(3, [SignedBy(0), SignedBy(1), SignedBy(2)]),
+                   NOutOf(2, [SignedBy(0), SignedBy(0)])]),
+        SignedBy(2),
+        deep,
+    ]
+    srng = np.random.default_rng(7)
+    for S in (31, 32, 33, 64, 65, 100):
+        for rule in edges:
+            for B, density in ((1, 0.05), (300, 0.02), (300, 0.5)):
+                cases.append((rule, 3, srng.random((B, S, 3)) < density))
+    return cases
+
+
+def policy_bound_ms(B: int, S: int, P: int, nodes: int) -> float:
+    """K7's least time: each bool read once, each verdict written once, the
+    program read once (16 bytes a node), over the memory rate."""
+    return (B * S * P + B + 16 * nodes) / HBM_BYTES_PER_S * 1e3
+
+
+def policy_kernel_vs_plain(torch, np, dev) -> int:
+    """K7 against its plain version on the card and against evaluate_host,
+    every lane of every case; returns the largest difference."""
+    from fabric_tpu_torch.ops import policy_kernel as pk
+    from fabric_tpu_torch.policy.ast import SignaturePolicyEnvelope
+    from fabric_tpu_torch.policy.evaluator import evaluate_host
+
+    t_phase = time.perf_counter()
+    cases = policy_cases()
+    lanes = differing = 0
+    err = 0
+    widest = (0, 0)
+    for rule, P, sat_np in cases:
+        program = pk.encode_program(rule, P, dev)
+        sat = torch.from_numpy(np.ascontiguousarray(sat_np)).to(dev)
+        got = pk.policy_eval(sat, program)
+        torch.cuda.synchronize()
+        plain = pk.policy_eval_ref(sat, program)
+        env = SignaturePolicyEnvelope(rule, [None] * P)
+        host = torch.tensor([evaluate_host(env, m) for m in sat_np], dtype=torch.bool)
+        g, p = got.cpu(), plain.cpu()
+        err = max(err, int((g.to(torch.int32) - p.to(torch.int32)).abs().max().item()))
+        differing += int((g != p).sum().item()) + int((g != host).sum().item())
+        lanes += len(sat_np)
+        widest = max(widest, (pk.state_words(sat_np.shape[1], P, program.depth), program.depth))
+    # B = 0 returns an empty verdict and launches nothing
+    before = pk.LAUNCHES["policy_eval"]
+    empty = pk.policy_eval(torch.zeros((0, 2, 2), dtype=torch.bool, device=dev),
+                           pk.encode_program(cases[0][0], 2, dev))
+    if empty.shape != (0,) or pk.LAUNCHES["policy_eval"] != before:
+        raise AssertionError("K7 launched on an empty batch")
+    if differing or err:
+        raise AssertionError(f"K7: {differing} lanes differ from the plain version or the oracle")
+    emit({"phase": "policy_kernel_vs_plain", "cases": len(cases), "lanes": lanes,
+          "differing_lanes": differing, "max_abs_err": err, "widest_state_words": widest[0],
+          "deepest": widest[1], "empty_batch_launched": False,
+          "seconds": time.perf_counter() - t_phase})
+    return err
+
+
+def validator_phases(torch, np, dev, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
+    """validator_config2, validator_mask and validator_commit; returns K7's
+    entry of the kernels line."""
+    from fabric_tpu_torch.common.txflags import TxValidationCode
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ledger import kvledger, mvcc, statedb
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.ops import policy_kernel as pk
+    from fabric_tpu_torch.policy.evaluator import compile_batched
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.validation.blockparse import parse_block
+
+    err7 = policy_kernel_vs_plain(torch, np, dev)
+
+    # --- validator_config2: bench.py bench_block_1k on the card ------------
+    t_phase = time.perf_counter()
+    net = Config2Net()
+    block = net.block(n_txs, number=1)
+    raw_block = wire.encode(fabric.BLOCK, block)
+    setup_s = time.perf_counter() - t_phase
+    for table in (p256k.LAUNCHES, pk.LAUNCHES, md.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    per_run, validator = [], None
+    for run in range(runs + 1):  # run 0 is the warm-up
+        b = wire.decode(fabric.BLOCK, raw_block)
+        validator = net.validator(CUDAProvider(device=dev))
+        before = p256k.LAUNCHES["p256_verify_bytes"]
+        t0 = time.perf_counter()
+        flags = validator.validate(b)
+        ms = (time.perf_counter() - t0) * 1e3
+        if flags.tobytes() != bytes(n_txs):
+            raise AssertionError("config #2 expected an all-VALID block")
+        if validator.last_sig_backend != "cuda":
+            raise AssertionError(f"validator ran on {validator.last_sig_backend}")
+        if p256k.LAUNCHES["p256_verify_bytes"] - before != 1:
+            raise AssertionError("config #2: K2 must launch once a block")
+        if run:
+            per_run.append({"ms": ms, "split_ms": dict(validator.last_ms)})
+    # K7 on the block: every tx's satisfaction rows, no pattern memo
+    parsed = parse_block(wire.decode(fabric.BLOCK, raw_block)["data"]["data"])
+    # the last validator's signature verdicts belong to its own parse
+    validator = net.validator(CUDAProvider(device=dev))
+    validator.validate(wire.decode(fabric.BLOCK, raw_block), parsed=parsed)
+    rows = [validator.signer_sat_rows(tx, net.policy) for tx in parsed]
+    S = max(r.shape[0] for r in rows)
+    P = len(net.policy.identities)
+    sat_np = np.zeros((len(rows), S, P), dtype=bool)
+    for i, r in enumerate(rows):
+        sat_np[i, : r.shape[0]] = r
+    sat = torch.from_numpy(sat_np).to(dev)
+    verdicts = compile_batched(net.policy, S, device=dev)(sat)
+    launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                "policy_eval": pk.LAUNCHES["policy_eval"]}
+    if launches["p256_verify_bytes"] != runs + 2 or launches["policy_eval"] != 1:
+        raise AssertionError(f"config #2 path launches: {launches}")
+    program = pk.encode_program(net.policy.rule, P, dev)
+    plain = pk.policy_eval_ref(sat, program)
+    want = torch.tensor([f == 0 for f in flags.tobytes()], dtype=torch.bool)
+    if not (torch.equal(verdicts.cpu(), plain.cpu()) and torch.equal(verdicts.cpu(), want)):
+        raise AssertionError("K7's verdicts on config #2 differ from the plain version or the flags")
+    err7 = max(err7, int((verdicts.cpu().to(torch.int32) - plain.cpu().to(torch.int32)).abs().max()))
+    ms7 = device_ms(torch, lambda: pk.policy_eval(sat, program), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk.policy_eval_ref(sat, program)
+    torch.cuda.synchronize()
+    plain7 = (time.perf_counter() - t0) * 1e3
+    nodes = program.nodes.shape[0]
+    bound7 = policy_bound_ms(len(rows), S, P, nodes)
+    best = min(r["ms"] for r in per_run)
+    emit({"phase": "validator_config2", "txs": n_txs, "signature_lanes": 3 * n_txs, "keys": 3,
+          "setup_seconds": setup_s, "runs": per_run, "ms_per_block_best": best,
+          "ms_per_block_range": [best, max(r["ms"] for r in per_run)],
+          "all_valid": True, "backend": "cuda", "k2_launches_per_block": 1,
+          "k7": {"lanes": len(rows), "signers": S, "principals": P, "nodes": nodes, "ms": ms7,
+                 "bound_ms": bound7, "plain_ms": plain7, "launches": launches["policy_eval"],
+                 "verdicts_equal_flags": True},
+          "seconds": time.perf_counter() - t_phase})
+
+    # --- validator_mask: the invalid kinds, lane by lane --------------------
+    t_phase = time.perf_counter()
+    mask_block, want_codes = net.mask_block()
+    raw_mask = wire.encode(fabric.BLOCK, mask_block)
+    got = net.validator(CUDAProvider(device=dev), with_crl=True).validate(
+        wire.decode(fabric.BLOCK, raw_mask))
+    oracle = net.validator(oracle_provider(), with_crl=True).validate(
+        wire.decode(fabric.BLOCK, raw_mask))
+    if list(got.tobytes()) != want_codes or oracle.tobytes() != got.tobytes():
+        raise AssertionError(f"validator_mask: device {list(got.tobytes())}, oracle "
+                             f"{list(oracle.tobytes())}, expected {want_codes}")
+    emit({"phase": "validator_mask", "txs": len(want_codes), "kinds": list(MASK_KINDS),
+          "codes": {k: MASK_CODES[k] for k in MASK_KINDS}, "flags_equal_expected": True,
+          "flags_equal_oracle_provider": True, "seconds": time.perf_counter() - t_phase})
+
+    # --- validator_commit: three blocks through commit_block_state (K6) -----
+    t_phase = time.perf_counter()
+    dev_db, host_db = statedb.VersionedDB(), statedb.VersionedDB()
+    resident = md.ResidentDeviceValidator(dev_db, device=dev)
+    host = mvcc.Validator(host_db)
+    for table in (p256k.LAUNCHES, md.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    prev_d = prev_h = b""
+    per_block = []
+    for number in (1, 2, 3):
+        b = wire.decode(fabric.BLOCK, raw_block) if number == 1 else net.block(n_txs, number)
+        parsed = parse_block(b["data"]["data"])
+        t0 = time.perf_counter()
+        flags = net.validator(CUDAProvider(device=dev)).validate(b, parsed=parsed)
+        t1 = time.perf_counter()
+        codes = [TxValidationCode(c) for c in flags.tobytes()]
+        results = [tx.results for tx in parsed]
+        d = kvledger.commit_block_state(resident, number, results, codes, prev_d)
+        t2 = time.perf_counter()
+        h = kvledger.commit_block_state(host, number, results, codes, prev_h)
+        if d.commit_hash != h.commit_hash or d.flags.tobytes() != h.flags.tobytes():
+            raise AssertionError(f"validator_commit: block {number} differs from the host route")
+        if d.flags.tobytes() != bytes(n_txs) or resident.last_path != "device":
+            raise AssertionError(f"validator_commit: block {number} path {resident.last_path}")
+        prev_d, prev_h = d.commit_hash, h.commit_hash
+        per_block.append({"block": number, "validate_ms": (t1 - t0) * 1e3,
+                          "commit_ms": (t2 - t1) * 1e3, "commit_hash": d.commit_hash.hex()})
+    if md.LAUNCHES["mvcc_resolve_resident"] != 3 or p256k.LAUNCHES["p256_verify_bytes"] != 3:
+        raise AssertionError(f"validator_commit launches: {dict(md.LAUNCHES)}")
+    emit({"phase": "validator_commit", "blocks": 3, "txs_per_block": n_txs,
+          "per_block": per_block, "k6_launches": 3, "k2_launches": 3,
+          "commit_hashes_equal_host_route": True, "seconds": time.perf_counter() - t_phase})
+
+    return {"name": "policy_eval", "route": "cuda",
+            "source": "fabric_tpu_torch/csrc/policy_eval.cu",
+            "replaces": "fabric_tpu/policy/evaluator.py:68", "launches": launches["policy_eval"],
+            "max_abs_err": err7, "ms": ms7, "plain_ms": plain7, "bound_ms": bound7,
+            "bound_by": "bytes", "lanes": len(rows), "signers": S, "principals": P,
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -922,7 +1342,7 @@ def main() -> int:
 
     # --- build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = ("p256_verify", "mvcc_resolve", "bn256")
+    sources = ("p256_verify", "mvcc_resolve", "bn256", "policy_eval")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cudalib.build, sources))
     for name in sources:
@@ -1206,6 +1626,8 @@ def main() -> int:
     kernels += mvcc_phases(torch, np, dev)
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
     kernels += idemix_phases(torch, np, dev, imad_rate)
+    # --- Block validation of config #2, K7 ----------------------------------
+    kernels.append(validator_phases(torch, np, dev))
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz,
           "imad_per_verify": pk.IMAD_PER_VERIFY})

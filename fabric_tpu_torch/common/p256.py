@@ -70,6 +70,48 @@ def scalar_mult(k: int, pt: AffinePoint) -> AffinePoint:
     return result
 
 
+_G_POWERS = []  # affine 2^i * G for i < 256, built on first use
+
+
+def base_mult(k: int) -> AffinePoint:
+    """k * G for signing and key generation: the table of 2^i * G summed in
+    Jacobian coordinates (mixed additions, one inversion at the end), some
+    twenty times faster than `scalar_mult`. Where a partial sum meets a
+    table point or its negative, it returns `scalar_mult(k, G)`."""
+    if not _G_POWERS:
+        pt = GENERATOR
+        for _ in range(256):
+            _G_POWERS.append(pt)
+            pt = point_add(pt, pt)
+    k %= N
+    acc = None  # Jacobian (X, Y, Z)
+    for i in range(k.bit_length()):
+        if not k >> i & 1:
+            continue
+        x2, y2 = _G_POWERS[i]
+        if acc is None:
+            acc = (x2, y2, 1)
+            continue
+        x1, y1, z1 = acc
+        z1z1 = z1 * z1 % P
+        h = (x2 * z1z1 - x1) % P
+        r = 2 * (y2 * z1 * z1z1 - y1) % P
+        if h == 0:  # doubling or the point at infinity (madd-2007-bl excludes both)
+            return scalar_mult(k, GENERATOR)
+        hh = h * h % P
+        i4 = 4 * hh
+        j = h * i4
+        v = x1 * i4
+        x3 = (r * r - j - 2 * v) % P
+        acc = (x3, (r * (v - x3) - 2 * y1 * j) % P, ((z1 + h) ** 2 - z1z1 - hh) % P)
+    if acc is None:
+        return None
+    x, y, z = acc
+    zi = pow(z, -1, P)
+    zi2 = zi * zi % P
+    return (x * zi2 % P, y * zi2 * zi % P)
+
+
 def hash_to_int(digest: bytes) -> int:
     """Leftmost-bits digest truncation, matching Go crypto/ecdsa hashToInt."""
     if len(digest) > 32:
@@ -109,7 +151,7 @@ def sign_digest(
     Normalizes to low-S like Fabric's signer unless `low_s` is False.
     """
     e = hash_to_int(digest)
-    pt = scalar_mult(k, GENERATOR)
+    pt = base_mult(k)
     if pt is None:
         raise ValueError("bad fixed nonce: k*G is infinity")
     r = pt[0] % N

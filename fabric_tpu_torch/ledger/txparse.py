@@ -1,17 +1,32 @@
-"""TxReadWriteSet proto bytes -> TxRwSet (reference rwsetutil.TxRwSetFromProtoMsg).
+"""Per-transaction structural validation (reference
+core/common/validation/msgvalidation.go) and the rwset parse
+(rwsetutil.TxRwSetFromProtoMsg), over the port's wire codec.
 
-The port's counterpart of `_parse_version` and `parse_tx_rwset` in the JAX
-package's `ledger/txparse`, over the hand-written wire codec. Malformed bytes
-raise `ValueError` (`wire.WireError`) wherever `protoutil.unmarshal` raises.
-The envelope parse comes with the block-validator path.
+The port's counterpart of the JAX package's `ledger/txparse`: `SigJob`,
+`ParsedTx`, `parse_transaction`, `_parse_endorser_tx`, `_parse_version` and
+`parse_tx_rwset`. Malformed bytes raise `wire.WireError`, a ValueError,
+wherever `protoutil.unmarshal` raises there, and map to the same codes.
+
+Check order (msgvalidation.go ValidateTransaction): nil envelope ->
+NIL_ENVELOPE; envelope unmarshal -> INVALID_OTHER_REASON; payload ->
+BAD_PAYLOAD; header/channel-header/signature-header problems ->
+BAD_COMMON_HEADER; TxID recompute -> BAD_PROPOSAL_TXID; endorser-tx
+structure (single action, proposal-hash binding) ->
+INVALID_ENDORSER_TRANSACTION. Signatures are not verified here: the parse
+emits signature jobs, which the validator verifies in one batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import hashlib
+import hmac
+from typing import List, Optional, Tuple
 
+from fabric_tpu_torch.common.txflags import TxValidationCode
 from fabric_tpu_torch.ledger import rwset as rw
-from fabric_tpu_torch.protos import wire
+from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+SUPPORTED_HEADER_TYPES = {fabric.ENDORSER_TRANSACTION, fabric.CONFIG_UPDATE, fabric.CONFIG}
 
 
 def _parse_version(v: Optional[dict]) -> Optional[rw.Version]:
@@ -91,3 +106,192 @@ def parse_tx_rwset(results: bytes) -> rw.TxRwSet:
             )
         )
     return rw.TxRwSet(tuple(ns_sets))
+
+
+class SigJob:
+    """One deferred signature check: verify `signature` by the identity
+    serialized in `identity_bytes` over `data`."""
+
+    __slots__ = ("identity_bytes", "signature", "data")
+
+    def __init__(self, identity_bytes: bytes, signature: bytes, data: bytes):
+        self.identity_bytes = identity_bytes
+        self.signature = signature
+        self.data = data
+
+
+def writes_to_namespace(ns_rw: rw.NsRwSet) -> bool:
+    """Reference dispatcher.txWritesToNamespace: public writes, metadata
+    writes, or per-collection hashed (metadata) writes."""
+    if ns_rw.writes or ns_rw.metadata_writes:
+        return True
+    return any(coll.hashed_writes or coll.metadata_writes for coll in ns_rw.coll_hashed)
+
+
+class ParsedTx:
+    """Host-parse result for one block position. `results` keeps the
+    ChaincodeAction's TxReadWriteSet bytes for the commit step."""
+
+    __slots__ = ("index", "code", "header_type", "channel_id", "tx_id", "creator",
+                 "creator_sig_job", "endorsement_jobs", "namespace", "config_data", "rwset",
+                 "results")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.code: TxValidationCode = TxValidationCode.NOT_VALIDATED
+        self.header_type: int = -1
+        self.channel_id: str = ""
+        self.tx_id: str = ""
+        self.creator: bytes = b""
+        self.creator_sig_job: Optional[SigJob] = None
+        self.endorsement_jobs: List[SigJob] = []
+        self.namespace: str = ""
+        self.config_data: bytes = b""
+        self.rwset: Optional[rw.TxRwSet] = None
+        self.results: Optional[bytes] = None
+
+    @property
+    def ns_entries(self) -> Optional[List[Tuple[str, bool]]]:
+        """[(namespace, writes_to_namespace)] in rwset order, or None for
+        non-endorser / failed txs."""
+        if self.rwset is None:
+            return None
+        return [(ns.namespace, writes_to_namespace(ns)) for ns in self.rwset.ns_rw_sets]
+
+    @property
+    def has_md_writes(self) -> bool:
+        """Any public or collection-hashed metadata write: the trigger for
+        the sequential SBE pass (statebased.BlockDependencies)."""
+        return self.rwset is not None and any(
+            ns.metadata_writes or any(c.metadata_writes for c in ns.coll_hashed)
+            for ns in self.rwset.ns_rw_sets
+        )
+
+    @property
+    def structurally_valid(self) -> bool:
+        return self.code == TxValidationCode.NOT_VALIDATED
+
+
+def parse_transaction(index: int, data: bytes) -> ParsedTx:
+    """Structural validation of one block entry; fills early codes and
+    deferred signature jobs. Never verifies a signature."""
+    out = ParsedTx(index)
+    if not data:
+        out.code = TxValidationCode.NIL_ENVELOPE
+        return out
+    try:
+        env = protoutil.unmarshal(fabric.ENVELOPE, data)
+    except ValueError:
+        out.code = TxValidationCode.INVALID_OTHER_REASON
+        return out
+    payload_bytes = env.get("payload", b"")
+    if not payload_bytes:
+        out.code = TxValidationCode.BAD_PAYLOAD
+        return out
+    try:
+        payload = protoutil.unmarshal(fabric.PAYLOAD, payload_bytes)
+    except ValueError:
+        out.code = TxValidationCode.BAD_PAYLOAD
+        return out
+
+    # validateCommonHeader; an absent header is not an empty one
+    header = payload.get("header")
+    if header is None:
+        out.code = TxValidationCode.BAD_COMMON_HEADER
+        return out
+    try:
+        chdr = protoutil.unmarshal(fabric.CHANNEL_HEADER, header.get("channel_header", b""))
+        shdr = protoutil.unmarshal(fabric.SIGNATURE_HEADER, header.get("signature_header", b""))
+    except ValueError:
+        out.code = TxValidationCode.BAD_COMMON_HEADER
+        return out
+    header_type = chdr.get("type", 0)
+    if header_type not in SUPPORTED_HEADER_TYPES or chdr.get("epoch", 0) != 0:
+        out.code = TxValidationCode.BAD_COMMON_HEADER
+        return out
+    nonce, creator = shdr.get("nonce", b""), shdr.get("creator", b"")
+    if not nonce or not creator:
+        out.code = TxValidationCode.BAD_COMMON_HEADER
+        return out
+
+    out.header_type = header_type
+    out.channel_id = chdr.get("channel_id", "")
+    out.tx_id = chdr.get("tx_id", "")
+    out.creator = creator
+    # checkSignatureFromCreator, deferred: the signature over the full
+    # payload bytes (msgvalidation.go:284)
+    out.creator_sig_job = SigJob(creator, env.get("signature", b""), payload_bytes)
+
+    if header_type == fabric.ENDORSER_TRANSACTION:
+        if not protoutil.check_tx_id(out.tx_id, nonce, creator):
+            out.code = TxValidationCode.BAD_PROPOSAL_TXID
+            return out
+        code = _parse_endorser_tx(out, payload)
+        if code is not None:
+            out.code = code
+        return out
+    if header_type == fabric.CONFIG:
+        out.config_data = payload.get("data", b"")
+    # CONFIG_UPDATE passes header validation; the validator codes it
+    # UNKNOWN_TX_TYPE
+    return out
+
+
+def _parse_endorser_tx(out: ParsedTx, payload: dict) -> Optional[TxValidationCode]:
+    """validateEndorserTransaction + the artifact extraction of the builtin
+    v20 plugin (validation_logic.go extractValidationArtifacts)."""
+    try:
+        tx = protoutil.unmarshal(fabric.TRANSACTION, payload.get("data", b""))
+    except ValueError:
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+    actions = tx.get("actions", [])
+    if len(actions) != 1:
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+    action = actions[0]
+    action_header = action.get("header", b"")
+    try:
+        act_shdr = protoutil.unmarshal(fabric.SIGNATURE_HEADER, action_header)
+    except ValueError:
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+    if not act_shdr.get("nonce") or not act_shdr.get("creator"):
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+    try:
+        cap = protoutil.unmarshal(fabric.CHAINCODE_ACTION_PAYLOAD, action.get("payload", b""))
+        endorsed = cap.get("action", {})
+        prp_bytes = endorsed.get("proposal_response_payload", b"")
+        prp = protoutil.unmarshal(fabric.PROPOSAL_RESPONSE_PAYLOAD, prp_bytes)
+    except ValueError:
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+
+    # proposal-hash binding: sha256(channel_header || action sig header ||
+    # chaincode proposal payload) == prp.proposal_hash (txutils.go:431)
+    h = hashlib.sha256()
+    h.update(payload["header"].get("channel_header", b""))
+    h.update(action_header)
+    h.update(cap.get("chaincode_proposal_payload", b""))
+    if not hmac.compare_digest(h.digest(), prp.get("proposal_hash", b"")):
+        return TxValidationCode.INVALID_ENDORSER_TRANSACTION
+
+    try:
+        cc_action = protoutil.unmarshal(fabric.CHAINCODE_ACTION, prp.get("extension", b""))
+    except ValueError:
+        return TxValidationCode.BAD_RESPONSE_PAYLOAD
+    chaincode_id = cc_action.get("chaincode_id")
+    if chaincode_id is None or not chaincode_id.get("name"):
+        return TxValidationCode.INVALID_OTHER_REASON
+    results = cc_action.get("results", b"")
+    try:
+        out.rwset = parse_tx_rwset(results)
+    except ValueError:
+        return TxValidationCode.BAD_RWSET
+    out.results = results
+    out.namespace = chaincode_id["name"]
+
+    # endorsement signature jobs: data = prp_bytes || endorser identity
+    # (statebased/validator_keylevel.go:243-251)
+    for endorsement in endorsed.get("endorsements", ()):
+        endorser = endorsement.get("endorser", b"")
+        out.endorsement_jobs.append(
+            SigJob(endorser, endorsement.get("signature", b""), prp_bytes + endorser)
+        )
+    return None

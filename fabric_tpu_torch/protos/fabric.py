@@ -1,0 +1,135 @@
+"""Schemas of the block, transaction, MSP and policy messages for the wire codec.
+
+The port's counterpart of the JAX package's `common_pb2`, `peer_pb2`,
+`identities_pb2`, `msp_principal_pb2` and `policies_pb2`, as far as the block
+validator, the transaction builder and the policy conversion use them
+(`protos/src/{common,peer,identities,msp_principal,policies}.proto`). Messages
+are dicts in `wire.decode`'s form; `wire.encode` writes them byte for byte as
+protobuf's `SerializeToString` does. Map fields (`ChaincodeProposalPayload.
+TransientMap`, `ChaincodeInput.decorations`) are left out: nothing on the
+port's paths writes them, and the reader skips them as unknown fields.
+"""
+
+from __future__ import annotations
+
+from fabric_tpu_torch.protos.wire import Field, Schema, _msg
+
+# common.HeaderType
+MESSAGE, CONFIG, CONFIG_UPDATE, ENDORSER_TRANSACTION = 0, 1, 2, 3
+# common.BlockMetadataIndex: SIGNATURES, LAST_CONFIG, TRANSACTIONS_FILTER, ORDERER, COMMIT_HASH
+TRANSACTIONS_FILTER = 2
+BLOCK_METADATA_SLOTS = 5
+
+# google.protobuf.Timestamp
+TIMESTAMP: Schema = {1: Field("seconds", "int64"), 2: Field("nanos", "int32")}
+
+# common.proto
+BLOCK_HEADER: Schema = {
+    1: Field("number", "uint64"),
+    2: Field("previous_hash", "bytes"),
+    3: Field("data_hash", "bytes"),
+}
+BLOCK_DATA: Schema = {1: Field("data", "bytes", repeated=True)}
+BLOCK_METADATA: Schema = {1: Field("metadata", "bytes", repeated=True)}
+BLOCK: Schema = {
+    1: _msg("header", BLOCK_HEADER),
+    2: _msg("data", BLOCK_DATA),
+    3: _msg("metadata", BLOCK_METADATA),
+}
+ENVELOPE: Schema = {1: Field("payload", "bytes"), 2: Field("signature", "bytes")}
+HEADER: Schema = {1: Field("channel_header", "bytes"), 2: Field("signature_header", "bytes")}
+PAYLOAD: Schema = {1: _msg("header", HEADER), 2: Field("data", "bytes")}
+CHANNEL_HEADER: Schema = {
+    1: Field("type", "int32"),
+    2: Field("version", "int32"),
+    3: _msg("timestamp", TIMESTAMP),
+    4: Field("channel_id", "string"),
+    5: Field("tx_id", "string"),
+    6: Field("epoch", "uint64"),
+    7: Field("extension", "bytes"),
+    8: Field("tls_cert_hash", "bytes"),
+}
+SIGNATURE_HEADER: Schema = {1: Field("creator", "bytes"), 2: Field("nonce", "bytes")}
+
+# peer.proto
+CHAINCODE_ID: Schema = {
+    1: Field("path", "string"),
+    2: Field("name", "string"),
+    3: Field("version", "string"),
+}
+CHAINCODE_INPUT: Schema = {1: Field("args", "bytes", repeated=True), 3: Field("is_init", "bool")}
+CHAINCODE_SPEC: Schema = {
+    1: Field("type", "enum"),
+    2: _msg("chaincode_id", CHAINCODE_ID),
+    3: _msg("input", CHAINCODE_INPUT),
+    4: Field("timeout", "int32"),
+}
+GOLANG = 1  # ChaincodeSpec.Type
+CHAINCODE_INVOCATION_SPEC: Schema = {1: _msg("chaincode_spec", CHAINCODE_SPEC)}
+CHAINCODE_HEADER_EXTENSION: Schema = {2: _msg("chaincode_id", CHAINCODE_ID)}
+CHAINCODE_PROPOSAL_PAYLOAD: Schema = {1: Field("input", "bytes")}
+RESPONSE: Schema = {
+    1: Field("status", "int32"),
+    2: Field("message", "string"),
+    3: Field("payload", "bytes"),
+}
+CHAINCODE_ACTION: Schema = {
+    1: Field("results", "bytes"),
+    2: Field("events", "bytes"),
+    3: _msg("response", RESPONSE),
+    4: _msg("chaincode_id", CHAINCODE_ID),
+}
+PROPOSAL_RESPONSE_PAYLOAD: Schema = {1: Field("proposal_hash", "bytes"), 2: Field("extension", "bytes")}
+ENDORSEMENT: Schema = {1: Field("endorser", "bytes"), 2: Field("signature", "bytes")}
+PROPOSAL_RESPONSE: Schema = {
+    1: Field("version", "int32"),
+    2: _msg("timestamp", TIMESTAMP),
+    4: _msg("response", RESPONSE),
+    5: Field("payload", "bytes"),
+    6: _msg("endorsement", ENDORSEMENT),
+}
+CHAINCODE_ENDORSED_ACTION: Schema = {
+    1: Field("proposal_response_payload", "bytes"),
+    2: _msg("endorsements", ENDORSEMENT, repeated=True),
+}
+CHAINCODE_ACTION_PAYLOAD: Schema = {
+    1: Field("chaincode_proposal_payload", "bytes"),
+    2: _msg("action", CHAINCODE_ENDORSED_ACTION),
+}
+TRANSACTION_ACTION: Schema = {1: Field("header", "bytes"), 2: Field("payload", "bytes")}
+TRANSACTION: Schema = {1: _msg("actions", TRANSACTION_ACTION, repeated=True)}
+
+# identities.proto, msp_principal.proto
+SERIALIZED_IDENTITY: Schema = {1: Field("mspid", "string"), 2: Field("id_bytes", "bytes")}
+MSP_PRINCIPAL: Schema = {
+    1: Field("principal_classification", "enum"),
+    2: Field("principal", "bytes"),
+}
+ROLE, ORGANIZATION_UNIT, IDENTITY = 0, 1, 2  # MSPPrincipal.Classification
+MSP_ROLE: Schema = {1: Field("msp_identifier", "string"), 2: Field("role", "enum")}
+MEMBER, ADMIN, CLIENT, PEER, ORDERER = 0, 1, 2, 3, 4  # MSPRole.MSPRoleType
+ORGANIZATION_UNIT_MSG: Schema = {
+    1: Field("msp_identifier", "string"),
+    2: Field("organizational_unit_identifier", "string"),
+    3: Field("certifiers_identifier", "bytes"),
+}
+
+# policies.proto; SignaturePolicy and NOutOf refer to each other
+SIGNATURE_POLICY: Schema = {}
+N_OUT_OF: Schema = {
+    1: Field("n", "int32"),
+    2: _msg("rules", SIGNATURE_POLICY, repeated=True),
+}
+SIGNATURE_POLICY.update({
+    1: Field("signed_by", "int32", oneof="Type"),
+    2: _msg("n_out_of", N_OUT_OF, oneof="Type"),
+})
+SIGNATURE_POLICY_ENVELOPE: Schema = {
+    1: Field("version", "int32"),
+    2: _msg("rule", SIGNATURE_POLICY),
+    3: _msg("identities", MSP_PRINCIPAL, repeated=True),
+}
+APPLICATION_POLICY: Schema = {
+    1: _msg("signature_policy", SIGNATURE_POLICY_ENVELOPE, oneof="Type"),
+    2: Field("channel_config_policy_reference", "string", oneof="Type"),
+}

@@ -1,0 +1,67 @@
+"""Proto helpers of the reference's protoutil package, over the wire codec.
+
+The port's counterpart of the JAX package's `protos/protoutil.py`. Messages
+are dicts in `wire.decode`'s form (`protos/fabric.py` has their schemas); a
+block is `{"header": {...}, "data": {"data": [...]}, "metadata":
+{"metadata": [...]}}`, and `marshal(fabric.BLOCK, block)` gives the bytes
+protobuf's `Block.SerializeToString()` gives for the same block.
+
+- TxID = hex(SHA-256(nonce || creator))       (proputils.go:357)
+- BlockDataHash = SHA-256(concat(data...))    (blockutils.go:65)
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+from fabric_tpu_torch.protos import fabric, wire
+
+
+def compute_tx_id(nonce: bytes, creator: bytes) -> str:
+    return hashlib.sha256(nonce + creator).hexdigest()
+
+
+def check_tx_id(tx_id: str, nonce: bytes, creator: bytes) -> bool:
+    """reference protoutil.CheckTxID (proputils.go:368)."""
+    return tx_id == compute_tx_id(nonce, creator)
+
+
+def new_block(number: int, previous_hash: bytes) -> dict:
+    block = {
+        "header": {"number": number, "previous_hash": previous_hash},
+        "data": {"data": []},
+    }
+    init_block_metadata(block)
+    return block
+
+
+def init_block_metadata(block: dict) -> None:
+    """Ensure the metadata array covers all BlockMetadataIndex slots
+    (reference protoutil.InitBlockMetadata)."""
+    slots = block.setdefault("metadata", {}).setdefault("metadata", [])
+    while len(slots) < fabric.BLOCK_METADATA_SLOTS:
+        slots.append(b"")
+
+
+def seal_block(block: dict) -> dict:
+    block["header"]["data_hash"] = hashlib.sha256(b"".join(block["data"]["data"])).digest()
+    return block
+
+
+def make_signature_header(creator: bytes, nonce: bytes) -> dict:
+    return {"creator": creator, "nonce": nonce}
+
+
+def make_channel_header(header_type: int, channel_id: str, tx_id: str = "",
+                        extension: bytes = b"") -> dict:
+    return {"type": header_type, "channel_id": channel_id, "tx_id": tx_id, "extension": extension}
+
+
+def serialize_identity(mspid: str, cert_pem: bytes) -> bytes:
+    return wire.encode(fabric.SERIALIZED_IDENTITY, {"mspid": mspid, "id_bytes": cert_pem})
+
+
+def unmarshal(schema: wire.Schema, raw: bytes) -> dict:
+    """Parse or raise `wire.WireError`, a ValueError (the Go-style
+    unmarshal-with-error wrapper)."""
+    return wire.decode(schema, raw)

@@ -4,7 +4,8 @@ The port's paths run where no protobuf runtime is installed, so the few
 messages they read and write are described as tables (field number ->
 `Field`) and one reader and one writer walk them. The tables here follow the
 JAX package's `protos/src/{kv_rwset,rwset,txmgr_updates}.proto`; those of
-`idemix.proto` are in `protos/idemix.py`.
+`idemix.proto` are in `protos/idemix.py`, and those of the block, transaction,
+MSP and policy messages in `protos/fabric.py`.
 
 A decoded message is a dict that holds only the fields present on the wire:
 a scalar or string under its name (read it with `.get(name, default)`), a
@@ -20,8 +21,8 @@ Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
   a 10-byte varint, and an int32 keeps the low 32 bits of what it reads;
 - a singular scalar, string or bytes field keeps its last value; a repeated
   field appends; a singular message that appears twice is merged, field by
-  field; a member of a oneof replaces the other member, and merges only
-  with itself;
+  field; a member of a oneof, scalar or message, replaces the other members,
+  and a message member merges only with itself;
 - truncated input, a varint longer than 10 bytes, a tag longer than 5 bytes
   or above 2^32 - 1, field number 0, wire types 6 and 7, an unmatched group
   end, messages and groups nested more than 100 deep, and a string field
@@ -29,7 +30,8 @@ Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
 
 Encoding writes what protobuf's `SerializeToString` writes for the same
 message: fields in field-number order, proto3 defaults (0, false, empty
-string or bytes) left out of singular fields, a negative int32 or int64 as
+string or bytes) left out of singular fields but not out of a oneof's member
+that is present, a negative int32 or int64 as
 the 10-byte varint of its two's complement, embedded messages whenever
 present (an empty dict writes an empty but present message), every element
 of a repeated field.
@@ -273,6 +275,10 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
         if field.repeated:
             out.setdefault(field.name, []).append(value)
         else:
+            if field.oneof is not None:
+                for other in schema.values():
+                    if other.oneof == field.oneof:
+                        out.pop(other.name, None)
             out[field.name] = value
 
 
@@ -312,13 +318,13 @@ def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
                 _put_varint(out, len(body))
                 out += body
             elif field.wire_type == _VARINT:
-                if not v and not field.repeated:
+                if not v and not field.repeated and field.oneof is None:
                     continue
                 _put_varint(out, number << 3 | _VARINT)
                 _put_varint(out, int(v))
             else:
                 raw = v.encode("utf-8") if field.kind == "string" else bytes(v)
-                if not raw and not field.repeated:
+                if not raw and not field.repeated and field.oneof is None:
                     continue
                 _put_varint(out, number << 3 | _LEN)
                 _put_varint(out, len(raw))

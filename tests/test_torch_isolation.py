@@ -35,6 +35,10 @@ from fabric_tpu_torch.common import fp256bn
 from fabric_tpu_torch.idemix.batch import verify_signatures_batch
 from fabric_tpu_torch.ops.bn256_kernel import msm_host_batch
 from fabric_tpu_torch.ops.pairing_kernel import Ate2Kernel, kernel_for_issuer, miller2_values
+from fabric_tpu_torch.msp.identity import MSPManager
+from fabric_tpu_torch.policy.ast import from_dsl
+from fabric_tpu_torch.policy.evaluator import compile_batched
+from fabric_tpu_torch.validation.validator import BlockValidator, ChaincodeRegistry
 refused = {}
 for name, make in (("CUDAProvider", CUDAProvider),
                    ("DeviceValidator", lambda: DeviceValidator(VersionedDB())),
@@ -46,7 +50,10 @@ for name, make in (("CUDAProvider", CUDAProvider),
                        fp256bn.g2_to_bytes(fp256bn.G2_GEN))),
                    ("msm_host_batch", lambda: msm_host_batch([[fp256bn.G1_GEN]], [[1]])),
                    ("miller2_values", lambda: miller2_values(
-                       fp256bn.G2_GEN, [(fp256bn.G1_GEN, fp256bn.G1_GEN)]))):
+                       fp256bn.G2_GEN, [(fp256bn.G1_GEN, fp256bn.G1_GEN)])),
+                   ("compile_batched", lambda: compile_batched(from_dsl("OR('A.member')"), 1)),
+                   ("BlockValidator", lambda: BlockValidator(
+                       "ch", MSPManager([]), CUDAProvider(), ChaincodeRegistry()))):
     try:
         make()
         refused[name] = None
@@ -67,7 +74,11 @@ def test_port_imports_no_jax_and_needs_a_card():
     assert "fabric_tpu_torch.ledger.mvcc_device" in report["modules"]
     assert "fabric_tpu_torch.protos.wire" in report["modules"]
     for name in ("common.fp256bn", "ops.bn256_kernel", "ops.fp12", "ops.pairing_kernel",
-                 "protos.idemix", "idemix.scheme", "idemix.batch"):
+                 "protos.idemix", "idemix.scheme", "idemix.batch", "protos.fabric",
+                 "protos.protoutil", "common.x509", "msp.identity", "msp.cryptogen", "msp.signer",
+                 "policy.ast", "policy.proto_convert", "policy.evaluator", "ops.policy_kernel",
+                 "ledger.txparse", "validation.blockparse", "validation.statebased",
+                 "validation.validator", "endorser.txbuilder"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     if not torch.cuda.is_available():
