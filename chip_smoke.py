@@ -45,15 +45,20 @@ Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
 
  11. idemix_kernel_vs_plain: K3 (the G1 MSM) at K = 8 over edge lanes
      (identity bases, zero scalars, e = 1, e = r - 1, r * G = O, equal
-     bases, random) and K4 (the Ate2 pairing check) at 8 lanes (true,
-     false, None, identity ABar), every output word against the plain
-     versions, the Miller values and final-exponentiated values included;
+     bases, random), its points lane by lane against the plain version's
+     and the host oracle's (the kernel sums in another order, so its
+     projective words differ), and K4 (the Ate2 pairing check) at 8 lanes
+     (true, false, None, identity ABar), every output word against the
+     plain version, the Miller values and final-exponentiated values
+     included;
  12. idemix_config3: bench.py's config #3 (8 unique signatures from
      random.Random(1234), every attribute hidden, an unsigned
      ALG_NO_REVOCATION CRI) tiled to 64 and 256 signatures through
      verify_signatures_batch: masks all True and equal to the scheme
      oracle, ms per signature, the host/K4/K3/challenge split, each
-     kernel's time, the oracle's ms per signature over 4 signatures;
+     kernel's time, the host's MSM packing and affine conversion at 256
+     signatures timed alone, the oracle's ms per signature over 4
+     signatures;
  13. idemix_mask: a mixed batch (wrong message, proof_s_sk + 1, a wrong
      disclosed value, ABar doubled, ABar and A' the identity, a wrong count
      of s-values) held lane by lane to the scheme oracle;
@@ -631,6 +636,16 @@ def word_diff(torch, a, b) -> int:
     return int((a & 0xFFFFFFFF).sub(b & 0xFFFFFFFF).abs().max().item()) if a.numel() else 0
 
 
+def point_err(got, want) -> int:
+    """Largest absolute difference of two lists of affine points,
+    coordinate by coordinate, the identity read as (0, 0) (not a curve
+    point)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} points against {len(want)}")
+    return max((abs(a - b) for g, w in zip(got, want) for a, b in zip(g or (0, 0), w or (0, 0))),
+               default=0)
+
+
 def msm_edge_lanes(host, rng):
     """K = 8 lanes with the edge cases of the MSM: identity bases, zero
     scalars, e = 1, e = r - 1, r * G = O, equal bases (doubling inside the
@@ -655,8 +670,10 @@ def msm_edge_lanes(host, rng):
 
 
 def idemix_kernel_vs_plain(torch, np, dev):
-    """K3 and K4 against their plain versions on the card at small sizes,
-    every output word compared; returns each kernel's largest difference."""
+    """K3 and K4 against their plain versions on the card at small sizes:
+    K3's points lane by lane (the kernel sums in another order, so its
+    projective words differ), every output word of K4; returns each
+    kernel's largest difference."""
     import random
 
     from fabric_tpu_torch.common import fp256bn as host
@@ -668,18 +685,18 @@ def idemix_kernel_vs_plain(torch, np, dev):
     lanes = msm_edge_lanes(host, rng)
     bases, scalars = bk.pack_batch([b for b, _ in lanes], [e for _, e in lanes])
     bases, scalars = torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev)
-    got = bk.msm_batch(bases, scalars)
+    got = bk.unpack_points(bk.msm_batch(bases, scalars))
     torch.cuda.synchronize()
-    plain = bk.msm_batch_ref(bases, scalars)
+    plain = bk.unpack_points(bk.msm_batch_ref(bases, scalars))
     torch.cuda.synchronize()
-    err3 = word_diff(torch, got, plain)
+    err3 = point_err(got, plain)
     want = []
     for bs, es in lanes:
         acc = None
         for b, e in zip(bs, es):
             acc = host.g1_add(acc, host.g1_mul(b, e))
         want.append(acc)
-    if err3 or bk.unpack_points(got) != want:
+    if err3 or got != want or plain != want:
         raise AssertionError(f"bn256_msm: kernel, plain version and oracle differ ({err3})")
 
     gamma = rng.randrange(1, host.R)
@@ -830,7 +847,7 @@ def idemix_phases(torch, np, dev, imad_rate):
         sh["k3_ms"] = device_ms(torch, lambda: real_msm(*k3), 3)
     big = sizes[IDEMIX_SIZES[-1]]
     k4, k3 = big["k4"], big["k3"]
-    got4, got3 = real_unity(*k4), real_msm(*k3)
+    got4, got3 = real_unity(*k4), bk.unpack_points(real_msm(*k3))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain4 = pkn.unity_check_ref(*k4)
@@ -841,27 +858,39 @@ def idemix_phases(torch, np, dev, imad_rate):
     torch.cuda.synchronize()
     plain3_ms = (time.perf_counter() - t0) * 1e3
     err4 = max(errs["ate2_unity"], word_diff(torch, got4, plain4))
-    err3 = max(errs["bn256_msm"], word_diff(torch, got3, plain3))
+    err3 = max(errs["bn256_msm"], point_err(got3, bk.unpack_points(plain3)))
     if err4 or err3:
         raise AssertionError(f"config #3 shapes: kernels and plain versions differ ({err4}, {err3})")
+
+    def bound(muls, nbytes):
+        ops_s, bytes_s = muls * bk.IMAD_PER_MONT_MUL / imad_rate, nbytes / HBM_BYTES_PER_S
+        return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+    # each bound from this run's lanes: bound_ms for the least work known
+    # (pairing_kernel.LEAST, bn256_kernel.muls_least), bound_ms_kernel for
+    # the algorithm the kernel runs, bound_ms_replaced for the replaced
+    # program's
     tables4, cols4 = k4[0], k4[1:]
     lanes4 = cols4[0].shape[1]
     live4 = int(cols4[4].sum().item())
     bytes4 = (sum(c.numel() * c.element_size() for c in cols4) + lanes4
               + 2 * tables4.words(dev).numel() * 4 + pkn.STEPS * 4)
-    bound4 = max(live4 * pkn.IMAD_PER_LANE / imad_rate, bytes4 / HBM_BYTES_PER_S)
-    by4 = "operations" if live4 * pkn.IMAD_PER_LANE / imad_rate >= bytes4 / HBM_BYTES_PER_S else "bytes"
-    # the bound of the same check with the hard part by the x-power chain
-    bound4_xchain = max(live4 * pkn.IMAD_PER_LANE_XCHAIN / imad_rate, bytes4 / HBM_BYTES_PER_S)
+    bound4, by4 = bound(live4 * pkn.MULS_LEAST, bytes4)
+    bound4_kernel = bound(live4 * pkn.MULS_PER_LANE, bytes4)[0]
+    bound4_replaced = bound(live4 * pkn.MULS_PER_LANE_REPLACED, bytes4)[0]
     k_count, lanes3 = k3[0].shape[0], k3[0].shape[-1]
     bytes3 = sum(t.numel() * t.element_size() for t in k3) + 3 * 20 * 8 * lanes3
     # count the work of each lane's real bases only: t1 and t3 pad 3 bases
     # to K with identity bases (Z = 0) and zero scalars
     real3 = ((k3[0][:, 2] != 0).any(dim=1) & (k3[1] != 0).any(dim=1)).sum(dim=0).tolist()
     k_real = {str(k): real3.count(k) for k in sorted(set(real3))}
-    ops3 = sum(bk.imad_per_lane(k) for k in real3) / imad_rate
-    bound3 = max(ops3, bytes3 / HBM_BYTES_PER_S)
-    by3 = "operations" if ops3 >= bytes3 / HBM_BYTES_PER_S else "bytes"
+    # the least work known is the replaced program's algorithm at the real
+    # bases, so bound_ms_replaced is bound_ms
+    bound3, by3 = bound(sum(bk.muls_least(k) for k in real3), bytes3)
+    bound3_kernel = bound(sum(bk.muls_per_lane(k, k_count) for k in real3), bytes3)[0]
+    # the host's steps around K3 at this shape, from every timed run
+    msm_split = {key: [sp[key] for sp in big["split_ms"]]
+                 for key in ("msm_pack", "msm_kernel", "msm_unpack")}
     emit({"phase": "idemix_config3", "setup_seconds": setup_s, "unique_signatures": IDEMIX_UNIQUE,
           "oracle_ms_per_sig": oracle_ms_per_sig, "oracle_sigs": IDEMIX_ORACLE_SIGS,
           "sizes": {str(s): {"ms_per_sig": sh["ms_per_sig"], "split_ms": sh["split_ms"],
@@ -870,6 +899,8 @@ def idemix_phases(torch, np, dev, imad_rate):
                              "k4_kernel_ms": sh["k4_ms"], "k3_kernel_ms": sh["k3_ms"]}
                     for s, sh in sizes.items()},
           "launches": launches, "masks_all_true_and_equal_oracle": True,
+          "msm_pack_ms": msm_split["msm_pack"], "msm_kernel_ms": msm_split["msm_kernel"],
+          "msm_unpack_ms": msm_split["msm_unpack"],
           "seconds": time.perf_counter() - t_phase})
 
     # --- idemix_mask: a mixed batch held lane by lane to the oracle ------
@@ -915,13 +946,16 @@ def idemix_phases(torch, np, dev, imad_rate):
     return [
         {"name": "bn256_msm", "route": "cuda", "source": source,
          "replaces": "fabric_tpu/ops/bn256_kernel.py:201", "launches": launches["bn256_msm"],
-         "max_abs_err": err3, "ms": big["k3_ms"], "plain_ms": plain3_ms, "bound_ms": bound3 * 1e3,
-         "bound_by": by3, "lanes": lanes3, "k": k_count, "k_real": k_real, "library_ms": None},
+         "max_abs_err": err3, "ms": big["k3_ms"], "plain_ms": plain3_ms, "bound_ms": bound3,
+         "bound_by": by3, "bound_ms_kernel": bound3_kernel, "bound_ms_replaced": bound3,
+         "threads_per_lane": bk.threads_per_lane(k_count), "lanes": lanes3, "k": k_count,
+         "k_real": k_real, "library_ms": None},
         {"name": "ate2_unity", "route": "cuda", "source": source,
          "replaces": "fabric_tpu/ops/pairing_kernel.py:233", "launches": launches["ate2_unity"],
-         "max_abs_err": err4, "ms": big["k4_ms"], "plain_ms": plain4_ms, "bound_ms": bound4 * 1e3,
-         "bound_by": by4, "bound_ms_xchain": bound4_xchain * 1e3, "lanes": lanes4,
-         "live_lanes": live4, "library_ms": None},
+         "max_abs_err": err4, "ms": big["k4_ms"], "plain_ms": plain4_ms, "bound_ms": bound4,
+         "bound_by": by4, "bound_ms_kernel": bound4_kernel, "bound_ms_replaced": bound4_replaced,
+         "threads_per_lane": pkn.THREADS_PER_LANE, "lanes": lanes4, "live_lanes": live4,
+         "library_ms": None},
     ]
 
 

@@ -141,7 +141,8 @@ def verify_signatures_batch(
     `backend` is "device" (the default) or "scheme"; `device` is where the
     device route runs (the card unless "cpu"). The device route fills
     `split_ms`, when given, with its host-clock milliseconds: parse,
-    pairing (K4 launch and wait), msm (K3 launch and wait) and challenge."""
+    pairing (K4 launch and wait), msm (the K3 step) and challenge, and the
+    K3 step's msm_pack, msm_kernel and msm_unpack (`msm_host_batch`)."""
     backend = backend or "device"
     if backend == "scheme":
         return _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index)
@@ -193,7 +194,7 @@ def _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh
         k_max = max(len(b) for b, _ in jobs)
         bases = [list(b) + [None] * (k_max - len(b)) for b, _ in jobs]
         scalars = [list(s) + [0] * (k_max - len(s)) for _, s in jobs]
-        points = bn256_kernel.msm_host_batch(bases, scalars, device)
+        points = bn256_kernel.msm_host_batch(bases, scalars, device, split_ms)
         for owner, pt in zip(owners, points):
             t_points.setdefault(owner, []).append(pt)
     t3 = time.perf_counter()

@@ -16,10 +16,15 @@ Renes-Costello-Batina 2016 formulas for a = 0 (algorithms 7 and 9, b3 = 9),
 per-base tables {O, B, 2B, 3B} with 2B = double(B) and 3B = add(2B, B),
 then 128 windows of 2 bits, most significant first, each two doublings of
 the accumulator and K complete additions of a table entry (the identity
-for a zero digit). Field values are fully reduced, so the kernel, which
-runs the same point operations on 32-bit words, returns the same limbs.
-The plain version stacks the independent multiplies of each formula into
-one Montgomery multiply; the values are those of the one-by-one sequence.
+for a zero digit). The plain version stacks the independent multiplies of
+each formula into one Montgomery multiply; the values are those of the
+one-by-one sequence.
+
+The kernel computes the same sum in another order (csrc/bn256.cu): a lane
+is a group of threads, thread k multiplies base k alone by the same
+windows, and a shuffle tree adds the partial sums. It returns the same
+point, in another projective representative (X : Y : Z); compare results
+as points (`unpack_points`), not limbs.
 
 `msm_host_batch` is the host API of the Idemix batch: affine points (None
 for the identity) and integer scalars per lane in, affine points out. It
@@ -30,7 +35,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,30 +61,48 @@ NUM_WINDOWS = 128  # 256 bits / 2
 # plain version).
 LAUNCHES: Dict[str, int] = {"bn256_msm": 0}
 
-# The kernel keeps a lane's K point tables in local memory, sized for this
-# many bases (csrc/bn256.cu MSM_MAX_K); config #3 has 8, an Idemix key with
-# n attributes n + 4 at most.
+# The kernel runs a lane as a group of G threads, G the power of two at or
+# above K, at most 16 (csrc/bn256.cu MSM_MAX_K); config #3 has 8, an Idemix
+# key with n attributes n + 4 at most.
 MAX_K = 16
 
-# Work of one MSM lane in the CUDA kernel (see the header of
-# csrc/bn256.cu): Montgomery multiplies mod p, each 128 32x32->64 word
-# products (64 for a*b, 64 for q*p: FP256BN's p has no special form) and 8
-# 32-bit low products (q = t0 * m'), that is 2 * 128 + 8 IMAD issue slots.
+# Work of one MSM lane (see the header of csrc/bn256.cu): Montgomery
+# multiplies mod p, each 128 32x32->64 word products (64 for a*b, 64 for
+# q*p: FP256BN's p has no special form) and 8 32-bit low products (q = t0 *
+# m'), that is 2 * 128 + 8 IMAD issue slots.
 MULS_PER_DOUBLE = 9
 MULS_PER_ADD = 14
 IMAD_PER_MONT_MUL = 2 * 128 + 8
 
 
-def muls_per_lane(k_count: int) -> int:
-    """Montgomery multiplies of one lane of K bases: 3K + 3 to change the
-    Montgomery radix of the inputs and the result, the K tables, and 128
-    windows of 2 doublings and K additions."""
-    return (3 * k_count + 3 + k_count * (MULS_PER_DOUBLE + MULS_PER_ADD)
-            + NUM_WINDOWS * (2 * MULS_PER_DOUBLE + k_count * MULS_PER_ADD))
+def threads_per_lane(k_count: int) -> int:
+    """G, the kernel's threads a lane: the power of two at or above K."""
+    return 1 << (k_count - 1).bit_length()
 
 
-def imad_per_lane(k_count: int) -> int:
-    return muls_per_lane(k_count) * IMAD_PER_MONT_MUL
+# The multiplies of one real base's thread: the radix change of its
+# coordinates, the table (a doubling and an addition), and 128 windows of
+# 2 doublings and an addition.
+MULS_PER_BASE = 3 + MULS_PER_DOUBLE + MULS_PER_ADD + NUM_WINDOWS * (2 * MULS_PER_DOUBLE
+                                                                   + MULS_PER_ADD)
+
+
+def muls_per_lane(k_real: int, k_count: int) -> int:
+    """Montgomery multiplies the kernel runs for a lane with `k_real` real
+    bases (neither the identity nor a zero scalar, the rest do no
+    arithmetic) of K: each real base's thread, then the shuffle tree's
+    G - 1 additions and the result's radix change (3)."""
+    return k_real * MULS_PER_BASE + (threads_per_lane(k_count) - 1) * MULS_PER_ADD + 3
+
+
+def muls_least(k_real: int) -> int:
+    """The least work known for the same sum with these formulas and 2-bit
+    windows, from which the bound is counted: one accumulator whose
+    doublings the bases share (Straus), as the replaced one-thread program
+    ran it. 3k + 3 multiplies for the radix changes, the k tables, and 128
+    windows of 2 doublings and k additions."""
+    return (3 * k_real + 3 + k_real * (MULS_PER_DOUBLE + MULS_PER_ADD)
+            + NUM_WINDOWS * (2 * MULS_PER_DOUBLE + k_real * MULS_PER_ADD))
 
 
 def fe_norm(a: FE) -> FE:
@@ -302,12 +326,22 @@ def pack_batch(bases_per_lane, scalars_per_lane):
     return bases.astype(np.int64), scalars
 
 
-def msm_host_batch(bases_per_lane, scalars_per_lane, device=None) -> List[host.G1Point]:
+def msm_host_batch(bases_per_lane, scalars_per_lane, device=None,
+                   split_ms: Optional[Dict[str, float]] = None) -> List[host.G1Point]:
     """Host API: per-lane lists of affine bases and int scalars, all lanes
     with the same K, through `msm_batch` on `device` (the card unless the
     caller asks for "cpu"; without a card it raises). Returns affine
-    points."""
+    points. `split_ms`, when given, gets the host-clock milliseconds of its
+    steps: msm_pack (the wrapper's layout), msm_kernel (launch, wait and
+    copy back) and msm_unpack (the affine conversion)."""
     dev = cudalib.resolve_device(device, "FP256BN MSM")
+    t0 = time.perf_counter()
     bases, scalars = pack_batch(bases_per_lane, scalars_per_lane)
-    out = msm_batch(torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev))
-    return unpack_points(out)
+    t1 = time.perf_counter()
+    out = msm_batch(torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev)).cpu()
+    t2 = time.perf_counter()
+    points = unpack_points(out)
+    if split_ms is not None:
+        split_ms.update(msm_pack=(t1 - t0) * 1e3, msm_kernel=(t2 - t1) * 1e3,
+                        msm_unpack=(time.perf_counter() - t2) * 1e3)
+    return points

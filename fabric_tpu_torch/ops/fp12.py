@@ -100,6 +100,16 @@ def fp2_mul(x, y):
     return _interleave(*_fp2_products(x[:, 0::2], x[:, 1::2], y[:, 0::2], y[:, 1::2]))
 
 
+def fp2_sqr(x):
+    """k Fp2 squares, rows interleaved: (re + im)(re - im) and 2 re im, two
+    multiplies each."""
+    re, im = x[:, 0::2], x[:, 1::2]
+    n = re.shape[1]
+    p = bn.mont_mul(CTX, torch.cat([bn.add_raw(re, im), re], 1),
+                    torch.cat([_sub(re, im), bn.add_raw(im, im)], 1))
+    return _interleave(p[:, :n], p[:, n:])
+
+
 def fp2_mul_xi(x):
     """k Fp2 values times xi = 1 + i: (re - im, re + im)."""
     re, im = x[:, 0::2], x[:, 1::2]
@@ -127,6 +137,58 @@ def mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def sqr(x: torch.Tensor) -> torch.Tensor:
     return mul(x, x)
+
+
+def _coeffs(x: torch.Tensor, ks) -> torch.Tensor:
+    """The rows of Fp2 coefficients `ks`, in that order."""
+    return x[:, [r for k in ks for r in (2 * k, 2 * k + 1)]]
+
+
+def _triple(x):
+    return _add(_add(x, x), x)
+
+
+def cyc_sqr(x: torch.Tensor) -> torch.Tensor:
+    """x^2 for x in the cyclotomic subgroup, where the final
+    exponentiation's hard part runs (Granger-Scott 2010; any other x gets a
+    wrong value). Over Fp4 = Fp2[s]/(s^2 - xi) with s = w^3, x = a + b w +
+    c w^2 with a = (c0, c3), b = (c1, c4), c = (c2, c5), and
+
+        x^2 = (3 a^2 - 2 conj(a)) + (3 s c^2 + 2 conj(b)) w
+              + (3 b^2 - 2 conj(c)) w^2,
+
+    conj(u + v s) = u - v s. Each Fp4 square (u + v s)^2 = (u^2 + xi v^2)
+    + ((u + v)^2 - u^2 - v^2) s takes three Fp2 squares: nine in all, 18
+    multiplies."""
+    lo, hi = x[:, 0:6], x[:, 6:12]  # u = (c0, c1, c2) and v = (c3, c4, c5) of a, b, c
+    sq = fp2_sqr(torch.cat([lo, hi, _add(lo, hi)], 1))
+    u2, v2, s2 = sq[:, 0:6], sq[:, 6:12], sq[:, 12:18]
+    t0 = _add(u2, fp2_mul_xi(v2))  # the 1 parts of a^2, b^2, c^2
+    t1 = _sub(_sub(s2, u2), v2)  # their s parts
+    a0, b0, c0 = (t0[:, 2 * q:2 * q + 2] for q in range(3))
+    a1, b1, c1 = (t1[:, 2 * q:2 * q + 2] for q in range(3))
+    out = [None] * 6
+    # 3 a^2 - 2 conj(a) -> c0, c3; 3 s c^2 + 2 conj(b) -> c1, c4 (s * (u + v s)
+    # = xi v + u s); 3 b^2 - 2 conj(c) -> c2, c5
+    for k, t, sign in ((0, a0, -1), (3, a1, 1), (1, fp2_mul_xi(c1), 1), (4, c0, -1),
+                       (2, b0, -1), (5, b1, 1)):
+        g = _coeffs(x, [k])
+        out[k] = _sub(_triple(t), _add(g, g)) if sign < 0 else _add(_triple(t), _add(g, g))
+    return torch.cat(out, 1)
+
+
+def line_mul(f: torch.Tensor, py: torch.Tensor, l3: torch.Tensor,
+             l5: torch.Tensor) -> torch.Tensor:
+    """f * l for a line l = py + l3 w^3 + l5 w^5 (py in Fp, l3 and l5 Fp2
+    rows (20, 2, B)): coefficient k is f_k py + f_(k-3) l3 + f_(k-5) l5,
+    an index below 0 wrapping to k + 3 or k + 1 with a factor xi. 48
+    multiplies: 12 by py and 12 Fp2 products."""
+    fp = bn.mont_mul(CTX, f, py.unsqueeze(1))
+    r3 = fp2_mul(_coeffs(f, [(k + 3) % 6 for k in range(6)]), l3.repeat(1, 6, 1))
+    r5 = fp2_mul(_coeffs(f, [(k + 1) % 6 for k in range(6)]), l5.repeat(1, 6, 1))
+    r3 = torch.cat([fp2_mul_xi(r3[:, :6]), r3[:, 6:]], 1)
+    r5 = torch.cat([fp2_mul_xi(r5[:, :10]), r5[:, 10:]], 1)
+    return _add(_add(fp, r3), r5)
 
 
 def _negate_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

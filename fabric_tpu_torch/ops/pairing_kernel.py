@@ -13,10 +13,26 @@ l(P) = A + B*px + py (Fp12 constants), so a lane only evaluates lines at
 its G1 points and multiplies in Fp12. Both Miller loops share the bit
 schedule of |6u + 2| (65 steps, 22 of them with an addition line), then
 the value is conjugated (u < 0) and the two Frobenius correction lines
-follow. The final exponentiation is the host oracle's: conj(f) * inv(f),
-times its p^2 Frobenius, then square and multiply over the 768-bit hard
-part (p^4 - p^2 + 1) / r. The verdict is fexp(f1 * inv(f2)) == 1, AND-ed
-with the lane's ok flag.
+follow. The verdict is fexp(f1 * inv(f2)) == 1, AND-ed with the lane's ok
+flag.
+
+The plain version is the replaced program's algorithm: dense lines, m =
+f1 * inv(f2), and the host oracle's final exponentiation (conj(m) *
+inv(m), times its p^2 Frobenius, then square and multiply over the
+768-bit hard part (p^4 - p^2 + 1) / r). The kernel computes the same
+values with less work (see csrc/bn256.cu), each step checked here on the
+CPU against the plain one:
+
+* sparse lines: the untwist puts x at w^4 and y at w^3, so a line's A is
+  nonzero only at w^3 (rows 6-7) and its B only at w^5 (rows 10-11);
+  `LineSchedule` raises for any other schedule. l(P) = py + A3 w^3 +
+  (B5 px) w^5 takes 2 multiplies, and f * l is `fp12.line_mul`;
+* m = f1 * conj(f2): conj(f2) = f2^(p^6), and fexp of a p^6-th power is
+  the inverse of fexp in the cyclotomic subgroup (r divides p^6 + 1), so
+  fexp(m) is unchanged, also for f2 = 0 (both forms give m = 0);
+* the hard part by the x-power chain of the JAX package's
+  crypto/hostbn.py (`final_exp_xchain_ref`), its squares cyclotomic
+  (`fp12.cyc_sqr`).
 
 `unity_check` is the wrapper of `ate2_unity` in `csrc/bn256.cu` (K4,
 replacing the JAX package's `_unity_check` behind `_shared_fn`): given
@@ -35,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,7 +62,6 @@ from fabric_tpu_torch.ops import bignum as bn
 from fabric_tpu_torch.ops import convert
 from fabric_tpu_torch.ops import cudalib
 from fabric_tpu_torch.ops import fp12 as f12
-from fabric_tpu_torch.ops.bn256_kernel import IMAD_PER_MONT_MUL
 
 # ---------------------------------------------------------------------------
 # Host-side line precomputation (per fixed G2 point)
@@ -111,6 +127,17 @@ class LineSchedule:
         self.add_b = np.stack(add_b)
         self.has_add = np.array(has_add, dtype=np.uint32)
         self.corr = corr
+        rows = schedule_rows(self)
+        if rows[0::2][:, _A_ZERO].any() or rows[1::2][:, _B_ZERO].any():
+            raise ArithmeticError("a Miller line has a coefficient the sparse kernel skips")
+
+
+# The rows a line's A and B may hold (the w^3 and w^5 coefficients); the
+# kernel reads only these.
+A_ROWS = (6, 7)
+B_ROWS = (10, 11)
+_A_ZERO = [r for r in range(12) if r not in A_ROWS]
+_B_ZERO = [r for r in range(12) if r not in B_ROWS]
 
 
 @functools.lru_cache(maxsize=1)
@@ -132,10 +159,18 @@ def schedule_rows(sched: LineSchedule) -> np.ndarray:
     return rows
 
 
+def compact_rows(sched: LineSchedule) -> np.ndarray:
+    """The kernel's schedule: per line (step s's doubling line at s, its
+    addition line at S + s, correction c at 2S + c) the four Fp values
+    A[6], A[7], B[10], B[11] as (2S + 2, 4, 20) Montgomery limbs."""
+    rows = schedule_rows(sched)
+    return np.concatenate([rows[0::2][:, list(A_ROWS)], rows[1::2][:, list(B_ROWS)]], axis=1)
+
+
 class _Tables:
-    """A schedule's rows on one device: int64 limbs (20, 4S + 4, 12) for the
-    plain version, int32 words (4S + 4, 12, 8) with R = 2^256 for the
-    kernel, built on first use."""
+    """A schedule on one device: int64 limbs (20, 4S + 4, 12) of every row
+    for the plain version, int32 words (2S + 2, 4, 8) with R = 2^256 of
+    the compact schedule for the kernel, built on first use."""
 
     def __init__(self, sched: LineSchedule):
         self.sched = sched
@@ -151,7 +186,7 @@ class _Tables:
     def words(self, device: torch.device) -> torch.Tensor:
         key = ("words", str(device))
         if key not in self._cache:
-            w = convert.limbs_to_words(schedule_rows(self.sched), axis=2, modulus=host.P)
+            w = convert.limbs_to_words(compact_rows(self.sched), axis=2, modulus=host.P)
             self._cache[key] = torch.from_numpy(w.view(np.int32).copy()).to(device)
         return self._cache[key]
 
@@ -168,41 +203,81 @@ def _g2_tables() -> _Tables:
 
 
 # ---------------------------------------------------------------------------
-# Work of one lane in the CUDA kernel (see the header of csrc/bn256.cu)
+# Work of one lane (see the header of csrc/bn256.cu)
 # ---------------------------------------------------------------------------
 
-MULS_FP12_MUL = 36 * 3  # 36 Fp2 products, 3 Montgomery multiplies each
-MULS_FP12_SQR = 21 * 3  # 21 distinct Fp2 products
-MULS_LINE = 12  # B * px, one a row
 MULS_FP_INV = 14 + 63 * 5  # Fermat, 4-bit fixed window
-MULS_FP12_INV = 2 * MULS_FP12_MUL + 9 * 3 + 2 + MULS_FP_INV + 2 + 3 * 3
-MULS_FROB2 = 6 * 3
-_HARD_BITS = bin(host._HARD_EXP)[2:]
-MULS_HARD = len(_HARD_BITS) * MULS_FP12_SQR + _HARD_BITS.count("1") * MULS_FP12_MUL
-MULS_PER_LANE = (
-    4  # the G1 coordinates from R = 2^260 to R = 2^256
-    + 2 * STEPS * (MULS_FP12_SQR + MULS_LINE + MULS_FP12_MUL)
-    + 2 * ADD_STEPS * (MULS_LINE + MULS_FP12_MUL)
-    + 2 * 2 * (MULS_LINE + MULS_FP12_MUL)
-    + MULS_FP12_INV + MULS_FP12_MUL  # f1 * inv(f2)
-    + MULS_FP12_INV + 2 * MULS_FP12_MUL + MULS_FROB2  # the easy part
-    + MULS_HARD
-)
-IMAD_PER_LANE = MULS_PER_LANE * IMAD_PER_MONT_MUL
-
-# The same lane with the hard part by the x-power chain of the JAX
-# package's crypto/hostbn.py (lambda0 + lambda1 * p + lambda2 * p^2 + p^3:
-# three |u|-power chains, then 11 squares, 14 multiplies and 3 Frobenius
-# maps), counted at the kernel's operation costs. The kernel runs the
-# replaced program's square and multiply; this is the count of the
-# cheaper algorithm for the same value, a lever it has not taken yet.
+LINES = STEPS + ADD_STEPS + 2  # a Miller loop's lines, the two corrections included
 _U_BITS = bin(abs(host.U))[2:]
-MULS_HARD_XCHAIN = (
-    (3 * (len(_U_BITS) - 1) + 11) * MULS_FP12_SQR
-    + (3 * (_U_BITS.count("1") - 1) + 14) * MULS_FP12_MUL
-    + 3 * MULS_FROB2
+# the x-power chain: three |u|-power chains (62 squares, 21 multiplies
+# each), then 10 squares, 14 multiplies and the p, p^2, p^3 Frobenius maps
+CHAIN_SQRS = 3 * (len(_U_BITS) - 1) + 10
+CHAIN_MULS = 3 * (_U_BITS.count("1") - 1) + 14
+
+
+@dataclass(frozen=True)
+class TowerCosts:
+    """Montgomery multiplies of each operation of a K4 lane."""
+
+    step: int  # a Miller step's square, with the line evaluations it carries
+    line: int  # a line's product f * l, and its evaluation where no step carries it
+    corr: int  # the correction lines' evaluations where `line` leaves them out
+    mul: int  # an Fp12 multiply
+    cyc_sqr: int  # a square in the cyclotomic subgroup
+    inv: int  # an Fp12 inverse
+    frob: Tuple[int, int, int]  # the p, p^2 and p^3 Frobenius maps
+
+    def lane(self) -> int:
+        """A lane: the G1 coordinates from R = 2^260 to R = 2^256 (4), both
+        Miller loops, f1 * conj(f2), the easy part (an inverse, two
+        multiplies, a p^2 map) and the hard part by the x-power chain."""
+        return (4 + 2 * (STEPS * self.step + LINES * self.line + self.corr) + self.mul
+                + self.inv + 2 * self.mul + self.frob[1]
+                + CHAIN_SQRS * self.cyc_sqr + CHAIN_MULS * self.mul + sum(self.frob))
+
+
+# As the kernel runs them, an Fp2 product by Karatsuba (3 multiplies), an
+# Fp2 square 2: a step is a team's 24 Fp2 products, the square's 21 and
+# three slots that evaluate the step's lines' B5 * px (thread 5's is not
+# kept); f * l is 6 * (2 + 3 + 3); the two correction lines' B5 * px 2 * 2;
+# an Fp12 multiply 36 Fp2 products; a cyclotomic square 9 Fp2 squares
+# (Granger-Scott); a Frobenius map 2 products an Fp row; the inverse the
+# host's norm chain: two Fp12 multiplies, 6 + 3 + 6 Fp2 products (three
+# of the last six are not kept), the Fp2 norm (2), its Fermat inverse and 2.
+KERNEL = TowerCosts(step=24 * 3, line=48, corr=4, mul=36 * 3, cyc_sqr=9 * 2,
+                    inv=2 * 36 * 3 + 15 * 3 + 2 + MULS_FP_INV + 2, frob=(24, 24, 24))
+# The least cost known for each operation, from which the bound is counted.
+# Over Fp6 = Fp2[v], v = w^2, and Fp12 = Fp6[w]: an Fp6 product by
+# Karatsuba is 6 Fp2 products, an Fp12 product 3 Fp6 products (54); a
+# square by the complex method 2 Fp6 products (36); a line l = py + w (A3 v
+# + l5 v^2) is evaluated with 2 and multiplied in with 2 * 6 for f's two
+# halves times py and 2 * 5 Fp2 products for them times a two-term Fp6
+# (42); the cyclotomic square is the kernel's (Karabina's compressed
+# squares trade 3 Fp2 squares for inversions to decompress); a Frobenius
+# map is 5 products by gamma_{n,k} (gamma_{n,0} = 1), 2 multiplies where
+# gamma lies in Fp or i Fp, 3 where not: 3 + 2 + 3 + 2 + 3 for p and p^3,
+# 5 * 2 for p^2, whose gammas lie in Fp; the inverse is the norm a0^2 -
+# v a1^2 by two Chung-Hasan squares (2 Fp2 products and 3 Fp2 squares
+# each), the Fp6 inverse (3 Fp2 squares, 9 Fp2 products, the Fp2 inverse)
+# and two Fp6 products.
+LEAST = TowerCosts(step=2 * 6 * 3, line=2 + 2 * 6 + 2 * 5 * 3, corr=0, mul=3 * 6 * 3,
+                   cyc_sqr=9 * 2, inv=2 * (2 * 3 + 3 * 2) + (3 * 2 + 9 * 3 + 2 + MULS_FP_INV + 2)
+                   + 2 * 6 * 3, frob=(13, 10, 13))
+MULS_PER_LANE = KERNEL.lane()
+MULS_LEAST = LEAST.lane()
+THREADS_PER_LANE = 12  # csrc/bn256.cu GROUP4: two teams of six in the Miller loops
+
+# The replaced program's lane (one thread; dense lines, 12 multiplies to
+# evaluate one and an Fp12 multiply to multiply it in; squares of 21 Fp2
+# products; f1 * inv(f2); square and multiply over the 768-bit hard part),
+# kept for the bound it had.
+_HARD_BITS = bin(host._HARD_EXP)[2:]
+MULS_PER_LANE_REPLACED = (
+    4 + 2 * (STEPS * 21 * 3 + LINES * (12 + KERNEL.mul))
+    + 2 * (KERNEL.inv - 3 * 3) + KERNEL.mul  # f1 * inv(f2); inverses without the unkept products
+    + 2 * KERNEL.mul + 6 * 3  # the easy part, its p^2 map in 6 Fp2 products
+    + len(_HARD_BITS) * 21 * 3 + _HARD_BITS.count("1") * KERNEL.mul
 )
-IMAD_PER_LANE_XCHAIN = (MULS_PER_LANE - MULS_HARD + MULS_HARD_XCHAIN) * IMAD_PER_MONT_MUL
 
 # Kernel launches, counted by the wrappers where they launch (never for the
 # plain versions): the verdict entry and the debug entry of the test hook.
@@ -257,6 +332,61 @@ def final_exp_ref(f: torch.Tensor) -> torch.Tensor:
     easy = f12.mul(f12.conj(f), f12.inv(f))
     easy = f12.mul(f12.frobenius(easy, 2), easy)
     return f12.pow_const(easy, host._HARD_EXP)
+
+
+# (p^4 - p^2 + 1) / r = lam0 + lam1 p + lam2 p^2 + p^3 with lam0 =
+# -(36x^3 + 30x^2 + 18x + 2), lam1 = -(36x^3 + 18x^2 + 12x) + 1, lam2 =
+# 6x^2 + 1 for the BN parameter x = u < 0 (Devegili-Scott-Dominguez 2007);
+# checked exactly here, as the JAX package's crypto/hostbn.py does.
+_LAM = (-36 * host.U ** 3 - 30 * host.U ** 2 - 18 * host.U - 2,
+        -36 * host.U ** 3 - 18 * host.U ** 2 - 12 * host.U + 1,
+        6 * host.U ** 2 + 1)
+if _LAM[0] + _LAM[1] * host.P + _LAM[2] * host.P ** 2 + host.P ** 3 != host._HARD_EXP:
+    raise ArithmeticError("the BN hard-part decomposition does not match (p^4 - p^2 + 1) / r")
+
+
+def _pow_u(s: torch.Tensor) -> torch.Tensor:
+    """s^|u| by |u|'s bits from the top (cyclotomic squares)."""
+    out = s
+    for bit in _U_BITS[1:]:
+        out = f12.cyc_sqr(out)
+        if bit == "1":
+            out = f12.mul(out, s)
+    return out
+
+
+def final_exp_xchain_ref(f: torch.Tensor) -> torch.Tensor:
+    """The same value as `final_exp_ref` by the kernel's algorithm: the
+    easy part, then the hard part by the x-power chain of the JAX package's
+    crypto/hostbn.py (x-powers are conjugated |u|-powers, since x < 0 and
+    conj inverts a unitary value), c3^2 computed once."""
+    s = f12.mul(f12.conj(f), f12.inv(f))
+    s = f12.mul(f12.frobenius(s, 2), s)
+    sx = f12.conj(_pow_u(s))
+    sx2 = f12.conj(_pow_u(sx))
+    sx3 = f12.conj(_pow_u(sx2))
+    x2s = f12.cyc_sqr(sx)  # sx^2
+    c3 = f12.mul(f12.cyc_sqr(sx2), sx2)  # sx2^3
+    c3sq = f12.cyc_sqr(c3)
+    t = f12.cyc_sqr(sx3)
+    a3 = f12.mul(f12.mul(f12.mul(f12.cyc_sqr(t), t), c3), x2s)  # sx3^6 c3 x2s
+    t = f12.cyc_sqr(a3)
+    big_a = f12.mul(f12.cyc_sqr(t), t)  # s^(36x^3 + 18x^2 + 12x)
+    big_b = f12.mul(f12.mul(f12.cyc_sqr(c3sq), f12.mul(f12.cyc_sqr(x2s), x2s)),
+                    f12.cyc_sqr(s))  # s^(12x^2 + 6x + 2)
+    y_l1 = f12.mul(f12.conj(big_a), s)
+    y_l0 = f12.mul(f12.conj(big_a), f12.conj(big_b))
+    y_l2 = f12.mul(c3sq, s)  # s^(6x^2 + 1)
+    out = f12.mul(y_l0, f12.frobenius(y_l1, 1))
+    out = f12.mul(out, f12.frobenius(y_l2, 2))
+    return f12.mul(out, f12.frobenius(s, 3))
+
+
+def line_mul_ref(f, a, b, px, py):
+    """f * (A + B px + py) as the kernel computes it: a, b (20, 12, L)
+    line rows, of which it reads A's w^3 and B's w^5 coefficients."""
+    l5 = bn.mont_mul(f12.CTX, b[:, list(B_ROWS)], px.unsqueeze(1))
+    return f12.line_mul(f, py, a[:, list(A_ROWS)], l5)
 
 
 def _plain_values(w_tab: _Tables, p1x, p1y, p2x, p2y):
@@ -330,7 +460,8 @@ def unity_check(w_tab: _Tables, p1x, p1y, p2x, p2y, ok) -> torch.Tensor:
 
 def miller2_words(w_tab: _Tables, p1x, p1y, p2x, p2y) -> torch.Tensor:
     """The kernel's debug entry: (3, 12, 8, B) int32 words (R = 2^256) of
-    f1, f2 and fexp(f1 * inv(f2)) per lane, on a CUDA device."""
+    f1, f2 and fexp(f1 * conj(f2)) per lane (the value of fexp(f1 *
+    inv(f2))), on a CUDA device."""
     if not cudalib.kernel_device(p1x.device, "Ate2 pairing"):
         raise ValueError("miller2_words runs the kernel: pass CUDA tensors")
     ok = torch.ones(p1x.shape[-1], dtype=torch.bool, device=p1x.device)

@@ -11,8 +11,13 @@ the packed inputs, the projective Montgomery limbs the JAX program returns
 and the affine points, all equal. The JAX program runs in a child process
 (its XLA:CPU compile peaks near 7 GB, which the child hands back), through
 `msm_host_batch` with the jitted program wrapped to keep its raw output.
-(c) The plain a = 0 point formulas against the oracle. All comparisons are
-exact.
+(c) The plain a = 0 point formulas against the oracle. (d) The kernel's
+schedule of a lane (a thread a base, a shuffle tree) and the least-work
+schedule (one accumulator, shared doublings), run on host points: each
+sum against the JAX package's host oracle, and the multiplies each runs,
+at the plain formulas' counts, against `muls_per_lane` and `muls_least`,
+from which `bound_ms_kernel` and `bound_ms` are computed. All comparisons
+are exact.
 """
 
 import json
@@ -83,7 +88,7 @@ def _oracle(bases, scalars):
     for bs, es in zip(bases, scalars):
         acc = None
         for b, e in zip(bs, es):
-            acc = host.g1_add(acc, host.g1_mul(b, e % host.R))
+            acc = jhost.g1_add(acc, jhost.g1_mul(b, e % jhost.R))
         want.append(acc)
     return want
 
@@ -292,3 +297,139 @@ def test_point_double_matches_oracle():
     ps = [_rand_point(rng), host.G1_GEN, None]
     got = bk.unpack_points(bk._stack(bk.point_double(_packed(ps))))
     assert got == [host.g1_add(p, p) for p in ps]
+
+
+# ---------------------------------------------------------------------------
+# (d) the kernel's schedule and its count
+# ---------------------------------------------------------------------------
+
+def _formula_muls(formula, *points) -> int:
+    """The Montgomery multiplies of a plain point formula (its stacked
+    multiplies counted one by one)."""
+    count = [0]
+    real = bk._muls
+
+    def counting(*pairs):
+        count[0] += len(pairs)
+        return real(*pairs)
+
+    bk._muls = counting
+    try:
+        formula(*(_packed([pt]) for pt in points))
+    finally:
+        bk._muls = real
+    return count[0]
+
+
+def test_formula_counts():
+    rng = random.Random(7)
+    p, q = _rand_point(rng), _rand_point(rng)
+    assert _formula_muls(bk.point_double, p) == bk.MULS_PER_DOUBLE
+    assert _formula_muls(bk.point_add, p, q) == bk.MULS_PER_ADD
+
+
+class _Tally:
+    """Host-point arithmetic (the JAX package's oracle) that counts the
+    Montgomery multiplies the kernel's formulas take for each operation."""
+
+    def __init__(self):
+        self.muls = 0
+
+    def radix(self, n):
+        self.muls += n
+
+    def dbl(self, p):
+        self.muls += bk.MULS_PER_DOUBLE
+        return jhost.g1_add(p, p)
+
+    def add(self, p, q):
+        self.muls += bk.MULS_PER_ADD
+        return jhost.g1_add(p, q)
+
+
+def _digit(e, w):
+    return (e >> (254 - 2 * w)) & 3
+
+
+def _kernel_lane(bases, scalars):
+    """bn256_msm's work for one lane: thread k skips an identity base or a
+    zero scalar, else builds {O, B, 2B, 3B} and runs 128 windows of two
+    doublings and an addition; the G partial sums meet in a shuffle tree.
+    Returns the sum and the multiplies run."""
+    g = bk.threads_per_lane(len(bases))
+    t = _Tally()
+    partial = [None] * g
+    for k, (b, e) in enumerate(zip(bases, scalars)):
+        e %= host.R
+        if b is None or e == 0:
+            continue
+        t.radix(3)
+        table = [None, b, t.dbl(b)]
+        table.append(t.add(table[2], b))
+        acc = None
+        for w in range(bk.NUM_WINDOWS):
+            acc = t.add(t.dbl(t.dbl(acc)), table[_digit(e, w)])
+        partial[k] = acc
+    d = g // 2
+    while d:
+        for k in range(d):
+            partial[k] = t.add(partial[k], partial[k + d])
+        d //= 2
+    t.radix(3)  # the result
+    return partial[0], t.muls
+
+
+def _least_lane(bases, scalars):
+    """The least-work schedule at the real bases: their tables, then one
+    accumulator, 128 windows of two doublings and an addition a base."""
+    t = _Tally()
+    real = [(b, e % host.R) for b, e in zip(bases, scalars) if b is not None and e % host.R]
+    tables = []
+    for b, _ in real:
+        t.radix(3)
+        table = [None, b, t.dbl(b)]
+        table.append(t.add(table[2], b))
+        tables.append(table)
+    acc = None
+    for w in range(bk.NUM_WINDOWS):
+        acc = t.dbl(t.dbl(acc))
+        for table, (_, e) in zip(tables, real):
+            acc = t.add(acc, table[_digit(e, w)])
+    t.radix(3)
+    return acc, t.muls
+
+
+LANE_CASES = [(8, 8), (3, 8), (0, 8), (3, 3), (5, 5), (1, 1)]
+
+
+def _lane_case(k_real, k_count):
+    rng = random.Random(100 * k_real + k_count)
+    bases = [_rand_point(rng) for _ in range(k_real)] + [None] * (k_count - k_real)
+    scalars = [_rand_scalar(rng) for _ in range(k_count)]
+    if k_real > 1:
+        bases[1], scalars[0] = bases[0], host.R  # an equal base and a zero scalar mod r
+    live = sum(b is not None and e % host.R != 0 for b, e in zip(bases, scalars))
+    return bases, scalars, live
+
+
+@pytest.mark.parametrize("k_real,k_count", LANE_CASES)
+def test_kernel_schedule_sums_right_and_counts_muls_per_lane(k_real, k_count):
+    bases, scalars, live = _lane_case(k_real, k_count)
+    got, muls = _kernel_lane(bases, scalars)
+    assert got == _oracle([bases], [scalars])[0]
+    assert muls == bk.muls_per_lane(live, k_count)
+
+
+@pytest.mark.parametrize("k_real,k_count", LANE_CASES)
+def test_least_schedule_sums_right_and_counts_muls_least(k_real, k_count):
+    bases, scalars, live = _lane_case(k_real, k_count)
+    got, muls = _least_lane(bases, scalars)
+    assert got == _oracle([bases], [scalars])[0]
+    assert muls == bk.muls_least(live)
+
+
+def test_counts_at_the_idemix_shapes():
+    """The numbers the kernel's header and PERF.md quote."""
+    assert (bk.muls_per_lane(8, 8), bk.muls_per_lane(3, 8)) == (33_077, 12_467)
+    assert (bk.muls_least(8), bk.muls_least(3)) == (16_851, 7_761)
+    assert [bk.threads_per_lane(k) for k in (1, 2, 3, 8, 9, 16)] == [1, 2, 4, 8, 16, 16]

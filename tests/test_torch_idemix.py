@@ -288,8 +288,10 @@ def test_batch_mask_matches_jax(masks, lane):
 
 def test_device_route_reports_its_split(masks):
     split = masks["port-split"]
-    assert sorted(split) == ["challenge", "msm", "pairing", "parse"]
+    assert sorted(split) == ["challenge", "msm", "msm_kernel", "msm_pack", "msm_unpack",
+                             "pairing", "parse"]
     assert all(v >= 0 for v in split.values())
+    assert split["msm_pack"] + split["msm_kernel"] + split["msm_unpack"] <= split["msm"]
 
 
 @pytest.mark.parametrize("backend", ["hostbn", "msm"])
