@@ -7,17 +7,23 @@ Builds the kernels from csrc/ with nvcc (one compiler per source, all
 started together), holds each against its plain PyTorch version on the
 card, then drives the port's paths at the sizes Fabric feeds them.
 
-The CUDAProvider behind the BCCSP SPI (P-256 verify, K1 and K2):
+The CUDAProvider behind the BCCSP SPI (P-256 verify, K1, K2 and the
+key-comb kernel, csrc/p256_verify.cu; `p256_phases`):
 
   1. kernel vs plain version, K1 (limbs) and K2 (bytes), 64 lanes with the
-     edge cases: masks bit-identical, and equal to the oracle's;
+     edge lanes of `p256_crafted_lanes`: masks bit-identical, and equal to
+     the oracle's; the key-comb kernel word for word;
   2. headline: 32,768 lanes from 8 keys (bytes route), 3 timed passes of
      2 batches in flight;
   3. block batch: 3,000 lanes from 3 keys (the signature phase of a
      1,000-tx block under a 2-of-3 policy);
-  4. limb route: 4,096 lanes from 64 keys (past the 32-column key bucket);
-  5. launch counts of the main path (phases 2-4), then each kernel's own
-     time (CUDA events), its plain version's time and its bound.
+  4. limb route: 4,096 lanes from 64 keys (past the 32-column key bucket),
+     and a 1,024-lane batch with all 32 key columns in use;
+  5. launch counts of the main path (phases 2-4; the provider builds a
+     key's comb once and keeps it by SKI), then each kernel's own time
+     (CUDA events), the key-comb kernel's alone, the plain versions' at
+     the headline, limb and 32-key shapes, and each bound: bound_ms (the
+     least work known), bound_ms_kernel, bound_ms_replaced.
 
 The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
 
@@ -47,8 +53,10 @@ Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
      (identity bases, zero scalars, e = 1, e = r - 1, r * G = O, equal
      bases, random), its points lane by lane against the plain version's
      and the host oracle's (the kernel sums in another order, so its
-     projective words differ), and K4 (the Ate2 pairing check) at 8 lanes
-     (true, false, None, identity ABar), every output word against the
+     projective words differ), four of them widened to K = 33 (a warp a
+     lane, thread 0 with a second base) against the host oracle, and K4
+     (the Ate2 pairing check) at 8 lanes (true, false, None, identity
+     ABar), every output word against the
      plain version, the Miller values and final-exponentiated values
      included;
  12. idemix_config3: bench.py's config #3 (8 unique signatures from
@@ -61,7 +69,9 @@ Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
      signatures;
  13. idemix_mask: a mixed batch (wrong message, proof_s_sk + 1, a wrong
      disclosed value, ABar doubled, ABar and A' the identity, a wrong count
-     of s-values) held lane by lane to the scheme oracle;
+     of s-values) held lane by lane to the scheme oracle; idemix_wide: a
+     13-attribute key (t2's MSM lane has 17 bases, a warp a lane in one K3
+     launch), its verdicts equal to the scheme oracle's;
 
 Block validation of BASELINE config #2 and the policy circuit (K7,
 csrc/policy_eval.cu; K2 and K6 on the validator's path):
@@ -669,6 +679,17 @@ def msm_edge_lanes(host, rng):
     return lanes
 
 
+def msm_wide_lanes(host, rng, k_count):
+    """Four of msm_edge_lanes (r * G = O, equal bases, mixed, random)
+    widened to K bases: a lane's bases repeated, with new random scalars
+    past the eighth."""
+    lanes = msm_edge_lanes(host, rng)[4:8]
+    while len(lanes[0][0]) < k_count:
+        more = k_count - len(lanes[0][0])
+        lanes = [(b + b[:more], e + [rng.randrange(host.R) for _ in b[:more]]) for b, e in lanes]
+    return lanes
+
+
 def idemix_kernel_vs_plain(torch, np, dev):
     """K3 and K4 against their plain versions on the card at small sizes:
     K3's points lane by lane (the kernel sums in another order, so its
@@ -698,6 +719,19 @@ def idemix_kernel_vs_plain(torch, np, dev):
         want.append(acc)
     if err3 or got != want or plain != want:
         raise AssertionError(f"bn256_msm: kernel, plain version and oracle differ ({err3})")
+    # K = 33: a warp a lane whose first thread takes a second base
+    wide = msm_wide_lanes(host, rng, 33)
+    bases, scalars = bk.pack_batch([b for b, _ in wide], [e for _, e in wide])
+    got = bk.unpack_points(bk.msm_batch(torch.from_numpy(bases).to(dev),
+                                        torch.from_numpy(scalars).to(dev)))
+    want = []
+    for bs, es in wide:
+        acc = None
+        for b, e in zip(bs, es):
+            acc = host.g1_add(acc, host.g1_mul(b, e))
+        want.append(acc)
+    if got != want:
+        raise AssertionError("bn256_msm: K = 33 lanes differ from the oracle")
 
     gamma = rng.randrange(1, host.R)
     w = host.g2_mul(host.G2_GEN, gamma)
@@ -731,6 +765,7 @@ def idemix_kernel_vs_plain(torch, np, dev):
             or not host.gt_is_unity(fe)):
         raise AssertionError("ate2_debug: lane 0 differs from the host oracle's")
     emit({"phase": "idemix_kernel_vs_plain", "msm_lanes": len(lanes), "msm_k": 8,
+          "msm_k33_equal_oracle": True,
           "pairing_lanes": len(pairs), "max_abs_err": {"bn256_msm": err3, "ate2_unity": err4},
           "mask": mask.tolist(), "identical": True, "seconds": time.perf_counter() - t_phase})
     return {"bn256_msm": err3, "ate2_unity": err4}
@@ -776,6 +811,7 @@ def idemix_phases(torch, np, dev, imad_rate):
     import copy
     import random
 
+    from fabric_tpu_torch import idemix
     from fabric_tpu_torch.common import fp256bn as host
     from fabric_tpu_torch.idemix import batch as ib
     from fabric_tpu_torch.idemix import scheme
@@ -941,6 +977,30 @@ def idemix_phases(torch, np, dev, imad_rate):
         raise AssertionError(f"idemix_mask: device {got}, oracle {want}, expected {expected}")
     emit({"phase": "idemix_mask", "lanes": cols[0], "mask": got, "mask_equal_oracle": True,
           "seconds": time.perf_counter() - t_phase})
+
+    # --- idemix_wide: 13 attributes, t2's MSM lane of 17 bases, a warp -----
+    t_phase = time.perf_counter()
+    rng = random.Random(IDEMIX_SEED)
+    names = [f"attr{i}" for i in range(13)]
+    ik13 = idemix.new_issuer_key(names, rng)
+    sk13 = host.rand_mod_order(rng)
+    req13 = idemix.new_cred_request(sk13, host.big_to_bytes(host.rand_mod_order(rng)),
+                                    ik13["ipk"], rng)
+    cred13 = idemix.new_credential(ik13, req13, [11 * (i + 1) for i in range(13)], rng)
+    sigs13 = []
+    for msg in (b"m", b"m", b"m2"):
+        nym, r_nym = idemix.make_nym(sk13, ik13["ipk"], rng)
+        sigs13.append(idemix.new_signature(cred13, sk13, nym, r_nym, ik13["ipk"], [0] * 13, msg,
+                                           IDEMIX_RH_INDEX, {"revocation_alg": 0}, rng))
+    msgs13 = [b"m", b"m", b"m"]  # the third was signed on another message
+    args13 = (sigs13, [[0] * 13] * 3, ik13["ipk"], msgs13, [[None] * 13] * 3, IDEMIX_RH_INDEX)
+    before = bk.LAUNCHES["bn256_msm"]
+    got = ib.verify_signatures_batch(*args13, device=dev)
+    want = ib.verify_signatures_batch(*args13, backend="scheme")
+    if got != want or want != [True, True, False] or bk.LAUNCHES["bn256_msm"] != before + 1:
+        raise AssertionError(f"idemix_wide: device {got}, oracle {want}")
+    emit({"phase": "idemix_wide", "attributes": 13, "t2_bases": 17, "mask": got,
+          "mask_equal_oracle": True, "k3_launches": 1, "seconds": time.perf_counter() - t_phase})
 
     source = "fabric_tpu_torch/csrc/bn256.cu"
     return [
@@ -1218,9 +1278,10 @@ def policy_kernel_vs_plain(torch, np, dev) -> int:
     return err
 
 
-def validator_phases(torch, np, dev, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
+def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
     """validator_config2, validator_mask and validator_commit; returns K7's
-    entry of the kernels line."""
+    entry of the kernels line. `k2_block`, K2's and the table kernel's times
+    at the block's shape, goes on config #2's line beside its verify wait."""
     from fabric_tpu_torch.common.txflags import TxValidationCode
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
     from fabric_tpu_torch.ledger import kvledger, mvcc, statedb
@@ -1294,6 +1355,8 @@ def validator_phases(torch, np, dev, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
           "setup_seconds": setup_s, "runs": per_run, "ms_per_block_best": best,
           "ms_per_block_range": [best, max(r["ms"] for r in per_run)],
           "all_valid": True, "backend": "cuda", "k2_launches_per_block": 1,
+          "verify_wait_ms": [r["split_ms"].get("verify_wait") for r in per_run],
+          "k2_at_block_ms": k2_block,
           "k7": {"lanes": len(rows), "signers": S, "principals": P, "nodes": nodes, "ms": ms7,
                  "bound_ms": bound7, "plain_ms": plain7, "launches": launches["policy_eval"],
                  "verdicts_equal_flags": True},
@@ -1356,38 +1419,94 @@ def validator_phases(torch, np, dev, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
             "library_ms": None}
 
 
-def main() -> int:
-    import torch
+# ---------------------------------------------------------------------------
+# P-256 (K1, K2): the edge lanes of the kernel-vs-plain phase
+# ---------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 2
 
-    import numpy as np
+def p256_lane_from_scalars(p256, u1: int, u2: int, q: int, tag: bytes):
+    """A lane that verifies, built backwards from chosen u1 = e/s, u2 = r/s
+    and key Q = q G: R = (u1 + u2 q) G, r = x(R) mod n, s = r / u2, e = u1 s.
+    Returns (point, digest, r, s, True)."""
+    n = p256.N
+    r = p256.scalar_mult((u1 + u2 * q) % n, p256.GENERATOR)[0] % n
+    w = u2 * pow(r, -1, n) % n
+    s = pow(w, -1, n)
+    e = u1 * s % n
+    assert p256.verify_digest(p256.scalar_mult(q, p256.GENERATOR), e.to_bytes(32, "big"), r, s), tag
+    return p256.scalar_mult(q, p256.GENERATOR), e.to_bytes(32, "big"), r, s, True
 
+
+def p256_thread_scalar(u1: int, u2: int, q: int, j: int, n: int) -> int:
+    """The scalar of K2's thread j's partial sum (windows j, j + 8, ...):
+    its digits of u1 plus q times its digits of u2."""
+    mask = sum(15 << (4 * w) for w in range(j, 64, 8))
+    return ((u1 & mask) + q * (u2 & mask)) % n
+
+
+def p256_crafted_lanes(p256, privs):
+    """(name, point, digest, r, s, valid_in) edge lanes for K1 and K2: the
+    complete formulas' cases (Q = G, u1 = u2, u1 G = -u2 Q), e >= n, the
+    r + n candidate, high-S, s = 0, r = 0, r = n, an off-curve key whose
+    False comes from the arithmetic, valid_in false; zero digits in whole
+    windows of u1 and of u2 (identity entries of both combs); and keys
+    chosen so that K2's partial sums of threads 0 and 4 cancel (P + (-P))
+    or are equal (P + P) in its shuffle tree."""
+    keys = [p256.scalar_mult(d, p256.GENERATOR) for d in privs[:8]]
+    g = p256.GENERATOR
+    n = p256.N
+    d0 = hashlib.sha256(b"edge").digest()
+    r1, s1 = p256.sign_digest(1, d0, k=7)  # Q = G
+    k_eq = 0x1234567
+    r_eq = p256.scalar_mult(k_eq, g)[0] % n
+    d_eq = r_eq.to_bytes(32, "big")  # e == r: u1 == u2
+    r2, s2 = p256.sign_digest(privs[1], d_eq, k=k_eq)
+    d_zero = bytes(32)
+    r3, s3 = p256.sign_digest(privs[2], d_zero, k=99)
+    d_big = b"\xff" * 32  # e >= n
+    r4, s4 = p256.sign_digest(privs[3], d_big, k=101)
+    r5, s5 = p256.sign_digest(1, d_eq, k=k_eq)  # Q = G and u1 == u2: doubling in the ladder
+    pmn = p256.P - n
+    u1 = int.from_bytes(hashlib.sha256(b"u1").digest(), "big") % n
+    u2 = int.from_bytes(hashlib.sha256(b"u2").digest(), "big") % n
+    # q with thread 0's and thread 4's partial sums opposite, then equal
+    a0, a4 = (p256_thread_scalar(u1, 0, 0, j, n) for j in (0, 4))
+    b0, b4 = (p256_thread_scalar(0, u2, 1, j, n) for j in (0, 4))
+    q_cancel = -(a0 + a4) * pow(b0 + b4, -1, n) % n
+    q_equal = -(a0 - a4) * pow(b0 - b4, -1, n) % n
+    return [
+        ("Q=G", g, d0, r1, s1, True),
+        ("e==r", keys[1], d_eq, r2, s2, True),
+        ("zero-digest", keys[2], d_zero, r3, s3, True),
+        ("e>=n", keys[3], d_big, r4, s4, True),
+        ("Q=G,e==r", g, d_eq, r5, s5, True),
+        # u1*G = -u2*Q with Q = G: e = n - r, any s; the sum is infinity
+        ("u1G=-u2Q", g, (n - 12345).to_bytes(32, "big"), 12345, 777, True),
+        ("r<p-n", keys[4], d0, 5, 1234567, True),  # the r+n candidate
+        ("r=p-n-1", keys[4], d0, pmn - 1, 4321, True),
+        ("r=p-n", keys[4], d0, pmn, 4321, True),
+        ("high-S", keys[5], d0, r1, n - s1, True),  # high-S reaching the kernel
+        ("s=0", keys[5], d0, r1, 0, True),
+        ("r=0", keys[5], d0, 0, s1, True),
+        ("r=n", keys[5], d0, n, s1, True),
+        ("off-curve", (keys[6][0], (keys[6][1] + 1) % p256.P), d0, r1, s1, True),
+        ("valid-masked", keys[6], d0, r1, s1, False),
+        ("u1-zero-windows", *p256_lane_from_scalars(p256, 5, u2, privs[7], b"u1")),
+        ("u2-zero-windows", *p256_lane_from_scalars(p256, u1, 7 << 160, privs[7], b"u2")),
+        ("tree-cancel", *p256_lane_from_scalars(p256, u1, u2, q_cancel, b"cancel")),
+        ("tree-equal", *p256_lane_from_scalars(p256, u1, u2, q_equal, b"equal")),
+    ]
+
+
+def p256_phases(torch, np, dev, imad_rate):
+    """Phases 1-5 (the CUDAProvider and K1, K2 and the table kernel);
+    returns their entries of the kernels line, and K2's and the table
+    kernel's times at the block's shape."""
     from fabric_tpu_torch.common import der, p256
     from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError, parse_and_precheck
-    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, be_bytes_to_limbs
-    from fabric_tpu_torch.ops import cudalib
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, _bucket as bucket
+    from fabric_tpu_torch.crypto.cuda_provider import be_bytes_to_limbs
     from fabric_tpu_torch.ops import p256_kernel as pk
-
-    dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
-
-    # --- build: one nvcc per source, all started together ---------------
-    t0 = time.perf_counter()
-    sources = ("p256_verify", "mvcc_resolve", "bn256", "policy_eval")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(cudalib.build, sources))
-    for name in sources:
-        cudalib.load(name)
-    emit({
-        "phase": "build",
-        "seconds": time.perf_counter() - t0,
-        "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
-                         if "registers" in ln or "spill" in ln or "stack" in ln]
-                  for name in sources},
-    })
 
     # --- inputs ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1437,7 +1556,8 @@ def main() -> int:
     pool8, want8 = pool(8, 1024, "headline")
     pool3, want3 = pool(3, 300, "block")
     pool64, want64 = pool(64, 192, "limb")
-    emit({"phase": "inputs", "unique_rows": len(pool8) + len(pool3) + len(pool64),
+    pool32, want32 = pool(31, 248, "keys32")  # with the off-curve key, 32 columns
+    emit({"phase": "inputs", "unique_rows": len(pool8) + len(pool3) + len(pool64) + len(pool32),
           "seconds": time.perf_counter() - t0})
 
     def tile(rows, want, n):
@@ -1452,37 +1572,7 @@ def main() -> int:
         except VerifyError:
             r, s, valid = 0, 0, False
         lanes.append((key.point, digest, r, s, valid))
-    g = p256.GENERATOR
-    d0 = hashlib.sha256(b"edge").digest()
-    r1, s1 = p256.sign_digest(1, d0, k=7)  # Q = G
-    k_eq = 0x1234567
-    r_eq = p256.scalar_mult(k_eq, g)[0] % p256.N
-    d_eq = r_eq.to_bytes(32, "big")  # e == r: u1 == u2
-    r2, s2 = p256.sign_digest(privs[1], d_eq, k=k_eq)
-    d_zero = bytes(32)
-    r3, s3 = p256.sign_digest(privs[2], d_zero, k=99)
-    d_big = b"\xff" * 32  # e >= n
-    r4, s4 = p256.sign_digest(privs[3], d_big, k=101)
-    r5, s5 = p256.sign_digest(1, d_eq, k=k_eq)  # Q = G and u1 == u2: doubling in the ladder
-    pmn = p256.P - p256.N
-    crafted = [
-        (g, d0, r1, s1, True),
-        (keys[1].point, d_eq, r2, s2, True),
-        (keys[2].point, d_zero, r3, s3, True),
-        (keys[3].point, d_big, r4, s4, True),
-        (g, d_eq, r5, s5, True),
-        # u1*G = -u2*Q with Q = G: e = n - r, any s; the sum is infinity
-        (g, (p256.N - 12345).to_bytes(32, "big"), 12345, 777, True),
-        (keys[4].point, d0, 5, 1234567, True),  # r < p - n: the r+n candidate
-        (keys[4].point, d0, pmn - 1, 4321, True),
-        (keys[4].point, d0, pmn, 4321, True),
-        (keys[5].point, d0, r1, p256.N - s1, True),  # high-S reaching the kernel
-        (keys[5].point, d0, r1, 0, True),  # s = 0
-        (keys[5].point, d0, 0, s1, True),  # r = 0
-        (keys[5].point, d0, p256.N, s1, True),  # r = n
-        ((keys[6].x, (keys[6].y + 1) % p256.P), d0, r1, s1, True),  # off curve
-        (keys[6].point, d0, r1, s1, False),  # valid_in false
-    ]
+    crafted = [lane[1:] for lane in p256_crafted_lanes(p256, privs)]
     lanes += crafted
     while len(lanes) < 64:
         lanes.append(lanes[len(lanes) % 40])
@@ -1525,6 +1615,16 @@ def main() -> int:
         results[name] = {"max_abs_err": err}
         emit({"phase": "kernel_vs_plain", "kernel": name, "lanes": len(lanes),
               "accepted": sum(want1), "max_abs_err": err, "identical": True})
+    # the table kernel: every word of each key column's comb
+    tables = pk.key_tables(bytes_args[3], bytes_args[4])
+    torch.cuda.synchronize()
+    plain_tables = pk.key_tables_ref(bytes_args[3], bytes_args[4])
+    err = int((tables.long() - plain_tables.long()).abs().max().item())
+    if err:
+        raise AssertionError("p256_key_tables: words differ from the plain version")
+    results["p256_key_tables"] = {"max_abs_err": err}
+    emit({"phase": "kernel_vs_plain", "kernel": "p256_key_tables", "keys": len(points),
+          "words": tables.numel(), "max_abs_err": err, "identical": True})
 
     # --- phases 2-4: the main path through CUDAProvider -------------------
     prov = CUDAProvider(device=dev)
@@ -1533,6 +1633,7 @@ def main() -> int:
     head_rows, head_want = tile(pool8, want8, 32768)
     block_rows, block_want = tile(pool3, want3, 3000)
     limb_rows, limb_want = tile(pool64, want64, 4096)
+    keys32_rows, keys32_want = tile(pool32, want32, 1024)
 
     def cols(rows):
         return [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows]
@@ -1567,10 +1668,16 @@ def main() -> int:
         limb_s.append(time.perf_counter() - t0)
         if m != limb_want:
             raise AssertionError("limb-route mask differs from the oracle's")
+    # every column of the key bucket in use (32 keys, the bytes route)
+    if prov.batch_verify(*cols(keys32_rows)) != keys32_want:
+        raise AssertionError("32-key mask differs from the oracle's")
     launches = dict(pk.LAUNCHES)
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # the provider keeps each key's comb by SKI: a table launch for a batch
+    # with keys it has not seen (the headline's first, the 32-key batch)
+    cached_keys = len(prov._key_table_cache)
 
     # --- kernel times at the main path's shapes ----------------------------
     head_prep_s = []
@@ -1591,31 +1698,58 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    imad_rate = IMAD_PER_SM_PER_CLOCK * sms * clock_hz
+    def bounds(work, nbytes: int):
+        """bound_ms (the least work known), bound_ms_kernel (the kernel's
+        own), bound_ms_replaced (the replaced one-thread-a-lane kernel's),
+        each the larger of its IMAD slots over the card's rate and the bytes
+        over the memory rate."""
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out = {}
+        for key, slots in (("bound_ms", work["least"]), ("bound_ms_kernel", work["kernel"]),
+                           ("bound_ms_replaced", work.get("replaced"))):
+            if slots is not None:
+                out[key] = max(slots / imad_rate * 1e3, bytes_ms)
+        out["bound_by"] = "operations" if work["least"] / imad_rate * 1e3 >= bytes_ms else "bytes"
+        return out
 
-    def bound_ms(live_lanes: int, nbytes: int):
-        ops_s = live_lanes * pk.IMAD_PER_VERIFY / imad_rate
-        bytes_s = nbytes / HBM_BYTES_PER_S
-        return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
-
+    comb_bytes = pk.g_comb_words().nbytes
     shapes = {}
-    for label, batch, size in (("headline", head_rows, 32768),
-                               ("block", block_rows, 4096),
-                               ("limb", limb_rows, 4096)):
+    for label, batch in (("headline", head_rows), ("block", block_rows), ("limb", limb_rows),
+                         ("keys32", keys32_rows)):
+        size = bucket(len(batch))
         prep, limbs = prov.prep_bytes(*cols(batch))
         fn, args = prov.device_inputs(prep, limbs, size)
         ms = time_launch(lambda: fn(*args))
         live = int(args[-1].sum().item())
-        nbytes = sum(a.numel() * a.element_size() for a in args) + size
-        nbytes += pk.g_table_words().nbytes
-        b_ms, b_by = bound_ms(live, nbytes)
-        shapes[label] = {"fn": fn, "args": args, "ms": ms, "live": live,
-                         "bound_ms": b_ms, "bound_by": b_by, "lanes": size}
+        nbytes = sum(a.numel() * a.element_size() for a in args) + size + comb_bytes
+        if prep is not None:
+            nkeys = len(prep[6])
+            work = pk.work_bytes_route(live, nkeys, pk.live_blocks(args[-1].cpu().numpy()))
+        else:
+            nkeys = 0
+            work = pk.work_limb_route(live)
+        shapes[label] = {"fn": fn, "args": args, "ms": ms, "live": live, "lanes": size,
+                         "keys": nkeys, **bounds(work, nbytes)}
+
+    # the table kernel alone, at the block's 3 keys and the bucket's 32
+    table_times = {}
+    for label in ("block", "keys32"):
+        kx_t, ky_t = (a[:, :shapes[label]["keys"]].contiguous() for a in shapes[label]["args"][3:5])
+        nk = kx_t.shape[1]
+        table_ms = time_launch(lambda: pk.key_tables(kx_t, ky_t))
+        least = nk * pk.LEAST_TABLE_MOD_P * pk.IMAD_MOD_P
+        table_times[label] = {"keys": nk, "ms": table_ms, **bounds(
+            {"least": least, "kernel": nk * pk.KERNEL_MOD_P_TABLE * pk.IMAD_MOD_P},
+            nk * (2 * 20 * 8 + pk.NUM_WINDOWS * 16 * 96))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk.key_tables_ref(*(a[:, :3].contiguous() for a in shapes["block"]["args"][3:5]))
+    torch.cuda.synchronize()
+    table_times["block"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
 
     # plain versions on the card, once each, at the main path's shapes
-    for label, ref in (("headline", pk.verify_batch_bytes_ref), ("limb", pk.verify_batch_ref)):
+    for label, ref in (("headline", pk.verify_batch_bytes_ref), ("limb", pk.verify_batch_ref),
+                       ("keys32", pk.verify_batch_bytes_ref)):
         sh = shapes[label]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1626,18 +1760,28 @@ def main() -> int:
         if got.tolist() != plain.tolist():
             raise AssertionError(f"{label}: kernel and plain masks differ at full size")
 
-    lanes_per_pass = 2 * 32768
-    emit({"phase": "headline", "lanes": 32768, "keys": 8, "in_flight": 2,
+    lanes_per_pass = 2 * len(head_rows)
+    emit({"phase": "headline", "lanes": len(head_rows), "keys": 8, "in_flight": 2,
           "pass_seconds": pass_s,
           "verifies_per_s": [lanes_per_pass / s for s in pass_s],
           "kernel_ms": shapes["headline"]["ms"], "host_prep_ms": [t * 1e3 for t in head_prep_s],
           "mask_equal_oracle": True})
-    emit({"phase": "block", "lanes": 3000, "keys": 3, "padded_to": 4096,
+    emit({"phase": "block", "lanes": len(block_rows), "keys": 3,
+          "padded_to": bucket(len(block_rows)),
           "ms_per_batch": [s * 1e3 for s in block_s], "kernel_ms": shapes["block"]["ms"],
           "mask_equal_oracle": True})
-    emit({"phase": "limb_route", "lanes": 4096, "keys": 65,
+    emit({"phase": "limb_route", "lanes": len(limb_rows), "keys": 65,
           "ms_per_batch": [s * 1e3 for s in limb_s], "kernel_ms": shapes["limb"]["ms"],
           "mask_equal_oracle": True})
+    emit({"phase": "keys32", "lanes": len(keys32_rows), "keys": 32,
+          "kernel_ms": shapes["keys32"]["ms"],
+          "mask_equal_oracle": True, "mask_equal_plain": True})
+    emit({"phase": "key_tables", "cached_by_ski": True, "cached_keys": cached_keys,
+          "launches_on_main_path": launches["p256_key_tables"], **table_times})
+
+    def bound_keys(sh):
+        return {k: sh[k] for k in ("bound_ms", "bound_by", "bound_ms_kernel",
+                                   "bound_ms_replaced")}
 
     kernels = []
     for name, label, replaces in (
@@ -1650,21 +1794,68 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": results[name]["max_abs_err"],
             "lanes": sh["lanes"], "live_lanes": sh["live"],
-            "ms": sh["ms"], "plain_ms": sh["plain_ms"],
-            "bound_ms": sh["bound_ms"], "bound_by": sh["bound_by"], "library_ms": None,
+            "threads_per_lane": pk.THREADS_PER_LANE,
+            "ms": sh["ms"], "plain_ms": sh["plain_ms"], **bound_keys(sh), "library_ms": None,
         })
-    emit({"phase": "block_kernel", "lanes": 4096, "live_lanes": shapes["block"]["live"],
-          "ms": shapes["block"]["ms"], "bound_ms": shapes["block"]["bound_ms"]})
+    tb = table_times["block"]
+    kernels.append({
+        "name": "p256_key_tables", "route": "cuda",
+        "source": "fabric_tpu_torch/csrc/p256_verify.cu",
+        "replaces": "fabric_tpu/ops/p256_kernel.py:499", "launches": launches["p256_key_tables"],
+        "max_abs_err": results["p256_key_tables"]["max_abs_err"], "keys": tb["keys"],
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"], "bound_ms_kernel": tb["bound_ms_kernel"],
+        "library_ms": None,
+    })
+    for label in ("block", "keys32"):
+        sh = shapes[label]
+        emit({"phase": f"{label}_kernel", "kernel": "p256_verify_bytes", "lanes": sh["lanes"],
+              "live_lanes": sh["live"], "keys": sh["keys"], "ms": sh["ms"], **bound_keys(sh),
+              "table_ms": table_times[label]["ms"]})
+    return kernels, {"kernel_ms": shapes["block"]["ms"], "table_ms": table_times["block"]["ms"]}
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from fabric_tpu_torch.ops import cudalib
+
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # --- build: one nvcc per source, all started together ---------------
+    t0 = time.perf_counter()
+    sources = ("p256_verify", "mvcc_resolve", "bn256", "policy_eval")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cudalib.build, sources))
+    for name in sources:
+        cudalib.load(name)
+    emit({
+        "phase": "build",
+        "seconds": time.perf_counter() - t0,
+        "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
+                         if "registers" in ln or "spill" in ln or "stack" in ln]
+                  for name in sources},
+    })
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    imad_rate = IMAD_PER_SM_PER_CLOCK * sms * clock_hz
+    kernels, k2_block = p256_phases(torch, np, dev, imad_rate)
     # --- MVCC: kernel vs plain, config #4, the resident chain --------------
     kernels += mvcc_phases(torch, np, dev)
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
     kernels += idemix_phases(torch, np, dev, imad_rate)
     # --- Block validation of config #2, K7 ----------------------------------
-    kernels.append(validator_phases(torch, np, dev))
+    kernels.append(validator_phases(torch, np, dev, k2_block))
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
-          "sms": sms, "max_sm_clock_hz": clock_hz,
-          "imad_per_verify": pk.IMAD_PER_VERIFY})
+          "sms": sms, "max_sm_clock_hz": clock_hz})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,14 @@ the same single-verify and batch API and the same decisions on the host
 (DER parse, the low-S rule, the 1 <= r, s < n checks, distinct-key columns
 cached by SKI with an on-curve gate, the lane buckets, the 32-column key
 bucket with the limb route past it). The curve math runs in the
-hand-written kernels of `ops/p256_kernel`.
+hand-written kernels of `ops/p256_kernel`; on the card the provider also
+keeps each key's comb (the fixed-base table K2 reads, built by
+`p256_key_tables`) by SKI, so a key's table is built once.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -77,6 +80,8 @@ class CUDAProvider(Provider):
     # distinct keys are padded to a fixed column bucket; past it the lanes
     # carry full limb columns (the limb route)
     KEY_BUCKET = 32
+    # keys whose combs (98,304 bytes each) stay on the card
+    KEY_TABLE_CACHE = 1024
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
@@ -86,6 +91,7 @@ class CUDAProvider(Provider):
         elif self.device.type != "cpu":
             raise ValueError(f"CUDAProvider: unsupported device {self.device}")
         self._key_limb_cache: Dict[bytes, Tuple[np.ndarray, np.ndarray, bool]] = {}
+        self._key_table_cache: Dict[bytes, torch.Tensor] = {}
 
     def describe_backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "cpu-reference"
@@ -137,7 +143,7 @@ class CUDAProvider(Provider):
         kx_cols = [c[0] for c in cols]
         ky_cols = [c[1] for c in cols]
         on_curve = np.asarray([c[2] for c in cols], dtype=bool)
-        return kx_cols, ky_cols, on_curve, idx
+        return kx_cols, ky_cols, on_curve, idx, [key.ski() for key in distinct]
 
     def prep_bytes(
         self,
@@ -146,7 +152,8 @@ class CUDAProvider(Provider):
         digests: Sequence[bytes],
     ):
         """DER parse and key-column dedup. Returns (prep, None) for the bytes
-        route, or (None, limbs) when the distinct keys exceed KEY_BUCKET."""
+        route, or (None, limbs) when the distinct keys exceed KEY_BUCKET.
+        prep is (e, r, s, kx, ky, key index, the key columns' SKIs, ok)."""
         n = len(signatures)
         if not (len(keys) == n == len(digests)):
             raise ValueError("keys, signatures and digests differ in length")
@@ -155,7 +162,7 @@ class CUDAProvider(Provider):
         if any(len(d) != 32 for d in digests):
             raise VerifyError("digests must be 32-byte SHA-256 outputs")
         e_bytes = np.frombuffer(b"".join(digests), dtype=np.uint8).reshape(n, 32).copy()
-        kx_cols, ky_cols, on_curve, idx = self._dedup_key_columns(keys)
+        kx_cols, ky_cols, on_curve, idx, skis = self._dedup_key_columns(keys)
         if kx_cols:
             ok &= on_curve[idx]
         if len(kx_cols) > self.KEY_BUCKET:
@@ -174,19 +181,39 @@ class CUDAProvider(Provider):
         if kx_cols:
             kx_mat[:, : len(kx_cols)] = np.stack(kx_cols, axis=1)
             ky_mat[:, : len(ky_cols)] = np.stack(ky_cols, axis=1)
-        return (e_bytes, r_bytes, s_bytes, kx_mat, ky_mat, idx, ok), None
+        return (e_bytes, r_bytes, s_bytes, kx_mat, ky_mat, idx, skis, ok), None
 
     # -- device dispatch ---------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def key_tables(self, skis: Sequence[bytes], kx: np.ndarray, ky: np.ndarray) -> torch.Tensor:
+        """The combs of a bytes-route batch's key columns, (KEY_BUCKET, 64,
+        16, 3, 8) on the card: the keys not yet cached are built by one
+        `p256_key_tables` launch and kept by SKI; the padding columns repeat
+        the first key's (no live lane reads them)."""
+        have = {ski: self._key_table_cache[ski] for ski in skis if ski in self._key_table_cache}
+        missing = [i for i, ski in enumerate(skis) if ski not in have]
+        if missing:
+            built = pk.key_tables(self._tensor(kx[:, missing]), self._tensor(ky[:, missing]))
+            if len(self._key_table_cache) + len(missing) > self.KEY_TABLE_CACHE:
+                self._key_table_cache.clear()
+            for j, i in enumerate(missing):
+                have[skis[i]] = self._key_table_cache[skis[i]] = built[j]
+        cols = [have[ski] for ski in skis]
+        return torch.stack(cols + cols[:1] * (kx.shape[1] - len(cols)))
+
     def device_inputs(self, prep, limbs, size: int):
         """The kernel wrapper and its device tensors for one launch, with the
-        lanes padded to `size` (dead lanes: valid_in False)."""
+        lanes padded to `size` (dead lanes: valid_in False). On the card the
+        bytes route's wrapper comes with the key columns' cached combs."""
         if prep is not None:
-            e_bytes, r_bytes, s_bytes, kx, ky, idx, ok = prep
-            return pk.verify_batch_bytes, [
+            e_bytes, r_bytes, s_bytes, kx, ky, idx, skis, ok = prep
+            fn = pk.verify_batch_bytes
+            if self.device.type == "cuda" and skis:
+                fn = functools.partial(fn, tables=self.key_tables(skis, kx, ky))
+            return fn, [
                 self._tensor(_pad(e_bytes, size)),
                 self._tensor(_pad(r_bytes, size)),
                 self._tensor(_pad(s_bytes, size)),

@@ -29,15 +29,18 @@
 // exists once in the code; inside them every field operation is inlined.
 //
 // K3, bn256_msm. Per lane the sum of s_k * B_k over K bases, a lane a group
-// of G threads (G the power of two at or above K; 8 at the Idemix batch's K).
-// Thread k multiplies base k: a table {O, B, 2B, 3B} (2B = double(B), 3B =
-// add(2B, B)) in its slice of shared memory, then 128 windows of 2 bits,
-// most significant first, each two doublings and one complete addition of
-// a table entry (O for a zero digit). A thread whose base is the identity
-// (Z = 0) or whose scalar is zero contributes O and does no arithmetic, so
-// the batch's t1 and t3 jobs (3 real bases padded to 8) pay for 3. The G
-// partial sums are added by a shuffle tree of complete additions (log2 G
-// levels). The formulas are the complete Renes-Costello-Batina 2016 ones for
+// of G threads (G the power of two at or above K, at most 32; 8 at the
+// Idemix batch's K, 32 for a key of 13 to 28 attributes). Thread k
+// multiplies bases k, k + G, ...: for each, a table {O, B, 2B, 3B} (2B =
+// double(B), 3B = add(2B, B)) in its slice of shared memory, then 128
+// windows of 2 bits, most significant first, each two doublings and one
+// complete addition of a table entry (O for a zero digit); a thread's later
+// bases (K > 32 only) run their windows apart and are added to its sum. A
+// base that is the identity (Z = 0) or has a zero scalar contributes O and
+// does no arithmetic, so the batch's t1 and t3 jobs (3 real bases padded to
+// 8) pay for 3. The G partial sums are added by a shuffle tree of complete
+// additions (log2 G levels). The formulas are the complete
+// Renes-Costello-Batina 2016 ones for
 // a = 0 (algorithm 7 for addition, 9 for doubling, b3 = 9), so the identity
 // and equal points need no special case. The output is the same point as
 // the plain version's, not the same projective words: the addition order
@@ -80,7 +83,8 @@
 //   K3 lane with k real bases of K: the kernel runs, for each real base, 3
 //     multiplies for the radix change, a doubling (9) and an addition (14)
 //     for the table and 128 windows of 2 doublings and an addition, then
-//     G - 1 additions in the tree and 3 for the result's radix: 33,077
+//     K - G additions of threads' later bases (K > 32 only), G - 1
+//     additions in the tree and 3 for the result's radix: 33,077
 //     multiplies at k = K = 8, 12,467 at 3 of 8 (ops/bn256_kernel
 //     .muls_per_lane). The longest thread's chain is 4,167 multiplies (its
 //     base, three tree additions, the result). The least work shares one
@@ -387,7 +391,13 @@ __device__ __forceinline__ Fe fe_load(const u32* p) {
 // ---------------------------------------------------------------------------
 
 constexpr int THREADS3 = 32;  // one warp a block: 32 / G lanes
-constexpr int MSM_MAX_K = 16;
+
+// log2 G for K bases: the power of two at or above K, at most a warp.
+inline int msm_log_g(int K) {
+    int log_g = 0;
+    while ((1 << log_g) < K && (1 << log_g) < THREADS3) ++log_g;
+    return log_g;
+}
 constexpr int SLOT_ACC = 4;   // slots 0-3 hold the table {O, B, 2B, 3B}
 constexpr int SLOT_TMP = 5;
 
@@ -482,7 +492,7 @@ __device__ __forceinline__ void point_set_identity(Pt& p) {
 
 // bases (K, 3, 20, B) and the result (3, 20, B): projective Montgomery
 // limbs (R = 2^260); scalars (K, 20, B) limbs of integers below 2^256.
-// G = 2^log_g >= K threads a lane.
+// G = 2^log_g threads a lane (msm_log_g).
 extern "C" __global__ void __launch_bounds__(THREADS3)
 bn256_msm(const long long* __restrict__ bases, const long long* __restrict__ scalars,
           long long* __restrict__ out, int K, int log_g, int B) {
@@ -493,10 +503,15 @@ bn256_msm(const long long* __restrict__ bases, const long long* __restrict__ sca
     const long long stride = B;
     Msm3& m = g_msm[threadIdx.x];
     point_set_identity(m.pt[SLOT_ACC]);
-    if (lane < B && k < K) {
-        const long long* b = bases + (long long)k * 60 * stride + lane;
+#pragma unroll 1
+    for (int kb = k; lane < B && kb < K; kb += G) {
+        // the thread's first base sums into its accumulator, a later one
+        // into SLOT_TMP, which is then added to it
+        const int dst = kb == k ? SLOT_ACC : SLOT_TMP;
+        point_set_identity(m.pt[dst]);
+        const long long* b = bases + (long long)kb * 60 * stride + lane;
         const Fe z = reduce_once(fe_from_limbs(b + 40 * stride, stride));
-        const Fe s = fe_from_limbs(scalars + (long long)k * 20 * stride + lane, stride);
+        const Fe s = fe_from_limbs(scalars + (long long)kb * 20 * stride + lane, stride);
         if (!fe_is_zero(z) && !fe_is_zero(s)) {
             const Fe c252 = fe_const(C252);
             point_set_identity(m.pt[0]);
@@ -510,11 +525,12 @@ bn256_msm(const long long* __restrict__ bases, const long long* __restrict__ sca
 #pragma unroll 1
             for (int w = 0; w < 128; ++w) {
 #pragma unroll 1
-                for (int i = 0; i < 2; ++i) point_double(SLOT_ACC, SLOT_ACC);
+                for (int i = 0; i < 2; ++i) point_double(dst, dst);
                 const int bit = 254 - 2 * w;
-                point_add(SLOT_ACC, SLOT_ACC, (m.sc[bit >> 5] >> (bit & 31)) & 3u);
+                point_add(dst, dst, (m.sc[bit >> 5] >> (bit & 31)) & 3u);
             }
         }
+        if (dst == SLOT_TMP) point_add(SLOT_ACC, SLOT_ACC, SLOT_TMP);
     }
     // the group's partial sums by a shuffle tree; every thread of the warp
     // takes part in each shuffle
@@ -1085,9 +1101,8 @@ ate2_debug(const u32* __restrict__ sw, const u32* __restrict__ sg,
 
 extern "C" int bn256_msm_launch(const void* bases, const void* scalars, void* out, int K, int B,
                                 void* stream) {
-    if (K < 1 || K > MSM_MAX_K) return (int)cudaErrorInvalidValue;
-    int log_g = 0;
-    while ((1 << log_g) < K) ++log_g;
+    if (K < 1) return (int)cudaErrorInvalidValue;
+    const int log_g = msm_log_g(K);
     if (B > 0) {
         const long long threads = (long long)B << log_g;
         bn256_msm<<<(unsigned)((threads + THREADS3 - 1) / THREADS3), THREADS3, 0,

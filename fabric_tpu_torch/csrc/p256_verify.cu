@@ -1,5 +1,6 @@
-// Batched ECDSA-P256 verification for Hopper (sm_90a): one thread verifies
-// one lane, end to end.
+// Batched ECDSA-P256 verification for Hopper (sm_90a): a lane is a group of
+// eight threads, the generator's and each key's multiples come from shared
+// fixed-base tables, and nothing lives on the stack.
 //
 // Replaces, in the JAX package:
 //   fabric_tpu/ops/p256_kernel.py  verify_batch_device / verify_batch_jit
@@ -7,49 +8,111 @@
 //   fabric_tpu/ops/p256_kernel.py  verify_batch_bytes_device /
 //     verify_batch_bytes_jit with bytes_to_limbs_device
 //     (K2: (B, 32) big-endian bytes, a distinct-key limb table and a per-lane
-//     key index)                                          -> p256_verify_bytes
-// Both entry points share one __device__ routine, verify_lane.
+//     key index)                          -> p256_key_tables, p256_verify_bytes
 //
-// Math. Field elements are 8 native 32-bit words, Montgomery with R = 2^256
-// for both p and n (the JAX package uses 13-bit limbs and R = 2^260; only the
-// verdict is observable). Products are 32x32->64 (IMAD.WIDE), CIOS
-// reduction, every result fully reduced. Point arithmetic is the complete
-// projective Renes-Costello-Batina 2016 formulas for a = -3 (algorithm 4 for
-// addition, 6 for doubling), step for step as in the JAX package, so
-// Q = G, u1 = u2 and u1*G = -u2*Q need no special case. The scalars are
-// w = s^(n-2) (Fermat, 4-bit fixed window), u1 = e*w, u2 = r*w mod n; e >= n
-// is reduced first. The ladder is the JAX package's 4-bit-window Horner
-// loop from the identity: R = 16R + d2*Q + d1*G, MSB first, with the 16
-// multiples of Q built per lane (local memory) and the 16 multiples of G
-// from a host table staged in shared memory. The final check is projective:
-// accept iff Z != 0 and X == r*Z, or X == (r+n)*Z when r < p - n; the
-// result is AND-ed with the host's valid_in mask (lanes with valid_in
-// false skip the arithmetic).
+// What bounds them. A verify is a chain of dependent Montgomery multiplies;
+// at the block's 3,000 lanes the card's multiply throughput is far off and
+// the time is the length of a lane's chain times a multiply's latency. The
+// replaced design ran a lane on one thread (5,322 multiplies mod p and 332
+// mod n in one chain, per-lane tables of Q on a 2,496-byte stack). This one
+// cuts the chain and the work:
 //
-// Bound. The kernel is bound by 32-bit integer multiply throughput (IMAD):
-// it reads 102 bytes and does ~0.77 million IMAD issue slots per lane.
-// Per verify it runs 332 Montgomery multiplies mod n (1 to_mont, 329 in the
-// Fermat inverse, 2 for u1 and u2) and 5,322 mod p (2 to_mont of Q, 14
-// complete additions of 14 multiplies for the Q table, 64 windows of 4
-// doublings of 13 and 2 additions of 14, and 4 in the final check).
-// A multiply mod n has 128 32x32->64 word products plus 8 32-bit low
-// products; one mod p has 64 word products (p's words are 0, 1 and
-// 2^32 - 1, so its reduction needs no multiplier). That is 383,104 word
-// products and 2,656 low products per verify; counting a word product as
-// two IMAD issue slots, 768,864 slots. PERF.md's bound is computed from
-// these counts (ops/p256_kernel.py IMAD_PER_VERIFY).
+// Tables the lanes share. The comb of a point P is, for each of the 64
+// four-bit windows w of a scalar and each digit d, the projective point
+// d * 16^w * P (d = 0 the identity (0 : 1 : 0)): 64 x 16 x 3 x 8 words,
+// 98,304 bytes. With it u * P is the sum of 64 table entries, no doubling.
+//   G: built once on the host (ops/p256_kernel.g_comb_words), read through
+//     the read-only cache; it stays in L2.
+//   Q (K2): one comb per distinct key column, built on the card by
+//     p256_key_tables (a block a key): warp 0 runs the 255 doublings of the
+//     chain Q, 2Q, ..., 2^255 Q as a team (below) and writes the entries of
+//     digits 1, 2, 4, 8 of every window; then all 256 threads add the other
+//     eleven digits of every window from those (17 additions a window). The
+//     provider keeps the tables of each key it has seen (by SKI), so a key
+//     is built once, not once a batch.
+//   Q (K1): every lane brings its own key, so u2 * Q stays a Horner ladder
+//     over Q's 16 multiples (in shared memory), and u1's digits are added
+//     into the same accumulator from window 0 of G's comb (d * G), which
+//     shares the ladder's doublings.
+// The additions are the complete Renes-Costello-Batina 2016 formulas for
+// a = -3 (algorithm 4, 14 multiplies; doubling algorithm 6, 13), so the
+// identity entries of zero digits, Q = G, u1 = u2 and u1 G = -u2 Q need no
+// case of their own. Mixed additions with affine entries would save one
+// multiply of 14 but need a branch-free select for the identity and an
+// inversion per table entry; this design does not take them.
+//
+// A lane as a thread group (8 threads, 16 lanes a 128-thread block).
+//   K2: thread j sums the 16 entries of windows j, j + 8, ..., j + 56 of both
+//     combs (15 additions), and a shuffle tree of complete additions joins
+//     the eight partial sums (7 additions in 3 levels). A lane's chain is
+//     about 18 additions after the inverse.
+//   K1 and the table chain: a team. Each formula is three levels of
+//     independent multiplies (addition 6, 2, 6; doubling 6, 3, 4); thread k
+//     of the team computes product k of a level from operands the team's
+//     leader (thread 0) wrote to shared memory, and the leader does the
+//     additions between levels. A formula's chain is three multiplies.
+//
+// The inverse. s^-1 mod n as s^(n-2) by an addition chain: x^(2^k - 1) for
+// k = 2, 4, 8, 16, 32 (the ones of the top 128 bits of n - 2, which read
+// ffffffff 00000000 ffffffff ffffffff), then a sliding window of width 4
+// over the low 128 bits with the odd powers x, x^3, ..., x^15 (27 windows):
+// 255 squarings and 40 multiplies, 295 in all (INV_CHAIN).
+//   K2 runs it once a block: Montgomery's batch trick over the block's 16
+//     lanes on warp 0, a product tree up (15 multiplies in 4 levels), the
+//     chain at the root, the inverses down (2 a node, 30 in 4 levels): 340
+//     multiplies a block for a chain of 303, where 16 lane-by-lane chains
+//     would cost 16 x 295 issue slots of the warps that the point work
+//     needs at the headline's size. A dead lane and s = 0 put 1 into the
+//     tree; s = 0 gets w = 0, as 0^(n-2) is.
+//   K1's leader runs it for its lane: the ladder, not the inverse, sets K1's
+//     time.
+// The lane's leader hands u1 = e w and u2 = r w to its group through shared
+// memory.
+//
+// Field arithmetic. Elements are 8 native 32-bit words, Montgomery with
+// R = 2^256, every result fully reduced (the JAX package uses 13-bit limbs
+// and R = 2^260; only the verdict is observable). On the card the carry
+// chains are inline PTX (mad.lo.cc / madc.hi.cc / addc); mod p the
+// reduction is written for p's form: -p^-1 = 1 mod 2^32, so q = t0, and
+// (t + q p) / 2^32 = t / 2^32 + q 2^64 + q 2^160 + q (2^32 - 1) 2^192, seven
+// additions and no multiplier. Mod n is generic CIOS. Compiled for the CPU
+// (P256_KERNELS_ONLY, tests/cuda_emu) the same functions use 64-bit C++
+// arithmetic; the values are the same.
+//
+// Final check, projective: accept iff Z != 0 and X == r Z, or X == (r + n) Z
+// when r < p - n; the result is AND-ed with the host's valid_in (lanes with
+// valid_in false, or a key index out of range, skip the arithmetic).
+//
+// Bound. The kernels are bound by 32-bit integer multiply throughput, if by
+// anything: a multiply mod p has 64 32x32->64 word products (two IMAD issue
+// slots each), mod n 128 and 8 low products. Per live lane K2 runs 1,782
+// multiplies mod p (8 threads x 15 additions, 7 in the tree, 4 in the check)
+// and 3 mod n (s to Montgomery, u1, u2), and 340 mod n a block with a live
+// lane; each key table 18,549 mod p (2, 255 doublings, 64 x 17 additions).
+// K1 runs 5,256 mod p (2, 14 additions for Q's multiples, one addition and
+// 63 windows of 4 doublings and 2 additions, 4) and 298 mod n (1, 295, 2).
+// The least work known for the function, from which PERF.md's bound_ms is
+// counted, is in ops/p256_kernel.py beside these counts (KERNEL_*): Jacobian
+// formulas for a = -3 and the widest combs the L2 holds (least_lane_mod_p,
+// LEAST_*), with the combs' building left to the table kernel's own entry.
 //
 // Interface: plain C, raw pointers, a cudaStream_t; each launcher returns
 // cudaGetLastError(). Limb inputs are int64, canonical 13-bit limbs of
-// values below 2^256 (bits at or above 2^256 are ignored).
+// values below 2^256 (bits at or above 2^256 are ignored). Defining
+// P256_KERNELS_ONLY leaves out the launchers and the CUDA runtime, so that
+// the kernels compile for the CPU under stand-ins for the CUDA constructs
+// (tests/cuda_emu); such a build may define FMUL and NMUL to count the
+// multiplies mod p and mod n.
 
 #include <cstdint>
+#ifndef P256_KERNELS_ONLY
 #include <cuda_runtime.h>
+#endif
 
 typedef uint32_t u32;
 typedef uint64_t u64;
 
-struct Fe {
+struct __align__(16) Fe {
     u32 w[8];
 };
 
@@ -75,8 +138,8 @@ struct ModN {
     }
 };
 
-// R^2 mod p, R^2 mod n, R mod p (Montgomery one), R mod n, b*R mod p,
-// p - n, and the Fermat exponent n - 2; little-endian words.
+// R^2 mod p, R^2 mod n, R mod p and R mod n (Montgomery ones), b*R mod p,
+// p - n, n; little-endian words.
 __constant__ u32 R2P[8] = {0x00000003u, 0x00000000u, 0xFFFFFFFFu, 0xFFFFFFFBu,
                            0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFDu, 0x00000004u};
 __constant__ u32 R2N[8] = {0xBE79EEA2u, 0x83244C95u, 0x49BD6FA6u, 0x4699799Cu,
@@ -91,8 +154,18 @@ __constant__ u32 P_MINUS_N[8] = {0x039CDAAEu, 0x0C46353Du, 0x58E8617Bu, 0x431905
                                  0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
 __constant__ u32 N_WORDS[8] = {0xFC632551u, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
                                0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000000u, 0xFFFFFFFFu};
-__constant__ u32 N_MINUS_2[8] = {0xFC63254Fu, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
-                                 0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000000u, 0xFFFFFFFFu};
+
+// The inverse's chain after x^2 and the odd powers x^(2i+1) in slots 0-7:
+// {squarings, slot to multiply by, slot to store the result in or -1}.
+// Slots 8-11 hold x^(2^k - 1) for k = 4, 8, 16, 32 (slot 1, x^3, is k = 2).
+constexpr int INV_STEPS = 33;
+__constant__ signed char INV_CHAIN[INV_STEPS][3] = {
+    {2, 1, 8}, {4, 8, 9}, {8, 9, 10}, {16, 10, 11}, {64, 11, -1}, {32, 11, -1},
+    {4, 5, -1}, {2, 1, -1}, {5, 3, -1}, {6, 6, -1}, {4, 7, -1}, {4, 2, -1},
+    {5, 5, -1}, {5, 6, -1}, {5, 3, -1}, {7, 5, -1}, {2, 1, -1}, {6, 7, -1},
+    {2, 0, -1}, {8, 4, -1}, {3, 3, -1}, {5, 3, -1}, {4, 3, -1}, {5, 3, -1},
+    {5, 2, -1}, {3, 1, -1}, {8, 5, -1}, {4, 7, -1}, {5, 1, -1}, {5, 1, -1},
+    {6, 4, -1}, {4, 2, -1}, {6, 7, -1}};
 
 __device__ __forceinline__ Fe fe_const(const u32 c[8]) {
     Fe r;
@@ -108,44 +181,80 @@ __device__ __forceinline__ Fe fe_zero() {
     return r;
 }
 
+// ---------------------------------------------------------------------------
+// Carry chains: PTX on the card, 64-bit C++ elsewhere
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+#define P256_PTX2(name, op)                                                   \
+    __device__ __forceinline__ u32 name(u32 a, u32 b) {                       \
+        u32 r;                                                                \
+        asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));           \
+        return r;                                                             \
+    }
+#define P256_PTX3(name, op)                                                   \
+    __device__ __forceinline__ u32 name(u32 a, u32 b, u32 c) {                \
+        u32 r;                                                                \
+        asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+        return r;                                                             \
+    }
+P256_PTX2(add_cc, "add.cc.u32")
+P256_PTX2(addc_cc, "addc.cc.u32")
+P256_PTX2(addc, "addc.u32")
+P256_PTX2(sub_cc, "sub.cc.u32")
+P256_PTX2(subc_cc, "subc.cc.u32")
+P256_PTX2(subc, "subc.u32")
+P256_PTX3(madlo_cc, "mad.lo.cc.u32")
+P256_PTX3(madclo_cc, "madc.lo.cc.u32")
+P256_PTX3(madhi_cc, "mad.hi.cc.u32")
+P256_PTX3(madchi_cc, "madc.hi.cc.u32")
+
+// t[0..9] += a * bi (t[9] is 0 on entry).
+__device__ __forceinline__ void mul_row(u32 t[10], const Fe& a, u32 bi) {
+    t[0] = madlo_cc(a.w[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = madclo_cc(a.w[j], bi, t[j]);
+    t[8] = addc_cc(t[8], 0u);
+    t[9] = addc(0u, 0u);
+    t[1] = madhi_cc(a.w[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j + 1] = madchi_cc(a.w[j], bi, t[j + 1]);
+    t[9] = addc(t[9], 0u);
+}
+#endif
+
 // t (9 words, t < 2m) -> t mod m.
 template <class M>
 __device__ __forceinline__ Fe reduce9(const u32 t[9]) {
     u32 d[8];
-    u32 br = 0;
+    bool take;
+#ifdef __CUDACC__
+    d[0] = sub_cc(t[0], M::w(0));
 #pragma unroll
+    for (int j = 1; j < 8; ++j) d[j] = subc_cc(t[j], M::w(j));
+    take = subc(t[8], 0u) != 0xFFFFFFFFu;
+#else
+    u32 br = 0;
     for (int j = 0; j < 8; ++j) {
-        u64 x = (u64)t[j] - M::w(j) - br;
+        const u64 x = (u64)t[j] - M::w(j) - br;
         d[j] = (u32)x;
         br = (u32)(x >> 63);
     }
-    const bool take = (t[8] != 0u) || (br == 0u);
+    take = (t[8] != 0u) || (br == 0u);
+#endif
     Fe r;
 #pragma unroll
     for (int j = 0; j < 8; ++j) r.w[j] = take ? d[j] : t[j];
     return r;
 }
 
-// a < 2^256 < 2m -> a mod m.
-template <class M>
-__device__ __forceinline__ Fe reduce_once(const Fe& a) {
-    u32 t[9];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) t[j] = a.w[j];
-    t[8] = 0u;
-    return reduce9<M>(t);
-}
-
+#ifndef __CUDACC__
 // a * b * 2^-256 mod m for a, b < m (CIOS; t stays below 2m).
 template <class M>
-__device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
-    u32 t[10];
-#pragma unroll
-    for (int j = 0; j < 10; ++j) t[j] = 0u;
-#pragma unroll
+inline Fe cios(const Fe& a, const Fe& b) {
+    u32 t[10] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     for (int i = 0; i < 8; ++i) {
         u64 c = 0;
-#pragma unroll
         for (int j = 0; j < 8; ++j) {
             c = (u64)a.w[j] * b.w[i] + t[j] + (c >> 32);
             t[j] = (u32)c;
@@ -155,7 +264,6 @@ __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
         t[9] = (u32)(c >> 32);
         const u32 q = t[0] * M::minv;
         c = (u64)q * M::w(0) + t[0];
-#pragma unroll
         for (int j = 1; j < 8; ++j) {
             c = (u64)q * M::w(j) + t[j] + (c >> 32);
             t[j - 1] = (u32)c;
@@ -166,38 +274,122 @@ __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
     }
     return reduce9<M>(t);
 }
+#endif
 
+// a * b * 2^-256 mod p for a, b < p.
+__device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
+#ifdef __CUDACC__
+    u32 t[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) t[j] = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        mul_row(t, a, b.w[i]);
+        // q = t0; (t + q p) / 2^32 = t / 2^32 + q 2^64 + q 2^160
+        // + q (2^32 - 1) 2^192, the last as the words (lo, hi) at 6 and 7
+        const u32 q = t[0];
+        const u32 lo = 0u - q, hi = q - (q != 0u ? 1u : 0u);
+        t[0] = t[1];
+        t[1] = t[2];
+        t[2] = add_cc(t[3], q);
+        t[3] = addc_cc(t[4], 0u);
+        t[4] = addc_cc(t[5], 0u);
+        t[5] = addc_cc(t[6], q);
+        t[6] = addc_cc(t[7], lo);
+        t[7] = addc_cc(t[8], hi);
+        t[8] = addc(t[9], 0u);
+    }
+    return reduce9<ModP>(t);
+#else
+    return cios<ModP>(a, b);
+#endif
+}
+
+// a * b * 2^-256 mod n for a, b < n (CIOS).
+__device__ __forceinline__ Fe mont_mul_n(const Fe& a, const Fe& b) {
+#ifdef __CUDACC__
+    u32 t[10];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) t[j] = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        mul_row(t, a, b.w[i]);
+        const u32 q = t[0] * ModN::minv;
+        t[0] = madlo_cc(q, ModN::w(0), t[0]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j) t[j] = madclo_cc(q, ModN::w(j), t[j]);
+        t[8] = addc_cc(t[8], 0u);
+        t[9] = addc(t[9], 0u);
+        t[1] = madhi_cc(q, ModN::w(0), t[1]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j) t[j + 1] = madchi_cc(q, ModN::w(j), t[j + 1]);
+        t[9] = addc(t[9], 0u);
+#pragma unroll
+        for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
+    }
+    return reduce9<ModN>(t);
+#else
+    return cios<ModN>(a, b);
+#endif
+}
+
+// a + b mod m, a - b mod m, for a, b < m.
 template <class M>
 __device__ __forceinline__ Fe add_mod(const Fe& a, const Fe& b) {
     u32 t[9];
-    u64 c = 0;
+#ifdef __CUDACC__
+    t[0] = add_cc(a.w[0], b.w[0]);
 #pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = addc_cc(a.w[j], b.w[j]);
+    t[8] = addc(0u, 0u);
+#else
+    u64 c = 0;
     for (int j = 0; j < 8; ++j) {
         c = (u64)a.w[j] + b.w[j] + (c >> 32);
         t[j] = (u32)c;
     }
     t[8] = (u32)(c >> 32);
+#endif
     return reduce9<M>(t);
 }
 
 template <class M>
 __device__ __forceinline__ Fe sub_mod(const Fe& a, const Fe& b) {
     Fe d;
-    u32 br = 0;
+#ifdef __CUDACC__
+    d.w[0] = sub_cc(a.w[0], b.w[0]);
 #pragma unroll
+    for (int j = 1; j < 8; ++j) d.w[j] = subc_cc(a.w[j], b.w[j]);
+    const u32 mask = subc(0u, 0u);  // all ones on a borrow: add m back
+    d.w[0] = add_cc(d.w[0], M::w(0) & mask);
+#pragma unroll
+    for (int j = 1; j < 7; ++j) d.w[j] = addc_cc(d.w[j], M::w(j) & mask);
+    d.w[7] = addc(d.w[7], M::w(7) & mask);
+#else
+    u32 br = 0;
     for (int j = 0; j < 8; ++j) {
-        u64 x = (u64)a.w[j] - b.w[j] - br;
+        const u64 x = (u64)a.w[j] - b.w[j] - br;
         d.w[j] = (u32)x;
         br = (u32)(x >> 63);
     }
-    const u32 mask = 0u - br;  // add m back on a borrow
+    const u32 mask = 0u - br;
     u64 c = 0;
-#pragma unroll
     for (int j = 0; j < 8; ++j) {
         c = (u64)d.w[j] + (M::w(j) & mask) + (c >> 32);
         d.w[j] = (u32)c;
     }
+#endif
     return d;
+}
+
+// a < 2^256 < 2m -> a mod m.
+template <class M>
+__device__ __forceinline__ Fe reduce_once(const Fe& a) {
+    u32 t[9];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = a.w[j];
+    t[8] = 0u;
+    return reduce9<M>(t);
 }
 
 __device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
@@ -219,40 +411,82 @@ __device__ __forceinline__ bool fe_lt(const Fe& a, const u32 b[8]) {
     u32 br = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-        u64 x = (u64)a.w[j] - b[j] - br;
+        const u64 x = (u64)a.w[j] - b[j] - br;
         br = (u32)(x >> 63);
     }
     return br != 0u;
 }
 
-#define FMUL mont_mul<ModP>
+#ifndef FMUL
+#define FMUL mont_mul
+#endif
+#ifndef NMUL
+#define NMUL mont_mul_n
+#endif
 #define FADD add_mod<ModP>
 #define FSUB sub_mod<ModP>
 
-// Complete addition, RCB 2016 algorithm 4 (a = -3). out may alias p or q.
-__device__ __noinline__ void point_add(Pt& out, const Pt& p, const Pt& q) {
-    const Fe x1 = p.x, y1 = p.y, z1 = p.z;
-    const Fe x2 = q.x, y2 = q.y, z2 = q.z;
+// ---------------------------------------------------------------------------
+// Points
+// ---------------------------------------------------------------------------
+
+constexpr int TABLE_WORDS = 64 * 16 * 24;  // a comb: [window][digit][x, y, z][8]
+
+__device__ __forceinline__ Pt pt_identity() {
+    Pt r;
+    r.x = fe_zero();
+    r.y = fe_const(ONEP);
+    r.z = fe_zero();
+    return r;
+}
+
+#ifdef __CUDACC__
+__device__ __forceinline__ void ld_fe(Fe& f, const uint4* v) {
+    const uint4 a = __ldg(v), b = __ldg(v + 1);
+    f.w[0] = a.x, f.w[1] = a.y, f.w[2] = a.z, f.w[3] = a.w;
+    f.w[4] = b.x, f.w[5] = b.y, f.w[6] = b.z, f.w[7] = b.w;
+}
+#endif
+
+__device__ __forceinline__ Pt load_pt(const u32* __restrict__ p) {
+    Pt r;
+#ifdef __CUDACC__
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+    ld_fe(r.x, v);
+    ld_fe(r.y, v + 2);
+    ld_fe(r.z, v + 4);
+#else
+    for (int j = 0; j < 8; ++j) {
+        r.x.w[j] = p[j];
+        r.y.w[j] = p[8 + j];
+        r.z.w[j] = p[16 + j];
+    }
+#endif
+    return r;
+}
+
+__device__ __forceinline__ void store_pt(u32* p, const Pt& a) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        p[j] = a.x.w[j];
+        p[8 + j] = a.y.w[j];
+        p[16 + j] = a.z.w[j];
+    }
+}
+
+// Complete addition, RCB 2016 algorithm 4 (a = -3), in registers.
+__device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q) {
     const Fe bb = fe_const(BMONT);
     Fe t0, t1, t2, t3, t4, t5, x3, y3, z3;
-    t0 = FMUL(x1, x2);
-    t1 = FMUL(y1, y2);
-    t2 = FMUL(z1, z2);
-    t3 = FADD(x1, y1);
-    t4 = FADD(x2, y2);
-    t3 = FMUL(t3, t4);
-    t4 = FADD(t0, t1);
-    t3 = FSUB(t3, t4);
-    t4 = FADD(y1, z1);
-    t5 = FADD(y2, z2);
-    t4 = FMUL(t4, t5);
-    t5 = FADD(t1, t2);
-    t4 = FSUB(t4, t5);
-    x3 = FADD(x1, z1);
-    y3 = FADD(x2, z2);
-    x3 = FMUL(x3, y3);
-    y3 = FADD(t0, t2);
-    y3 = FSUB(x3, y3);
+    t0 = FMUL(p.x, q.x);
+    t1 = FMUL(p.y, q.y);
+    t2 = FMUL(p.z, q.z);
+    t3 = FMUL(FADD(p.x, p.y), FADD(q.x, q.y));
+    t3 = FSUB(t3, FADD(t0, t1));
+    t4 = FMUL(FADD(p.y, p.z), FADD(q.y, q.z));
+    t4 = FSUB(t4, FADD(t1, t2));
+    x3 = FMUL(FADD(p.x, p.z), FADD(q.x, q.z));
+    y3 = FSUB(x3, FADD(t0, t2));
     z3 = FMUL(bb, t2);
     x3 = FSUB(y3, z3);
     z3 = FADD(x3, x3);
@@ -271,120 +505,179 @@ __device__ __noinline__ void point_add(Pt& out, const Pt& p, const Pt& q) {
     t0 = FSUB(t0, t2);
     t1 = FMUL(t4, y3);
     t2 = FMUL(t0, y3);
-    y3 = FMUL(x3, z3);
-    y3 = FADD(y3, t2);
-    x3 = FMUL(t3, x3);
-    x3 = FSUB(x3, t1);
-    z3 = FMUL(t4, z3);
+    t5 = FMUL(x3, z3);
+    Pt r;
+    r.y = FADD(t5, t2);
+    t5 = FMUL(t3, x3);
+    r.x = FSUB(t5, t1);
+    t5 = FMUL(t4, z3);
     t1 = FMUL(t3, t0);
-    z3 = FADD(z3, t1);
-    out.x = x3;
-    out.y = y3;
-    out.z = z3;
+    r.z = FADD(t5, t1);
+    return r;
 }
 
-// Complete doubling, RCB 2016 algorithm 6 (a = -3). out may alias p.
-__device__ __noinline__ void point_double(Pt& out, const Pt& p) {
-    const Fe x = p.x, y = p.y, z = p.z;
-    const Fe bb = fe_const(BMONT);
-    Fe t0, t1, t2, t3, x3, y3, z3;
-    t0 = FMUL(x, x);
-    t1 = FMUL(y, y);
-    t2 = FMUL(z, z);
-    t3 = FMUL(x, y);
-    t3 = FADD(t3, t3);
-    z3 = FMUL(x, z);
-    z3 = FADD(z3, z3);
-    y3 = FMUL(bb, t2);
-    y3 = FSUB(y3, z3);
-    x3 = FADD(y3, y3);
-    y3 = FADD(x3, y3);
-    x3 = FSUB(t1, y3);
-    y3 = FADD(t1, y3);
-    y3 = FMUL(x3, y3);
-    x3 = FMUL(x3, t3);
-    t3 = FADD(t2, t2);
-    t2 = FADD(t2, t3);
-    z3 = FMUL(bb, z3);
-    z3 = FSUB(z3, t2);
-    z3 = FSUB(z3, t0);
-    t3 = FADD(z3, z3);
-    z3 = FADD(z3, t3);
-    t3 = FADD(t0, t0);
-    t0 = FADD(t3, t0);
-    t0 = FSUB(t0, t2);
-    t0 = FMUL(t0, z3);
-    y3 = FADD(y3, t0);
-    t0 = FMUL(y, z);
-    t0 = FADD(t0, t0);
-    z3 = FMUL(t0, z3);
-    x3 = FSUB(x3, z3);
-    z3 = FMUL(t0, t1);
-    z3 = FADD(z3, z3);
-    z3 = FADD(z3, z3);
-    out.x = x3;
-    out.y = y3;
-    out.z = z3;
+// ---------------------------------------------------------------------------
+// A team: the independent multiplies of a formula's level spread over the
+// threads of a lane (or a warp), the additions on the leader (thread 0)
+// ---------------------------------------------------------------------------
+
+struct Team {
+    Fe op[6][2];
+    Fe pr[6];
+};
+
+// Products 0..n-1 of the operand pairs the leader wrote; thread k computes
+// product k. Every thread of the team calls it.
+__device__ __forceinline__ void team_mul(Team& tm, int k, int n, u32 mask) {
+    __syncwarp(mask);
+    if (k < n) tm.pr[k] = FMUL(tm.op[k][0], tm.op[k][1]);
+    __syncwarp(mask);
 }
 
-__device__ __forceinline__ u32 nibble(const u32 words[8], int i) {
-    return (words[i >> 3] >> (4 * (i & 7))) & 15u;
+__device__ __forceinline__ void put(Team& tm, int i, const Fe& a, const Fe& b) {
+    tm.op[i][0] = a;
+    tm.op[i][1] = b;
 }
 
-// x^(n-2) mod n in the Montgomery domain (4-bit fixed window, MSB first).
-__device__ __noinline__ Fe inv_mod_n(const Fe& x) {
-    Fe tab[16];
-    tab[0] = fe_const(ONEN);
-    tab[1] = x;
-#pragma unroll 1
-    for (int k = 2; k < 16; ++k) tab[k] = mont_mul<ModN>(tab[k - 1], x);
-    Fe acc = tab[nibble(N_MINUS_2, 63)];
-#pragma unroll 1
-    for (int i = 62; i >= 0; --i) {
-#pragma unroll 1
-        for (int k = 0; k < 4; ++k) acc = mont_mul<ModN>(acc, acc);
-        acc = mont_mul<ModN>(acc, tab[nibble(N_MINUS_2, i)]);
+// acc = acc + q (algorithm 4 in levels of 6, 2 and 6 multiplies); acc and q
+// are the leader's.
+__device__ __forceinline__ void team_add(Team& tm, int k, u32 mask, Pt& acc, const Pt& q) {
+    Fe t0, t1, t2, t3, t4, x3, y3, z3;
+    if (k == 0) {
+        put(tm, 0, acc.x, q.x);
+        put(tm, 1, acc.y, q.y);
+        put(tm, 2, acc.z, q.z);
+        put(tm, 3, FADD(acc.x, acc.y), FADD(q.x, q.y));
+        put(tm, 4, FADD(acc.y, acc.z), FADD(q.y, q.z));
+        put(tm, 5, FADD(acc.x, acc.z), FADD(q.x, q.z));
     }
-    return acc;
+    team_mul(tm, k, 6, mask);
+    if (k == 0) {
+        const Fe bb = fe_const(BMONT);
+        t0 = tm.pr[0];
+        t1 = tm.pr[1];
+        t2 = tm.pr[2];
+        t3 = FSUB(tm.pr[3], FADD(t0, t1));
+        t4 = FSUB(tm.pr[4], FADD(t1, t2));
+        y3 = FSUB(tm.pr[5], FADD(t0, t2));
+        put(tm, 0, bb, t2);
+        put(tm, 1, bb, y3);
+    }
+    team_mul(tm, k, 2, mask);
+    if (k == 0) {
+        z3 = tm.pr[0];
+        x3 = FSUB(y3, z3);
+        z3 = FADD(x3, x3);
+        x3 = FADD(x3, z3);
+        z3 = FSUB(t1, x3);
+        x3 = FADD(t1, x3);
+        y3 = tm.pr[1];
+        t1 = FADD(t2, t2);
+        t2 = FADD(t1, t2);
+        y3 = FSUB(y3, t2);
+        y3 = FSUB(y3, t0);
+        t1 = FADD(y3, y3);
+        y3 = FADD(t1, y3);
+        t1 = FADD(t0, t0);
+        t0 = FADD(t1, t0);
+        t0 = FSUB(t0, t2);
+        put(tm, 0, t4, y3);
+        put(tm, 1, t0, y3);
+        put(tm, 2, x3, z3);
+        put(tm, 3, t3, x3);
+        put(tm, 4, t4, z3);
+        put(tm, 5, t3, t0);
+    }
+    team_mul(tm, k, 6, mask);
+    if (k == 0) {
+        acc.y = FADD(tm.pr[2], tm.pr[1]);
+        acc.x = FSUB(tm.pr[3], tm.pr[0]);
+        acc.z = FADD(tm.pr[4], tm.pr[5]);
+    }
 }
 
-// The verdict of one lane, before the valid_in mask. e, r, s, qx, qy are
-// integers below 2^256; g is the 16-entry table of d*G (shared memory).
-__device__ __noinline__ bool verify_lane(const Fe& e, const Fe& r, const Fe& s,
-                                         const Fe& qx, const Fe& qy, const Pt* g) {
-    // --- scalars mod n: w = s^-1 (Montgomery), u1 = e*w, u2 = r*w ---
-    const Fe s_m = mont_mul<ModN>(reduce_once<ModN>(s), fe_const(R2N));
-    const Fe w_m = inv_mod_n(s_m);
-    Fe u1 = mont_mul<ModN>(reduce_once<ModN>(e), w_m);
-    Fe u2 = mont_mul<ModN>(reduce_once<ModN>(r), w_m);
-
-    // --- per-lane table of 0..15 * Q ---
-    Pt q;
-    q.x = FMUL(reduce_once<ModP>(qx), fe_const(R2P));
-    q.y = FMUL(reduce_once<ModP>(qy), fe_const(R2P));
-    q.z = fe_const(ONEP);
-    Pt ident;
-    ident.x = fe_zero();
-    ident.y = fe_const(ONEP);
-    ident.z = fe_zero();
-    Pt qt[16];
-    qt[0] = ident;
-    qt[1] = q;
-#pragma unroll 1
-    for (int k = 2; k < 16; ++k) point_add(qt[k], qt[k - 1], q);
-
-    // --- Horner: R = 16R + d2*Q + d1*G, MSB window first ---
-    Pt acc = ident;
-#pragma unroll 1
-    for (int i = 63; i >= 0; --i) {
-#pragma unroll 1
-        for (int k = 0; k < 4; ++k) point_double(acc, acc);
-        point_add(acc, acc, qt[nibble(u2.w, i)]);
-        const Pt gd = g[nibble(u1.w, i)];
-        point_add(acc, acc, gd);
+// acc = 2 acc (algorithm 6 in levels of 6, 3 and 4 multiplies).
+__device__ __forceinline__ void team_double(Team& tm, int k, u32 mask, Pt& acc) {
+    Fe t0, t1, t2, t3, yz2, x3, y3, z3, w;
+    if (k == 0) {
+        put(tm, 0, acc.x, acc.x);
+        put(tm, 1, acc.y, acc.y);
+        put(tm, 2, acc.z, acc.z);
+        put(tm, 3, acc.x, acc.y);
+        put(tm, 4, acc.x, acc.z);
+        put(tm, 5, acc.y, acc.z);
     }
+    team_mul(tm, k, 6, mask);
+    if (k == 0) {
+        const Fe bb = fe_const(BMONT);
+        t0 = tm.pr[0];
+        t1 = tm.pr[1];
+        t2 = tm.pr[2];
+        t3 = FADD(tm.pr[3], tm.pr[3]);
+        z3 = FADD(tm.pr[4], tm.pr[4]);
+        yz2 = FADD(tm.pr[5], tm.pr[5]);
+        put(tm, 0, bb, t2);
+        put(tm, 1, bb, z3);
+        put(tm, 2, yz2, t1);
+    }
+    team_mul(tm, k, 3, mask);
+    if (k == 0) {
+        y3 = FSUB(tm.pr[0], z3);
+        x3 = FADD(y3, y3);
+        y3 = FADD(x3, y3);
+        x3 = FSUB(t1, y3);
+        y3 = FADD(t1, y3);
+        w = tm.pr[2];
+        t2 = FADD(t2, FADD(t2, t2));
+        z3 = FSUB(FSUB(tm.pr[1], t2), t0);
+        z3 = FADD(z3, FADD(z3, z3));
+        t0 = FSUB(FADD(t0, FADD(t0, t0)), t2);
+        put(tm, 0, x3, y3);
+        put(tm, 1, x3, t3);
+        put(tm, 2, t0, z3);
+        put(tm, 3, yz2, z3);
+    }
+    team_mul(tm, k, 4, mask);
+    if (k == 0) {
+        acc.y = FADD(tm.pr[0], tm.pr[2]);
+        acc.x = FSUB(tm.pr[1], tm.pr[3]);
+        w = FADD(w, w);
+        acc.z = FADD(w, w);
+    }
+}
 
-    // --- projective final check: X == r*Z, or X == (r+n)*Z if r < p-n ---
+// ---------------------------------------------------------------------------
+// Scalars and the final check (a lane's leader)
+// ---------------------------------------------------------------------------
+
+// x^(n-2) mod n in the Montgomery domain; slots: 12 Fe of shared memory.
+__device__ __forceinline__ Fe inv_mod_n(const Fe& x, Fe* slots) {
+    const Fe x2 = NMUL(x, x);
+    slots[0] = x;
+#pragma unroll 1
+    for (int i = 1; i < 8; ++i) slots[i] = NMUL(slots[i - 1], x2);
+    Fe t = slots[1];
+#pragma unroll 1
+    for (int s = 0; s < INV_STEPS; ++s) {
+#pragma unroll 1
+        for (int q = 0; q < INV_CHAIN[s][0]; ++q) t = NMUL(t, t);
+        t = NMUL(t, slots[INV_CHAIN[s][1]]);
+        if (INV_CHAIN[s][2] >= 0) slots[INV_CHAIN[s][2]] = t;
+    }
+    return t;
+}
+
+// u1 = e / s, u2 = r / s mod n (plain integers; e, r, s below 2^256).
+__device__ __forceinline__ void lane_scalars(const Fe& e, const Fe& r, const Fe& s, Fe* slots,
+                                             Fe& u1, Fe& u2) {
+    const Fe s_m = NMUL(reduce_once<ModN>(s), fe_const(R2N));
+    const Fe w_m = inv_mod_n(s_m, slots);
+    u1 = NMUL(reduce_once<ModN>(e), w_m);
+    u2 = NMUL(reduce_once<ModN>(r), w_m);
+}
+
+// X == r Z, or X == (r + n) Z if r < p - n; and Z != 0.
+__device__ __forceinline__ bool final_check(const Pt& acc, const Fe& r) {
     const Fe rz = FMUL(FMUL(reduce_once<ModP>(r), fe_const(R2P)), acc.z);
     Fe rpn;
     u64 c = 0;
@@ -397,6 +690,10 @@ __device__ __noinline__ bool verify_lane(const Fe& e, const Fe& r, const Fe& s,
     const bool rpn_in_range = fe_lt(r, P_MINUS_N);
     const bool matches = fe_eq(acc.x, rz) || (rpn_in_range && fe_eq(acc.x, rpnz));
     return matches && !fe_is_zero(acc.z);
+}
+
+__device__ __forceinline__ u32 nibble(const Fe& u, int i) {
+    return (u.w[i >> 3] >> (4 * (i & 7))) & 15u;
 }
 
 // 32 big-endian bytes -> words.
@@ -425,83 +722,261 @@ __device__ __forceinline__ Fe fe_from_limbs(const long long* p, long long stride
     return f;
 }
 
-__device__ __forceinline__ void stage_g_table(Pt* g_s, const u32* g_table) {
-    u32* dst = reinterpret_cast<u32*>(g_s);
-    for (int i = threadIdx.x; i < 16 * 24; i += blockDim.x) dst[i] = g_table[i];
-    __syncthreads();
+// (x, y) limbs -> projective Montgomery (x R : y R : R).
+__device__ __forceinline__ Pt key_point(const long long* x, const long long* y,
+                                        long long stride) {
+    Pt q;
+    q.x = FMUL(reduce_once<ModP>(fe_from_limbs(x, stride)), fe_const(R2P));
+    q.y = FMUL(reduce_once<ModP>(fe_from_limbs(y, stride)), fe_const(R2P));
+    q.z = fe_const(ONEP);
+    return q;
 }
 
-constexpr int THREADS = 128;
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
 
-// K2: e, r, s are (B, 32) big-endian bytes; kx, ky are (20, K) limbs of the
-// distinct keys; key_idx (B,) picks a lane's key; a lane whose index is out
-// of range is rejected.
+constexpr int GROUP = 8;                // threads a lane
+constexpr int THREADS = 128;            // K1, K2: 16 lanes a block
+constexpr int LANES = THREADS / GROUP;
+constexpr int TABLE_THREADS = 256;      // p256_key_tables: a block a key
+constexpr int FILL_DIGITS = 11;         // the digits not a power of two
+
+__constant__ int FILL[FILL_DIGITS] = {3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15};
+
+// The comb of each key column: kx, ky (20, K) limbs -> tables (K, 64, 16,
+// 3, 8) words.
+extern "C" __global__ void __launch_bounds__(TABLE_THREADS)
+p256_key_tables(const long long* __restrict__ kx, const long long* __restrict__ ky,
+                u32* __restrict__ tables, int K) {
+    __shared__ Team tm;
+    u32* tab = tables + (long long)blockIdx.x * TABLE_WORDS;
+    if (threadIdx.x < 32) {
+        // the chain 2^i Q, i = 0..255: digit 2^(i % 4) of window i / 4
+        const int k = threadIdx.x;
+        Pt p;
+        if (k == 0) {
+            p = key_point(kx + blockIdx.x, ky + blockIdx.x, K);
+            store_pt(tab + 24, p);
+        }
+#pragma unroll 1
+        for (int i = 1; i < 256; ++i) {
+            team_double(tm, k, 0xFFFFFFFFu, p);
+            if (k == 0) store_pt(tab + ((i >> 2) * 16 + (1 << (i & 3))) * 24, p);
+        }
+    }
+    __syncthreads();
+    // every window's identity and its eleven other digits, a warp a digit
+    const Pt ident = pt_identity();
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 64 * (FILL_DIGITS + 1); i += TABLE_THREADS) {
+        const int w = i & 63, which = i >> 6;
+        u32* row = tab + w * 16 * 24;
+        if (which == FILL_DIGITS) {
+            store_pt(row, ident);
+            continue;
+        }
+        const int d = FILL[which];
+        const int low = d & -d;
+        Pt acc = load_pt(row + low * 24);
+#pragma unroll 1
+        for (int bit = low << 1; bit < 16; bit <<= 1)
+            if (d & bit) acc = pt_add(acc, load_pt(row + bit * 24));
+        store_pt(row + d * 24, acc);
+    }
+}
+
+// K2's shared memory: the block's product tree of its lanes' s (leaves at
+// LANES + g) and their inverses, the chain's slots, each lane's u1 and u2.
+struct Block2 {
+    Fe tree[2 * LANES];
+    Fe inv[2 * LANES];
+    Fe slots[12];
+    Fe u1[LANES], u2[LANES];
+};
+
+// K2: e, r, s are (B, 32) big-endian bytes; tables (K, 64, 16, 3, 8) the
+// combs of the key columns (p256_key_tables); key_idx (B,) picks a lane's
+// column; a lane whose index is out of range is rejected. g_comb is G's
+// comb.
 extern "C" __global__ void __launch_bounds__(THREADS)
 p256_verify_bytes(const uint8_t* __restrict__ e, const uint8_t* __restrict__ r,
-                  const uint8_t* __restrict__ s, const long long* __restrict__ kx,
-                  const long long* __restrict__ ky, const int* __restrict__ key_idx,
-                  const uint8_t* __restrict__ valid_in, const u32* __restrict__ g_table,
-                  uint8_t* __restrict__ out, int B, int K) {
-    __shared__ Pt g_s[16];
-    stage_g_table(g_s, g_table);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    const int k = key_idx[lane];
-    if (!valid_in[lane] || k < 0 || k >= K) {
-        out[lane] = 0;
+                  const uint8_t* __restrict__ s, const u32* __restrict__ tables,
+                  const int* __restrict__ key_idx, const uint8_t* __restrict__ valid_in,
+                  const u32* __restrict__ g_comb, uint8_t* __restrict__ out, int B, int K) {
+    __shared__ Block2 sb;
+    const int g = threadIdx.x / GROUP, j = threadIdx.x % GROUP;
+    const int lane = blockIdx.x * LANES + g;
+    int kc = -1;
+    bool live = false;
+    if (lane < B) {
+        kc = key_idx[lane];
+        live = valid_in[lane] && kc >= 0 && kc < K;
+    }
+    // s to Montgomery; a dead lane or s = 0 puts 1 into the tree
+    Fe s_m = fe_zero();
+    if (j == 0) {
+        if (live) s_m = NMUL(reduce_once<ModN>(fe_from_bytes(s + 32 * (long long)lane)),
+                             fe_const(R2N));
+        sb.tree[LANES + g] = fe_is_zero(s_m) ? fe_const(ONEN) : s_m;
+    }
+    if (!__syncthreads_or(live)) {
+        if (j == 0 && lane < B) out[lane] = 0;
         return;
     }
-    const Fe ew = fe_from_bytes(e + 32 * (long long)lane);
-    const Fe rw = fe_from_bytes(r + 32 * (long long)lane);
-    const Fe sw = fe_from_bytes(s + 32 * (long long)lane);
-    const Fe qx = fe_from_limbs(kx + k, K);
-    const Fe qy = fe_from_limbs(ky + k, K);
-    out[lane] = verify_lane(ew, rw, sw, qx, qy, g_s) ? 1 : 0;
+    // Montgomery's batch inversion over the block's lanes, on warp 0: the
+    // product tree up, one inverse (the chain), the inverses down
+    if (threadIdx.x < 32) {
+        const int t = threadIdx.x;
+#pragma unroll 1
+        for (int lo = LANES / 2; lo >= 1; lo >>= 1) {
+            if (t >= lo && t < 2 * lo) sb.tree[t] = NMUL(sb.tree[2 * t], sb.tree[2 * t + 1]);
+            __syncwarp(0xFFFFFFFFu);
+        }
+        if (t == 0) sb.inv[1] = inv_mod_n(sb.tree[1], sb.slots);
+        __syncwarp(0xFFFFFFFFu);
+#pragma unroll 1
+        for (int lo = 2; lo < 2 * LANES; lo <<= 1) {
+            if (t >= lo && t < 2 * lo) sb.inv[t] = NMUL(sb.inv[t >> 1], sb.tree[t ^ 1]);
+            __syncwarp(0xFFFFFFFFu);
+        }
+    }
+    __syncthreads();
+    if (!live) {
+        if (j == 0 && lane < B) out[lane] = 0;
+        return;
+    }
+    const u32 mask = 0xFFu << (threadIdx.x & 24);
+    if (j == 0) {
+        const Fe w = fe_is_zero(s_m) ? fe_zero() : sb.inv[LANES + g];  // 0^(n-2) = 0
+        sb.u1[g] = NMUL(reduce_once<ModN>(fe_from_bytes(e + 32 * (long long)lane)), w);
+        sb.u2[g] = NMUL(reduce_once<ModN>(fe_from_bytes(r + 32 * (long long)lane)), w);
+    }
+    __syncwarp(mask);
+    // thread j: windows j, j + 8, ..., j + 56 of u1 G and u2 Q, in turns.
+    // One call site of pt_add keeps the kernel at 128 registers with no
+    // spill (two sites spill 16 bytes at 128, and more registers cost a
+    // block an SM: 3.1 against 2.6 ms at 32,768 lanes).
+    const Fe& u1 = sb.u1[g];
+    const Fe& u2 = sb.u2[g];
+    const u32* qt = tables + (long long)kc * TABLE_WORDS;
+    const int sh = 4 * j;
+    Pt acc = load_pt(g_comb + (j * 16 + ((u1.w[0] >> sh) & 15u)) * 24);
+#pragma unroll 1
+    for (int i = 1; i < 16; ++i) {
+        const bool q = i & 1;
+        const int w = j + 8 * (i >> 1);
+        const u32 word = q ? u2.w[i >> 1] : u1.w[i >> 1];
+        acc = pt_add(acc, load_pt((q ? qt : g_comb) + (w * 16 + ((word >> sh) & 15u)) * 24));
+    }
+    // the group's partial sums by a shuffle tree
+#pragma unroll 1
+    for (int d = GROUP / 2; d >= 1; d >>= 1) {
+        Pt other;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            other.x.w[i] = __shfl_down_sync(mask, acc.x.w[i], d, GROUP);
+            other.y.w[i] = __shfl_down_sync(mask, acc.y.w[i], d, GROUP);
+            other.z.w[i] = __shfl_down_sync(mask, acc.z.w[i], d, GROUP);
+        }
+        if (j < d) acc = pt_add(acc, other);
+    }
+    if (j == 0) out[lane] = final_check(acc, fe_from_bytes(r + 32 * (long long)lane)) ? 1 : 0;
 }
+
+struct Lane1 {
+    Team tm;
+    Pt qt[16];
+    Fe slots[12];
+    Fe u1, u2;
+};
 
 // K1: e, r, s, qx, qy are (20, B) limbs.
 extern "C" __global__ void __launch_bounds__(THREADS)
 p256_verify_limbs(const long long* __restrict__ e, const long long* __restrict__ r,
                   const long long* __restrict__ s, const long long* __restrict__ qx,
                   const long long* __restrict__ qy, const uint8_t* __restrict__ valid_in,
-                  const u32* __restrict__ g_table, uint8_t* __restrict__ out, int B) {
-    __shared__ Pt g_s[16];
-    stage_g_table(g_s, g_table);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                  const u32* __restrict__ g_comb, uint8_t* __restrict__ out, int B) {
+    __shared__ Lane1 lanes[LANES];
+    const int g = threadIdx.x / GROUP, k = threadIdx.x % GROUP;
+    const int lane = blockIdx.x * LANES + g;
     if (lane >= B) return;
     if (!valid_in[lane]) {
-        out[lane] = 0;
+        if (k == 0) out[lane] = 0;
         return;
     }
-    const Fe ew = fe_from_limbs(e + lane, B);
-    const Fe rw = fe_from_limbs(r + lane, B);
-    const Fe sw = fe_from_limbs(s + lane, B);
-    const Fe xw = fe_from_limbs(qx + lane, B);
-    const Fe yw = fe_from_limbs(qy + lane, B);
-    out[lane] = verify_lane(ew, rw, sw, xw, yw, g_s) ? 1 : 0;
+    const u32 mask = 0xFFu << (threadIdx.x & 24);
+    Lane1& L = lanes[g];
+    Pt q, acc;
+    if (k == 0) {
+        lane_scalars(fe_from_limbs(e + lane, B), fe_from_limbs(r + lane, B),
+                     fe_from_limbs(s + lane, B), L.slots, L.u1, L.u2);
+        q = key_point(qx + lane, qy + lane, B);
+        acc = q;
+        L.qt[0] = pt_identity();
+        L.qt[1] = q;
+    }
+    // d Q for d = 2..15
+#pragma unroll 1
+    for (int d = 2; d < 16; ++d) {
+        team_add(L.tm, k, mask, acc, q);
+        if (k == 0) L.qt[d] = acc;
+    }
+    // Horner, MSB window first: R = 16 R + d2 Q + d1 G (G from comb window 0)
+    if (k == 0) acc = L.qt[nibble(L.u2, 63)];
+    Pt gd;
+    if (k == 0) gd = load_pt(g_comb + nibble(L.u1, 63) * 24);
+    team_add(L.tm, k, mask, acc, gd);
+#pragma unroll 1
+    for (int i = 62; i >= 0; --i) {
+#pragma unroll 1
+        for (int n = 0; n < 4; ++n) team_double(L.tm, k, mask, acc);
+        if (k == 0) q = L.qt[nibble(L.u2, i)];
+        team_add(L.tm, k, mask, acc, q);
+        if (k == 0) q = load_pt(g_comb + nibble(L.u1, i) * 24);
+        team_add(L.tm, k, mask, acc, q);
+    }
+    if (k == 0) out[lane] = final_check(acc, fe_from_limbs(r + lane, B)) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+#ifndef P256_KERNELS_ONLY
+
+extern "C" int p256_key_tables_launch(const void* kx, const void* ky, void* tables, int K,
+                                      void* stream) {
+    if (K > 0) {
+        p256_key_tables<<<K, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
+            (const long long*)kx, (const long long*)ky, (u32*)tables, K);
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int p256_verify_bytes_launch(const void* e, const void* r, const void* s,
-                                        const void* kx, const void* ky, const void* key_idx,
-                                        const void* valid_in, const void* g_table, void* out,
+                                        const void* tables, const void* key_idx,
+                                        const void* valid_in, const void* g_comb, void* out,
                                         int B, int K, void* stream) {
     if (B > 0) {
-        p256_verify_bytes<<<(B + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)e, (const uint8_t*)r, (const uint8_t*)s, (const long long*)kx,
-            (const long long*)ky, (const int*)key_idx, (const uint8_t*)valid_in,
-            (const u32*)g_table, (uint8_t*)out, B, K);
+        p256_verify_bytes<<<(B + LANES - 1) / LANES, THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)e, (const uint8_t*)r, (const uint8_t*)s, (const u32*)tables,
+            (const int*)key_idx, (const uint8_t*)valid_in, (const u32*)g_comb, (uint8_t*)out,
+            B, K);
     }
     return (int)cudaGetLastError();
 }
 
 extern "C" int p256_verify_limbs_launch(const void* e, const void* r, const void* s,
                                         const void* qx, const void* qy, const void* valid_in,
-                                        const void* g_table, void* out, int B, void* stream) {
+                                        const void* g_comb, void* out, int B, void* stream) {
     if (B > 0) {
-        p256_verify_limbs<<<(B + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+        p256_verify_limbs<<<(B + LANES - 1) / LANES, THREADS, 0, (cudaStream_t)stream>>>(
             (const long long*)e, (const long long*)r, (const long long*)s, (const long long*)qx,
-            (const long long*)qy, (const uint8_t*)valid_in, (const u32*)g_table, (uint8_t*)out,
+            (const long long*)qy, (const uint8_t*)valid_in, (const u32*)g_comb, (uint8_t*)out,
             B);
     }
     return (int)cudaGetLastError();
 }
+
+#endif  // P256_KERNELS_ONLY

@@ -62,9 +62,10 @@ NUM_WINDOWS = 128  # 256 bits / 2
 LAUNCHES: Dict[str, int] = {"bn256_msm": 0}
 
 # The kernel runs a lane as a group of G threads, G the power of two at or
-# above K, at most 16 (csrc/bn256.cu MSM_MAX_K); config #3 has 8, an Idemix
-# key with n attributes n + 4 at most.
-MAX_K = 16
+# above K, at most a warp (csrc/bn256.cu msm_log_g); thread k takes bases
+# k, k + G, ... Config #3 has K = 8, an Idemix key with n attributes n + 4
+# at most.
+MAX_THREADS = 32
 
 # Work of one MSM lane (see the header of csrc/bn256.cu): Montgomery
 # multiplies mod p, each 128 32x32->64 word products (64 for a*b, 64 for
@@ -76,8 +77,9 @@ IMAD_PER_MONT_MUL = 2 * 128 + 8
 
 
 def threads_per_lane(k_count: int) -> int:
-    """G, the kernel's threads a lane: the power of two at or above K."""
-    return 1 << (k_count - 1).bit_length()
+    """G, the kernel's threads a lane: the power of two at or above K, at
+    most MAX_THREADS."""
+    return min(1 << (k_count - 1).bit_length(), MAX_THREADS)
 
 
 # The multiplies of one real base's thread: the radix change of its
@@ -90,9 +92,11 @@ MULS_PER_BASE = 3 + MULS_PER_DOUBLE + MULS_PER_ADD + NUM_WINDOWS * (2 * MULS_PER
 def muls_per_lane(k_real: int, k_count: int) -> int:
     """Montgomery multiplies the kernel runs for a lane with `k_real` real
     bases (neither the identity nor a zero scalar, the rest do no
-    arithmetic) of K: each real base's thread, then the shuffle tree's
-    G - 1 additions and the result's radix change (3)."""
-    return k_real * MULS_PER_BASE + (threads_per_lane(k_count) - 1) * MULS_PER_ADD + 3
+    arithmetic) of K: each real base's windows, an addition for each base
+    a thread takes after its first (K - G, whether real or not), then the
+    shuffle tree's G - 1 additions and the result's radix change (3)."""
+    g = threads_per_lane(k_count)
+    return k_real * MULS_PER_BASE + (max(k_count, g) - 1) * MULS_PER_ADD + 3
 
 
 def muls_least(k_real: int) -> int:
@@ -292,8 +296,8 @@ def msm_batch(bases: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     k_count, lanes = (bases.shape[0], bases.shape[-1]) if bases.dim() == 4 else (-1, -1)
     cudalib.check_tensor("bases", bases, torch.int64, (k_count, 3, bn.NLIMBS, lanes), device)
     cudalib.check_tensor("scalars", scalars, torch.int64, (k_count, bn.NLIMBS, lanes), device)
-    if not 1 <= k_count <= MAX_K:
-        raise ValueError(f"msm_batch takes 1 to {MAX_K} bases a lane, got {k_count}")
+    if k_count < 1:
+        raise ValueError(f"msm_batch takes at least one base a lane, got {k_count}")
     if not cudalib.kernel_device(device, "FP256BN MSM"):
         return msm_batch_ref(bases, scalars)
     out = torch.empty((3, bn.NLIMBS, lanes), dtype=torch.int64, device=device)

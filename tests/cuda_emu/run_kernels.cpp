@@ -42,8 +42,7 @@ int main(int argc, char** argv) {
     if (mode == "msm") {
         const auto bases = read_file(dir + "bases.bin"), scalars = read_file(dir + "scalars.bin");
         std::vector<long long> out(3 * 20 * (size_t)B);
-        int log_g = 0;
-        while ((1 << log_g) < n) ++log_g;
+        const int log_g = msm_log_g(n);
         const long long threads = (long long)B << log_g;
         launch((int)((threads + THREADS3 - 1) / THREADS3), THREADS3, [&] {
             bn256_msm((const long long*)bases.data(), (const long long*)scalars.data(), out.data(),

@@ -303,3 +303,44 @@ def test_batch_rejects_unknown_backend_and_empty(worlds, backend):
         verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, backend=backend,
                                 device="cpu")
     assert verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, device="cpu") == []
+
+
+# ---------------------------------------------------------------------------
+# (e) an issuer key of 13 attributes: t2's MSM lane has 17 bases
+# ---------------------------------------------------------------------------
+
+WIDE_NAMES = [f"attr{i}" for i in range(13)]
+WIDE_VALUES = [11 * (i + 1) for i in range(13)]
+
+
+def _issue_wide(pkg, curve, cri):
+    """One signature on b"m" under a 13-attribute key, every attribute
+    hidden, from random.Random(1234)."""
+    rng = random.Random(1234)
+    ik = pkg.new_issuer_key(WIDE_NAMES, rng)
+    ipk = ik["ipk"] if isinstance(ik, dict) else ik.ipk
+    sk = curve.rand_mod_order(rng)
+    nonce = curve.big_to_bytes(curve.rand_mod_order(rng))
+    req = pkg.new_cred_request(sk, nonce, ipk, rng)
+    cred = pkg.new_credential(ik, req, WIDE_VALUES, rng)
+    nym, r_nym = pkg.make_nym(sk, ipk, rng)
+    sig = pkg.new_signature(cred, sk, nym, r_nym, ipk, [0] * 13, b"m", RH_INDEX, cri, rng)
+    return ipk, sig
+
+
+def test_thirteen_attribute_key_verifies_as_jax():
+    """The port's device route on the CPU runs the 17-base t2 lane as one
+    lane of one launch; its verdict equals its own scheme route and the JAX
+    package's scheme route on the same issuance."""
+    jcri = idemix_pb2.CredentialRevocationInformation()
+    jcri.revocation_alg = jidemix.ALG_NO_REVOCATION
+    jipk, jsig = _issue_wide(jidemix, jbn, jcri)
+    ipk, sig = _issue_wide(idemix, bn, {"revocation_alg": 0})
+    assert pb.encode(pb.SIGNATURE, sig) == jsig.SerializeToString()
+    args = ([[0] * 13], ipk, [b"m"], [[None] * 13], RH_INDEX)
+    split = {}
+    assert verify_signatures_batch([sig], *args, device="cpu", split_ms=split) == [True]
+    assert split["msm_kernel"] > 0
+    assert verify_signatures_batch([sig], *args, backend="scheme") == [True]
+    assert jax_batch([jsig], [[0] * 13], jipk, [b"m"], [[None] * 13], RH_INDEX,
+                     backend="scheme") == [True]

@@ -1,6 +1,7 @@
 """CUDAProvider's own behaviour, with device="cpu" (the kernels' plain
 versions): the key bucket's route choice, off-curve keys, resolvers in any
-order, VerifyError on single verify, the empty batch.
+order, VerifyError on single verify, the empty batch, the key combs kept
+by SKI.
 
 Its masks are held to TPUProvider's in tests/test_torch_p256.py, which
 holds the JAX verify programs TPUProvider runs (one test worker compiles
@@ -9,11 +10,14 @@ them once); here they are held to the oracle on the same vectors.
 
 import hashlib
 
+import numpy as np
 import pytest
+import torch
 
 from fabric_tpu_torch.common import der, p256
 from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError
-from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, be_bytes_to_limbs
+from fabric_tpu_torch.ops import p256_kernel as pk
 
 BAD_DER = b"\x30\x01\x00"
 
@@ -104,3 +108,41 @@ def test_single_verify_keeps_verify_error_semantics(provider):
 def test_empty_batch_and_backend_label(provider):
     assert provider.batch_verify([], [], []) == []
     assert provider.describe_backend() == "cpu-reference"
+
+
+
+@pytest.fixture
+def one_thread():
+    """The plain versions issue many small tensor ops; one intra-op thread
+    keeps them from contending with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_key_tables_kept_by_ski_across_a_cache_clear(one_thread):
+    """The provider builds a key's comb once and keeps it by SKI; when the
+    cache overflows it is cleared, and a batch still gets every column's
+    comb (here through the table kernel's plain version), the padding
+    columns repeating the first."""
+    pts = [p256.scalar_mult(k, p256.GENERATOR) for k in (3, 5, 7)]
+    keys = [ECDSAPublicKey(*pt) for pt in pts]
+
+    def limbs(vals):
+        return be_bytes_to_limbs(np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals),
+                                               dtype=np.uint8).reshape(len(vals), 32).copy())
+
+    prov = CUDAProvider(device="cpu")
+    prov.KEY_TABLE_CACHE = 2
+    kx, ky = limbs([pt[0] for pt in pts]), limbs([pt[1] for pt in pts])
+    want = pk.key_tables_ref(torch.from_numpy(kx), torch.from_numpy(ky))
+    first = prov.key_tables([k.ski() for k in keys[:2]], kx[:, :2].copy(), ky[:, :2].copy())
+    assert torch.equal(first, want[:2])
+    # keys[0] is cached, keys[2] is not and overflows the cache; one padding column
+    pad = np.zeros((kx.shape[0], 1), dtype=kx.dtype)
+    got = prov.key_tables([keys[0].ski(), keys[2].ski()],
+                          np.concatenate([kx[:, [0, 2]], pad], axis=1),
+                          np.concatenate([ky[:, [0, 2]], pad], axis=1))
+    assert torch.equal(got, want[[0, 2, 0]])
+    assert set(prov._key_table_cache) == {keys[2].ski()}
