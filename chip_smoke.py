@@ -21,15 +21,23 @@ key-comb kernel, csrc/p256_verify.cu; `p256_phases`):
      and a 1,024-lane batch with all 32 key columns in use;
   5. launch counts of the main path (phases 2-4; the provider builds a
      key's comb once and keeps it by SKI), then each kernel's own time
-     (CUDA events), the key-comb kernel's alone, the plain versions' at
-     the headline, limb and 32-key shapes, and each bound: bound_ms (the
-     least work known), bound_ms_kernel, bound_ms_replaced.
+     (CUDA events), the key-comb kernel's alone at the block's keys and at
+     32 with its split from its clock stamps (`key_table_probe`: the
+     doubling chain, a doubling's cycles and the steps of one, the fill
+     left after the chain) and its words against the plain version at
+     both, the plain versions' at the headline, limb and 32-key shapes,
+     and each bound: bound_ms (the least work known), bound_ms_kernel,
+     bound_ms_replaced.
 
 The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
 
-  6. mvcc_kernel_vs_plain: K5 and K6 against their plain versions on seeded
-     columns with a 64-tx alternating chain, keys with no writer, txs with
-     no reads, duplicate writers, deletes and drop-sentinel indices;
+  6. mvcc_kernel_vs_plain: K5 and both K6 routes (shared memory, global
+     memory; mvcc_device.resident_route picks one by size) against their
+     plain versions on seeded columns with a 64-tx alternating chain, keys
+     with no writer, txs with no reads, duplicate writers, deletes and
+     drop-sentinel indices; and a seeded block past the shared route's
+     limit (19,400 keys), which takes the global route and which the
+     shared route refuses;
   7. mvcc_5k: BASELINE config #4 (bench.py bench_mvcc), a 5,000-tx block
      through serialize -> parse -> DeviceValidator: codes and updates equal
      to the host oracle's, 500 conflicts;
@@ -38,12 +46,15 @@ The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
      with a ResidentDeviceValidator against a second state DB behind the
      host oracle: codes, update batches and the chained commit hash equal,
      500 conflicts a block; K6's time and bound are taken at block 4, in
-     the steady state;
+     the steady state, where both routes are held to the plain version and
+     timed, the route taken printed and counted, and the shared route's
+     time split from its clock stamps (`k6_probe`);
   9. mvcc_resident_chain, a correctness and capacity check: 20 blocks of
      5,000 Zipf-skewed txs over 1,000,000 committed keys, held to the host
      oracle block by block as in 8; blocks 7 (range query) and 13 (metadata
      write) take the host route, a generation bump before block 16 drops
-     and rebuilds the table, and K6 launches 18 times;
+     and rebuilds the table, and K6 launches 18 times; its last block
+     held, timed and split as block 4 of 8;
  10. each kernel's time at its main-path shapes, its plain version's time
      and its bound.
 
@@ -110,6 +121,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,6 +159,12 @@ CHAIN_BLOCKS = 20
 CHAIN_KEYS = 1_000_000
 CHAIN_HASHED_KEYS = 50_000
 ZIPF_S = 1.1
+# K6's two kernels, chosen by a block's size (mvcc_device.resident_route)
+K6_ROUTES = ("mvcc_resolve_resident", "mvcc_resolve_resident_global")
+
+
+def k6_launches(md) -> dict:
+    return {r: md.LAUNCHES[r] for r in K6_ROUTES}
 
 
 def mvcc_kernel_cases(np):
@@ -202,6 +220,40 @@ def mvcc_kernel_cases(np):
     k6 = (table, init_idx, init_ver, r_gid, r_ver, k5[0], k5[1], w_tx_a, w_key_a,
           gid[w_key_a], w_ver, T, K)
     return k5, k6
+
+
+def mvcc_random_case(np, rng, T, K, R, W, cap, zipf=None):
+    """Seeded K6 columns over K keys (uniform, or Zipf(s = zipf) like the
+    resident chain's): 5% of reads stale, 5% of writes deletes, 2% of
+    slots at the drop sentinel, a tenth of the keys seeded by the launch.
+    Zipf keys are renumbered to those the block touches, as the validators'
+    encoders number them; uniform ones keep the range K. Returns
+    resolve_resident's arguments and T, K."""
+    def keys(n):
+        if zipf is None:
+            return rng.integers(0, K, n)
+        w = 1.0 / np.arange(1, K + 1, dtype=np.float64) ** zipf
+        return np.minimum(np.searchsorted(np.cumsum(w) / w.sum(), rng.random(n)), K - 1)
+
+    gid = rng.permutation(cap)[:K]
+    gid[rng.random(K) < 0.02] = cap
+    table = rng.integers(-1, 6, (cap, 2))
+    init_idx = rng.permutation(cap)[:K // 10]
+    init_ver = rng.integers(-1, 6, (len(init_idx), 2))
+    truth = table.copy()
+    truth[init_idx] = init_ver
+    r_tx, r_key = np.sort(rng.integers(0, T, R)), keys(R)
+    r_ver = truth[np.clip(gid[r_key], 0, cap - 1)].copy()
+    r_ver[rng.random(R) < 0.05] = (9, 9)
+    w_tx, w_key = np.sort(rng.integers(0, T, W)), keys(W)
+    w_ver = np.stack([np.full(W, 3), w_tx], axis=1)
+    w_ver[rng.random(W) < 0.05] = -1
+    r_gid, w_gid = gid[r_key], gid[w_key]
+    if zipf is not None:
+        used, ids = np.unique(np.concatenate([r_key, w_key]), return_inverse=True)
+        r_key, w_key, K = ids[:R], ids[R:], len(used)
+    return (table, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key, w_gid, w_ver,
+            T, K)
 
 
 def mvcc_config4_rwsets(rw, n_txs=MVCC_TXS, ver=None):
@@ -347,6 +399,27 @@ def k6_bytes(np, cap: int, args, valid) -> int:
     return 12 * I + 20 * R + 20 * W + T + 4 + 8 * len(gathered) + 8 * len(written)
 
 
+def k6_probe(np, md, table, args, kw) -> dict:
+    """K6's shared route's time split at one shape, from thread 0's SM
+    clock stamps (`mvcc_device.resolve_resident_stamped`) on a copy of the
+    table: the columns' load (thread 0's reads, its writes, the barrier),
+    the versions' check, the writers and readers of sweeps 0-4 (later
+    sweeps fall in the commit's first interval), the commit; in cycles."""
+    _valid, status, stamps = md.resolve_resident_stamped(table.clone(), *args, **kw)
+    st = stamps.cpu().numpy().astype(np.int64)
+    sweeps = md.converged_sweeps(status.cpu())
+    last = "commit_last_writer" if sweeps < 5 else f"sweeps_5_to_{sweeps}_and_commit_last_writer"
+    names = ["load_reads", "load_writes", "load_barrier", "check"] + [
+        f"sweep{i}_{part}" for i in range(5) for part in ("writers", "readers")] + [
+        last, "commit_least", "commit_write"]
+    out, prev = {}, st[0]
+    for slot, name in zip([16, 17] + list(range(1, 16)), names):
+        if st[slot]:
+            out[name] = int(st[slot] - prev)
+            prev = st[slot]
+    return {"cycles": out, "total_cycles": int(st[15] - st[0])}
+
+
 def device_ms(torch, launch, reps: int, prepare=None) -> float:
     """Mean device time of `launch()` over `reps` launches, from CUDA events
     around each launch. The launches are queued behind a sleep kernel, so
@@ -392,18 +465,33 @@ def mvcc_phases(torch, np, dev):
             raise AssertionError("mvcc_resolve: kernel and plain version differ")
         return int((valid.int() - pvalid.int()).abs().max().item()) if T else 0, sweeps
 
-    def k6_vs_plain(table, args, T, K):
+    def k6_vs_plain(table, args, T, K, route):
         kt, pt = table.clone(), table.clone()
-        valid, status = md.resolve_resident(kt, *args, T, K)
+        valid, status = md.launch_resident(route, kt, *args, num_txs=T, num_keys=K)
         torch.cuda.synchronize()
         pvalid, pstatus = md.resolve_resident_ref(pt, *args, T, K)
         sweeps = md.converged_sweeps(status.cpu())
         if (valid.tolist() != pvalid.tolist() or status.tolist() != pstatus.tolist()
                 or not torch.equal(kt, pt)):
-            raise AssertionError("mvcc_resolve_resident: kernel and plain version differ")
+            raise AssertionError(f"{route}: kernel and plain version differ")
         err = max(int((valid.int() - pvalid.int()).abs().max().item()) if T else 0,
                   int((kt - pt).abs().max().item()))
         return err, sweeps, valid.cpu().numpy()
+
+    def k6_routes(table, args, T, K):
+        """Both K6 routes against the plain version at one shape (the
+        shared one only where the block fits it); the route its sizes pick."""
+        R, W = args[2].numel(), args[6].numel()
+        picked = md.resident_route(R, W, T, K)
+        errs, sweeps, valid = [], None, None
+        for route in K6_ROUTES:
+            if route == "mvcc_resolve_resident" and not md.resident_fits(R, W, T, K):
+                continue
+            err, sw, v = k6_vs_plain(table, args, T, K, route)
+            errs.append(err)
+            if route == picked:
+                sweeps, valid = sw, v
+        return max(errs), sweeps, valid, picked
 
     # --- kernel vs plain version on the edge-case columns -----------------
     t_phase = time.perf_counter()
@@ -412,11 +500,29 @@ def mvcc_phases(torch, np, dev):
     err5, sweeps5 = k5_vs_plain(
         (i32(r_tx), i32(r_key), torch.from_numpy(r_bad).to(dev), i32(w_tx), i32(w_key)), T, K)
     table, *cols, T6, K6 = k6
-    err6, sweeps6, _ = k6_vs_plain(i32(table), tuple(i32(c) for c in cols), T6, K6)
+    err6, sweeps6, _, route6 = k6_routes(i32(table), tuple(i32(c) for c in cols), T6, K6)
     if sweeps5 < 64 or sweeps6 < 64:
         raise AssertionError(f"the 64-tx chain took {sweeps5} / {sweeps6} sweeps")
+    # past the shared route's limit (19,400 keys): the global route by size,
+    # and the shared route refuses it
+    table, *cols, Tp, Kp = mvcc_random_case(np, np.random.default_rng(MVCC_SEED + 2), 300,
+                                            19_400, 3_000, 9_000, 20_000)
+    cols = tuple(i32(c) for c in cols)
+    errp, sweepsp, _, routep = k6_routes(i32(table), cols, Tp, Kp)
+    try:
+        md.launch_resident(K6_ROUTES[0], i32(table), *cols, num_txs=Tp, num_keys=Kp)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the shared K6 route took a block past its limit")
+    if route6 != K6_ROUTES[0] or routep != K6_ROUTES[1]:
+        raise AssertionError(f"K6 routes {route6}, {routep}")
     emit({"phase": "mvcc_kernel_vs_plain", "txs": T, "keys": K, "reads": len(r_tx),
           "writes": len(w_tx), "sweeps": [sweeps5, sweeps6], "max_abs_err": [err5, err6],
+          "k6_route": route6, "k6_routes_held": list(K6_ROUTES),
+          "past_shared_limit": {"txs": Tp, "keys": Kp, "reads": cols[2].numel(),
+                                "writes": cols[6].numel(), "route": routep, "sweeps": sweepsp,
+                                "max_abs_err": errp, "shared_route_refused": True},
           "identical": True, "seconds": time.perf_counter() - t_phase})
 
     captured = {}
@@ -530,15 +636,21 @@ def mvcc_phases(torch, np, dev):
                            "sweeps": res.last_sweeps})
     finally:
         md.resolve_resident = real_resident
-    launches6 = md.LAUNCHES["mvcc_resolve_resident"]
+    routes6 = k6_launches(md)
+    launches6 = sum(routes6.values())
     if launches6 != RESIDENT_BLOCKS:
-        raise AssertionError(f"config #4 resident: {launches6} K6 launches")
-    # K6's kernels entry: the last block, in the steady state
+        raise AssertionError(f"config #4 resident: {routes6} K6 launches")
+    # K6's kernels entry: the last block, in the steady state; each route
+    # timed at its shape (the global route is the design the shared one
+    # replaced)
     table6, args6, kw6 = captured["k6"]
-    err6b, sweeps6b, valid6 = k6_vs_plain(table6, args6, kw6["num_txs"], kw6["num_keys"])
+    err6b, sweeps6b, valid6, route6b = k6_routes(table6, args6, kw6["num_txs"], kw6["num_keys"])
     scratch = torch.empty_like(table6)
     ms6 = device_ms(torch, lambda: real_resident(scratch, *args6, **kw6), 20,
                     prepare=lambda: scratch.copy_(table6))
+    ms6_global = device_ms(torch, lambda: md.launch_resident(K6_ROUTES[1], scratch, *args6, **kw6),
+                           20, prepare=lambda: scratch.copy_(table6))
+    split6 = k6_probe(np, md, table6, args6, kw6)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     md.resolve_resident_ref(table6.clone(), *args6, **kw6)
@@ -550,8 +662,10 @@ def mvcc_phases(torch, np, dev):
     emit({"phase": "mvcc_resident_5k", "blocks": RESIDENT_BLOCKS, "txs_per_block": MVCC_TXS,
           "committed_keys": MVCC_TXS, "capacity": res.capacity, "slots_used": res.slots_used,
           "last_block": {"inits": I6, "reads": R6, "writes": W6, "keys": kw6["num_keys"],
-                         "sweeps": sweeps6b},
-          "kernel_ms": ms6, "commit_hash": prev_d.hex(), "per_block": blocks,
+                         "sweeps": sweeps6b, "route": route6b},
+          "route_launches": routes6, "kernel_ms": ms6, "global_route_ms": ms6_global,
+          "k6_split": split6,
+          "commit_hash": prev_d.hex(), "per_block": blocks,
           "codes_updates_hashes_equal_oracle": True, "seconds": time.perf_counter() - t_phase})
 
     # --- mvcc_resident_chain: 20 blocks, 1M keys, the commit hash chain ----
@@ -595,7 +709,8 @@ def mvcc_phases(torch, np, dev):
             })
     finally:
         md.resolve_resident = real_resident
-    chain_launches = md.LAUNCHES["mvcc_resolve_resident"]
+    chain_routes = k6_launches(md)
+    chain_launches = sum(chain_routes.values())
     paths = [b["path"] for b in blocks]
     want_paths = ["host" if n in (7, 13) else "device" for n in range(1, CHAIN_BLOCKS + 1)]
     if paths != want_paths or chain_launches != CHAIN_BLOCKS - 2:
@@ -603,18 +718,25 @@ def mvcc_phases(torch, np, dev):
     if res.invalidations != 1:
         raise AssertionError(f"the stale table was dropped {res.invalidations} times, not once")
     tablec, argsc, kwc = captured["k6"]
-    errc, sweepsc, _ = k6_vs_plain(tablec, argsc, kwc["num_txs"], kwc["num_keys"])
+    errc, sweepsc, _, routec = k6_routes(tablec, argsc, kwc["num_txs"], kwc["num_keys"])
     scratchc = torch.empty_like(tablec)
     msc = device_ms(torch, lambda: real_resident(scratchc, *argsc, **kwc), 10,
                     prepare=lambda: scratchc.copy_(tablec))
+    msc_global = device_ms(torch, lambda: md.launch_resident(K6_ROUTES[1], scratchc, *argsc,
+                                                              **kwc),
+                           10, prepare=lambda: scratchc.copy_(tablec))
+    splitc = k6_probe(np, md, tablec, argsc, kwc)
     emit({"phase": "mvcc_resident_chain", "blocks": CHAIN_BLOCKS, "txs_per_block": MVCC_TXS,
           "committed_keys": CHAIN_KEYS, "hashed_keys": CHAIN_HASHED_KEYS,
           "setup_seconds": setup_s, "capacity": res.capacity, "slots_used": res.slots_used,
           "invalidations": res.invalidations, "device_blocks": chain_launches,
+          "route_launches": chain_routes,
           "last_block": {"inits": argsc[0].numel(), "reads": argsc[2].numel(),
                          "writes": argsc[6].numel(), "keys": kwc["num_keys"],
-                         "sweeps": sweepsc, "max_abs_err": errc},
-          "kernel_ms": msc, "commit_hash": prev_d.hex(), "per_block": blocks,
+                         "sweeps": sweepsc, "max_abs_err": errc, "route": routec},
+          "kernel_ms": msc, "global_route_ms": msc_global, "k6_split": splitc,
+          "commit_hash": prev_d.hex(),
+          "per_block": blocks,
           "codes_updates_hashes_equal_oracle": True, "seconds": time.perf_counter() - t_phase})
 
     return [
@@ -625,8 +747,13 @@ def mvcc_phases(torch, np, dev):
         {"name": "mvcc_resolve_resident", "route": "cuda",
          "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
          "replaces": "fabric_tpu/ledger/mvcc_device.py:268", "launches": launches6,
-         "max_abs_err": max(err6, err6b, errc), "ms": ms6, "plain_ms": plain6,
-         "bound_ms": bound6, "bound_by": "bytes", "sweeps": sweeps6b, "library_ms": None},
+         "route_launches": routes6, "k6_route": route6b,
+         "max_abs_err": max(err6, err6b, errc, errp), "ms": ms6, "plain_ms": plain6,
+         "bound_ms": bound6, "bound_by": "bytes", "sweeps": sweeps6b, "library_ms": None,
+         "global_route_ms": ms6_global,
+         "chain_last_block": {"route": routec, "ms": msc, "global_route_ms": msc_global,
+                              "reads": argsc[2].numel(), "writes": argsc[6].numel(),
+                              "keys": kwc["num_keys"]}},
     ]
 
 
@@ -1405,7 +1532,7 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
         prev_d, prev_h = d.commit_hash, h.commit_hash
         per_block.append({"block": number, "validate_ms": (t1 - t0) * 1e3,
                           "commit_ms": (t2 - t1) * 1e3, "commit_hash": d.commit_hash.hex()})
-    if md.LAUNCHES["mvcc_resolve_resident"] != 3 or p256k.LAUNCHES["p256_verify_bytes"] != 3:
+    if sum(k6_launches(md).values()) != 3 or p256k.LAUNCHES["p256_verify_bytes"] != 3:
         raise AssertionError(f"validator_commit launches: {dict(md.LAUNCHES)}")
     emit({"phase": "validator_commit", "blocks": 3, "txs_per_block": n_txs,
           "per_block": per_block, "k6_launches": 3, "k2_launches": 3,
@@ -1498,6 +1625,102 @@ def p256_crafted_lanes(p256, privs):
     ]
 
 
+def ptxas_by_function(report: str) -> dict:
+    """`-Xptxas -v` output grouped by function: for each entry (and
+    non-inlined) function, its stack/spill line and its registers/shared
+    memory line."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", ln)
+             or re.search(r"Function properties for (\S+)", ln))
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [])
+        elif name and ("stack frame" in ln or "Used" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def key_table_probe(torch, np, pk, kx, ky, reps: int = 20) -> dict:
+    """The key-comb kernel's time and its split. Each block writes the SM
+    clock (clock64) at its start, at the end of its doubling chain, at the
+    end of its fill and around the four steps of doubling 128
+    (`p256_kernel.key_tables_stamped`); the kernel's
+    time is the mean of `reps` launches between CUDA events, split in the
+    ratio of the slowest block's stamps. Reports the chain's cycles and a
+    doubling's (the chain over its 255 doublings), the steps of doubling
+    128, the fill left after the chain, and the clock the stamps imply."""
+    tables, stamps = pk.key_tables_stamped(kx, ky)
+    again = pk.key_tables(kx, ky)
+    torch.cuda.synchronize()
+    if not torch.equal(tables, again):
+        raise AssertionError("p256_key_tables: the stamped launch wrote other words")
+    st = stamps.cpu().numpy().astype(np.int64)
+    chain, tail, total = st[:, 1] - st[:, 0], st[:, 2] - st[:, 1], st[:, 2] - st[:, 0]
+    slow = int(np.argmax(total))
+    pk.key_tables(kx, ky)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        pk.key_tables(kx, ky)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    share = float(chain[slow]) / float(total[slow])
+    steps = np.diff(st[slow, 3:8])
+    return {"keys": int(kx.shape[1]), "ms": ms, "chain_ms": ms * share,
+            "doubling_128_cycles": {"level1": int(steps[0]), "abcd": int(steps[1]),
+                                    "level2": int(steps[2]), "point": int(steps[3])},
+            "fill_after_chain_ms": ms * (1.0 - share),
+            "chain_cycles": int(chain[slow]), "fill_after_chain_cycles": int(tail[slow]),
+            "doubling_cycles": float(chain[slow]) / 255.0,
+            "block_cycles": [int(total.min()), int(total.max())],
+            "implied_sm_mhz": float(total[slow]) / (ms * 1e3)}
+
+
+def p256_privs(p256):
+    """The P-256 phases' 64 private keys."""
+    return [(k * 0x9E3779B97F4A7C15 + SEED_PRIV) % (p256.N - 1) + 1 for k in range(64)]
+
+
+def p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys: int, nrows: int, tag: str):
+    """(key, DER signature, digest) rows signed with keys[0:nkeys]; rows
+    with i % 16 >= 8 corrupted: a flipped digest, the wrong key, s + 1, the
+    high S, bad DER, r = 0, r = n, a key off the curve."""
+    off_curve = ECDSAPublicKey(keys[0].x, (keys[0].y + 1) % p256.P)
+    rows = []
+    for i in range(nrows):
+        kidx = i % nkeys
+        key = keys[kidx]
+        digest = hashlib.sha256(f"{tag} {i}".encode()).digest()
+        nonce = (i * 0xD6E8FEB86659FD93 + SEED_NONCE) % (p256.N - 1) + 1
+        r, s = p256.sign_digest(privs[kidx], digest, k=nonce)
+        kind = i % 16
+        sig = None
+        if kind == 8:
+            digest = bytes([digest[0] ^ 1]) + digest[1:]
+        elif kind == 9:
+            key = keys[(kidx + 1) % nkeys]
+        elif kind == 10:
+            s = s + 1
+        elif kind == 11:
+            s = p256.N - s
+        elif kind == 12:
+            sig = der.marshal_signature(r, s)[:-3]
+        elif kind == 13:
+            r = 0
+        elif kind == 14:
+            r = p256.N
+        elif kind == 15:
+            key = off_curve
+        if sig is None:
+            sig = der.marshal_signature(r, s)
+        rows.append((key, sig, digest))
+    return rows
+
+
 def p256_phases(torch, np, dev, imad_rate):
     """Phases 1-5 (the CUDAProvider and K1, K2 and the table kernel);
     returns their entries of the kernels line, and K2's and the table
@@ -1510,7 +1733,7 @@ def p256_phases(torch, np, dev, imad_rate):
 
     # --- inputs ----------------------------------------------------------
     t0 = time.perf_counter()
-    privs = [(k * 0x9E3779B97F4A7C15 + SEED_PRIV) % (p256.N - 1) + 1 for k in range(64)]
+    privs = p256_privs(p256)
     keys = [ECDSAPublicKey(*p256.scalar_mult(d, p256.GENERATOR)) for d in privs]
 
     def oracle(key, sig, digest) -> bool:
@@ -1521,36 +1744,7 @@ def p256_phases(torch, np, dev, imad_rate):
         return p256.verify_digest(key.point, digest, r, s)
 
     def pool(nkeys: int, nrows: int, tag: str):
-        """Rows signed with keys[0:nkeys]; rows with i % 16 >= 8 corrupted."""
-        off_curve = ECDSAPublicKey(keys[0].x, (keys[0].y + 1) % p256.P)
-        rows = []
-        for i in range(nrows):
-            kidx = i % nkeys
-            key = keys[kidx]
-            digest = hashlib.sha256(f"{tag} {i}".encode()).digest()
-            nonce = (i * 0xD6E8FEB86659FD93 + SEED_NONCE) % (p256.N - 1) + 1
-            r, s = p256.sign_digest(privs[kidx], digest, k=nonce)
-            kind = i % 16
-            sig = None
-            if kind == 8:
-                digest = bytes([digest[0] ^ 1]) + digest[1:]
-            elif kind == 9:
-                key = keys[(kidx + 1) % nkeys]
-            elif kind == 10:
-                s = s + 1
-            elif kind == 11:
-                s = p256.N - s
-            elif kind == 12:
-                sig = der.marshal_signature(r, s)[:-3]
-            elif kind == 13:
-                r = 0
-            elif kind == 14:
-                r = p256.N
-            elif kind == 15:
-                key = off_curve
-            if sig is None:
-                sig = der.marshal_signature(r, s)
-            rows.append((key, sig, digest))
+        rows = p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys, nrows, tag)
         return rows, [oracle(*row) for row in rows]
 
     pool8, want8 = pool(8, 1024, "headline")
@@ -1731,21 +1925,27 @@ def p256_phases(torch, np, dev, imad_rate):
         shapes[label] = {"fn": fn, "args": args, "ms": ms, "live": live, "lanes": size,
                          "keys": nkeys, **bounds(work, nbytes)}
 
-    # the table kernel alone, at the block's 3 keys and the bucket's 32
+    # the table kernel alone, at the block's 3 keys and the bucket's 32: its
+    # time and its split (the chain, a doubling's cycles, the fill after the
+    # chain) from the kept probe, its words against the plain version
     table_times = {}
     for label in ("block", "keys32"):
         kx_t, ky_t = (a[:, :shapes[label]["keys"]].contiguous() for a in shapes[label]["args"][3:5])
         nk = kx_t.shape[1]
-        table_ms = time_launch(lambda: pk.key_tables(kx_t, ky_t))
+        split = key_table_probe(torch, np, pk, kx_t, ky_t)
         least = nk * pk.LEAST_TABLE_MOD_P * pk.IMAD_MOD_P
-        table_times[label] = {"keys": nk, "ms": table_ms, **bounds(
+        table_times[label] = {**split, **bounds(
             {"least": least, "kernel": nk * pk.KERNEL_MOD_P_TABLE * pk.IMAD_MOD_P},
             nk * (2 * 20 * 8 + pk.NUM_WINDOWS * 16 * 96))}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pk.key_tables_ref(*(a[:, :3].contiguous() for a in shapes["block"]["args"][3:5]))
-    torch.cuda.synchronize()
-    table_times["block"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        got = pk.key_tables(kx_t, ky_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pk.key_tables_ref(kx_t, ky_t)
+        torch.cuda.synchronize()
+        table_times[label]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            raise AssertionError(f"p256_key_tables: words differ from the plain version at {nk} keys")
+        table_times[label]["words_equal_plain"] = True
 
     # plain versions on the card, once each, at the main path's shapes
     for label, ref in (("headline", pk.verify_batch_bytes_ref), ("limb", pk.verify_batch_ref),
@@ -1805,7 +2005,9 @@ def p256_phases(torch, np, dev, imad_rate):
         "max_abs_err": results["p256_key_tables"]["max_abs_err"], "keys": tb["keys"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "bound_ms_kernel": tb["bound_ms_kernel"],
-        "library_ms": None,
+        "library_ms": None, "chain_ms": tb["chain_ms"], "doubling_cycles": tb["doubling_cycles"],
+        "keys32": {k: table_times["keys32"][k] for k in ("keys", "ms", "plain_ms", "bound_ms",
+                                                          "chain_ms", "doubling_cycles")},
     })
     for label in ("block", "keys32"):
         sh = shapes[label]
@@ -1836,12 +2038,18 @@ def main() -> int:
         list(pool.map(cudalib.build, sources))
     for name in sources:
         cudalib.load(name)
+    by_function = {}
+    for name in sources:
+        by_function.update(ptxas_by_function(cudalib.ptxas_report(name)))
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
         "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
                          if "registers" in ln or "spill" in ln or "stack" in ln]
                   for name in sources},
+        # the kernels redesigned last: registers, stack, spills, shared memory
+        "redesigned": {fn: by_function.get(fn) for fn in ("p256_key_tables",
+                                                          "mvcc_resolve_resident")},
     })
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

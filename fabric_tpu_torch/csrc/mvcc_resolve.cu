@@ -5,10 +5,10 @@
 //   fabric_tpu/ledger/mvcc_device.py  _resolve (jit)           -> mvcc_resolve
 //     (K5: the Jacobi fixpoint over a block's read and write columns)
 //   fabric_tpu/ledger/mvcc_device.py  _resolve_resident (jit,
-//     donate_argnums=(0,))                                    -> mvcc_resolve_resident
+//     donate_argnums=(0,))                     -> mvcc_resolve_resident,
+//                                                 mvcc_resolve_resident_global
 //     (K6: K5 over a device-resident (cap, 2) version table, which it
-//     seeds, reads and updates)
-// Both kernels share one __device__ routine, fixpoint.
+//     seeds, reads and updates; two routes, chosen by size alone)
 //
 // What it computes. Transaction t of a block is valid iff it arrived valid,
 // every read it made saw the committed version, and no earlier valid
@@ -39,26 +39,56 @@
 // Bound. Both kernels move few bytes and do almost no arithmetic. The
 // function needs each column once: at a 5,000-transaction block with one
 // read and one write a transaction, K5's r_tx, r_key, w_tx, w_key, flags
-// and mask are about 90 KB, 27 ns at 3.35 TB/s. This design reads the
-// columns again in every sweep, which is one reason it sits above that
-// bound; the larger one is latency: each phase is a dependent round trip
-// to L2 or device memory behind a block-wide barrier,
-// four barriers a sweep, and the launch itself. The design takes that
-// head on in the simplest form: one launch runs every sweep (no host round
-// trip between sweeps), and one block of 1,024 threads makes the barrier a
-// __syncthreads. It uses 1 of the card's 132 SMs. The levers a later change
-// has: the scratch arrays (min_writer, bad, base, valid) in shared memory
-// while K and T fit its 227 KB (about 56k keys of min_writer alone), and a
-// cooperative grid for blocks that do not.
+// and mask are about 90 KB, 27 ns at 3.35 TB/s. What sets the time is
+// latency: each phase is a dependent round trip behind a block-wide
+// barrier, and the launch itself. One launch runs every sweep (no host
+// round trip between sweeps) on one block of 1,024 threads, so a barrier
+// is a __syncthreads; it uses 1 of the card's 132 SMs.
+//
+// K5 and K6's global route (mvcc_resolve, mvcc_resolve_resident_global)
+// keep their scratch (min_writer, bad, base, valid; K6's static_bad and
+// best) in device memory: every phase is a round trip to L2 with global
+// atomics, four barriers a sweep, the columns read again each sweep.
+//
+// K6's shared route (mvcc_resolve_resident), for the blocks that fit:
+//   - scratch in shared memory: best (8 bytes a key) and the min/last
+//     writer word (4 bytes a key), a bad stamp (4 bytes) and base (1 byte)
+//     a transaction; atomics hit shared memory, not L2;
+//   - the columns loaded once, (tx << 16 | key): each thread's reads in
+//     registers (COLS = 12 of its 1,024 threads' strided share), the
+//     writes in shared memory (4 bytes each), so a sweep reads no device
+//     memory; every phase that does (the columns, the versions' check, the
+//     commit's versions) issues a thread's loads before it uses one;
+//   - no clearing: the writer word of sweep i holds (i + 1) << 16 |
+//     (0xFFFF - t) (an atomicMax keeps the smallest live writer t of the
+//     sweep, a stamp from an earlier sweep loses), and a read that finds
+//     an earlier writer stamps its transaction's bad word with i + 2 by an
+//     atomicMax, whose old value feeds two counts (marked, newly marked):
+//     the sweep has converged when none is new and as many are marked as
+//     in the sweep before, so a sweep is two barriers (writers, readers),
+//     and no sweep runs only to find that nothing changed;
+//   - the commit's last writer is one more stamped atomicMax into the same
+//     word. At config #4's block (2 sweeps): 7 barriers, against 16.
+// Its limits (resident_fits): R and W at most 1,024 * COLS = 12,288; T at
+// most 65,532 (stamps and tx ids in 16 bits, sweeps at most T + 1); K
+// below 65,536; and 12 K + 4 W + 5 T + 16 bytes within the 227 KB a block
+// may have (232,448 bytes: 15,619 keys at config #4's T = W = 5,000). A
+// block past any of them takes the global route; the shared route's
+// launcher refuses one (cudaErrorInvalidValue), and its wrapper raises.
 //
 // Interface: plain C, raw pointers, a cudaStream_t; each launcher returns
 // cudaGetLastError(). Columns are int32, masks uint8 (torch.bool), the
-// version table and the version columns (n, 2) int32 rows. Scratch comes
-// from the wrapper; the kernels allocate nothing.
+// version table and the version columns (n, 2) int32 rows. Scratch of the
+// global-memory kernels comes from the wrapper; the kernels allocate
+// nothing. Defining MVCC_KERNELS_ONLY leaves out the launchers and the
+// CUDA runtime, so that the kernels compile for the CPU under stand-ins
+// for the CUDA constructs (tests/cuda_emu).
 
 #include <climits>
 #include <cstdint>
+#ifndef MVCC_KERNELS_ONLY
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -156,9 +186,10 @@ mvcc_resolve(const int* __restrict__ r_tx, const int* __restrict__ r_key,
     if (threadIdx.x == 0) *status = sweeps;
 }
 
-// K6. versions, init_ver, r_ver and w_ver are (n, 2) int32 rows.
+// K6's global route. versions, init_ver, r_ver and w_ver are (n, 2) int32
+// rows.
 extern "C" __global__ void __launch_bounds__(THREADS)
-mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict__ init_idx,
+mvcc_resolve_resident_global(int* __restrict__ versions, int cap, const int* __restrict__ init_idx,
                       const int* __restrict__ init_ver, int I, const int* __restrict__ r_gid,
                       const int* __restrict__ r_ver, const int* __restrict__ r_tx,
                       const int* __restrict__ r_key, const int* __restrict__ w_tx,
@@ -219,6 +250,239 @@ mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict
     }
 }
 
+// ---------------------------------------------------------------------------
+// K6's shared route
+// ---------------------------------------------------------------------------
+
+constexpr int RES_THREADS = THREADS;         // the shared route's block
+constexpr int COLS = 12;                     // reads a thread holds in registers
+constexpr int SHARED_BYTES_MAX = 232448;     // a block's shared memory, opted in
+constexpr int T_MAX = 65532;                 // stamps and tx ids in 16 bits
+constexpr int STAMPS = 18;
+
+// Shared bytes the shared route needs for T transactions, K keys and W
+// writes.
+constexpr long long resident_shared_bytes(long long T, long long K, long long W) {
+    return 12 * K + 4 * W + 5 * T + 16;
+}
+
+constexpr bool resident_fits(long long R, long long W, long long T, long long K) {
+    return R <= (long long)RES_THREADS * COLS && W <= (long long)RES_THREADS * COLS &&
+           T <= T_MAX && K < 65536 && resident_shared_bytes(T, K, W) <= SHARED_BYTES_MAX;
+}
+
+#ifdef __CUDACC__
+#define MVCC_DYNAMIC_SHARED extern __shared__
+#else
+#define MVCC_DYNAMIC_SHARED extern  // the CPU harness defines the array
+#endif
+MVCC_DYNAMIC_SHARED unsigned long long k6_shared[];
+
+__device__ __forceinline__ unsigned pack(int t, int k) { return (unsigned)t << 16 | (unsigned)k; }
+
+// K6's shared route: as K6's global route, its scratch in shared memory,
+// its reads in registers and its writes in shared memory (the header).
+// versions, init_ver, r_ver and w_ver are (n, 2) int32 rows; the launch's
+// dynamic shared memory is resident_shared_bytes(T, K, W). Each phase that
+// reads device memory issues all of a thread's loads before it uses one.
+// With stamps, thread 0 writes clock64 at its start (slot 0), after its
+// reads' and its writes' columns are in (16, 17), after the columns'
+// barrier (1), after the versions' check (2), after each barrier of sweeps
+// 0-4 (3-12: writers, then readers), after the commit's two barriers and
+// at its end (13-15); those of sweeps not run stay 0.
+extern "C" __global__ void __launch_bounds__(RES_THREADS)
+mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict__ init_idx,
+                      const int* __restrict__ init_ver, int I, const int* __restrict__ r_gid,
+                      const int* __restrict__ r_ver, const int* __restrict__ r_tx,
+                      const int* __restrict__ r_key, const int* __restrict__ w_tx,
+                      const int* __restrict__ w_key, const int* __restrict__ w_gid,
+                      const int* __restrict__ w_ver, int R, int W, int T, int K,
+                      uint8_t* __restrict__ valid, int* __restrict__ status,
+                      long long* __restrict__ stamps) {
+    unsigned long long* best = k6_shared;                     // K: the commit's least version
+    unsigned* writer = reinterpret_cast<unsigned*>(best + K);  // K: stamped writer words
+    unsigned* wcol = writer + K;                                // W: the writes, t << 16 | k
+    unsigned* bad = wcol + W;                                   // T: bad stamps
+    unsigned* cnt = bad + T;                                    // 4: the sweeps' counts
+    uint8_t* base = reinterpret_cast<uint8_t*>(cnt + 4);        // T
+    const int2* vrows = reinterpret_cast<const int2*>(versions);
+    const int tid = threadIdx.x;
+    long long* stamp = tid == 0 ? stamps : nullptr;
+    if (stamp) stamp[0] = clock64();
+    // the columns: reads into registers, writes into shared memory; the
+    // reads' loads are in flight while the scratch is cleared and the
+    // table seeded
+    unsigned rd[COLS];
+    int oob = 0;
+    {
+        int tt[COLS], kk[COLS];
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int r = tid + j * RES_THREADS;
+            tt[j] = r < R ? r_tx[r] : 0;
+            kk[j] = r < R ? r_key[r] : 0;
+        }
+        for (int t = tid; t < T; t += RES_THREADS) {
+            base[t] = 1;
+            bad[t] = 0u;
+        }
+        if (tid < 4) cnt[tid] = 0u;
+        for (int k = tid; k < K; k += RES_THREADS) {
+            writer[k] = 0u;
+            best[k] = ~0ull;
+        }
+        for (int i = tid; i < I; i += RES_THREADS) {
+            const int slot = init_idx[i];
+            if (slot >= 0 && slot < cap)
+                reinterpret_cast<int2*>(versions)[slot] = reinterpret_cast<const int2*>(init_ver)[i];
+        }
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            if (tt[j] < 0 || tt[j] >= T || kk[j] < 0 || kk[j] >= K) oob |= tid + j * RES_THREADS < R;
+            rd[j] = pack(tt[j], kk[j]);
+        }
+        if (stamp) stamp[16] = clock64();
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int w = tid + j * RES_THREADS;
+            tt[j] = w < W ? w_tx[w] : 0;
+            kk[j] = w < W ? w_key[w] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int w = tid + j * RES_THREADS;
+            if (tt[j] < 0 || tt[j] >= T || kk[j] < 0 || kk[j] >= K) oob |= w < W;
+            if (w < W) wcol[w] = pack(tt[j], kk[j]);
+        }
+        if (stamp) stamp[17] = clock64();
+    }
+    if (__syncthreads_or(oob)) {
+        for (int t = tid; t < T; t += RES_THREADS) valid[t] = 0;
+        if (tid == 0) *status = -2;
+        return;
+    }
+    if (stamp) stamp[1] = clock64();
+    // committed versions against the claimed ones (after the init scatter)
+    {
+        int g[COLS];
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int r = tid + j * RES_THREADS;
+            g[j] = r < R ? min(max(r_gid[r], 0), cap - 1) : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int r = tid + j * RES_THREADS;
+            if (r < R) {
+                const int2 have = vrows[g[j]];
+                const int2 want = reinterpret_cast<const int2*>(r_ver)[r];
+                if (have.x != want.x || have.y != want.y) base[rd[j] >> 16] = 0;
+            }
+        }
+    }
+    __syncthreads();
+    if (stamp) stamp[2] = clock64();
+
+    // sweep i: the writers of valid_i transactions (base[t] and bad[t] !=
+    // i + 1: read i - 1 stamped t with i + 1) stamp their keys' words with
+    // i + 1; the readers that find an earlier writer stamp their
+    // transaction's bad word with i + 2 by an atomicMax, whose old value
+    // says whether t was marked already in this sweep, in the last one, or
+    // not. valid_(i+1) equals valid_i iff no transaction was newly marked
+    // and as many were marked as in sweep i - 1: the counts, kept by
+    // parity, decide after the readers' barrier.
+    unsigned* marked = cnt;     // [i & 1]: transactions marked in sweep i
+    unsigned* fresh = cnt + 2;  // [i & 1]: of those, not marked in sweep i - 1
+    unsigned before = 0u;
+    int sweeps = 0, i = 0;
+#pragma unroll 1
+    for (;; ++i) {
+        const unsigned stale = (unsigned)(i + 1), mark = (unsigned)(i + 1) << 16;
+#pragma unroll 4
+        for (int w = tid; w < W; w += RES_THREADS) {
+            const unsigned c = wcol[w], t = c >> 16;
+            if (base[t] && bad[t] != stale) atomicMax(&writer[c & 0xFFFFu], mark | (0xFFFFu - t));
+        }
+        __syncthreads();
+        if (stamp && i < 5) stamp[3 + 2 * i] = clock64();
+        if (tid == 0) marked[(i + 1) & 1] = fresh[(i + 1) & 1] = 0u;
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            if (j * RES_THREADS >= R) break;
+            if (tid + j * RES_THREADS < R) {
+                const unsigned t = rd[j] >> 16, v = writer[rd[j] & 0xFFFFu];
+                if ((v >> 16) == (unsigned)(i + 1) && 0xFFFFu - (v & 0xFFFFu) < t && base[t]) {
+                    const unsigned old = atomicMax(&bad[t], (unsigned)(i + 2));
+                    if (old != (unsigned)(i + 2)) {
+                        atomicAdd(&marked[i & 1], 1u);
+                        if (old != stale) atomicAdd(&fresh[i & 1], 1u);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        if (stamp && i < 5) stamp[4 + 2 * i] = clock64();
+        const unsigned now = marked[i & 1];
+        if (fresh[i & 1] == 0u && now == before) {
+            sweeps = i + 1;
+            break;
+        }
+        before = now;
+        if (i + 1 > T) {
+            sweeps = -1;
+            break;
+        }
+    }
+    // valid_(i+1): base[t] and no stamp i + 2
+#pragma unroll 1
+    for (int t = tid; t < T; t += RES_THREADS) valid[t] = base[t] && bad[t] != (unsigned)(i + 2);
+    if (tid == 0) *status = sweeps;
+    if (sweeps < 0) return;  // uniform across the block: no commit
+
+    // commit: each key's last valid writer, stamped sweeps + 1 (max t)
+    const unsigned stale = (unsigned)(i + 2), last = (unsigned)(sweeps + 1) << 16;
+#pragma unroll 4
+    for (int w = tid; w < W; w += RES_THREADS) {
+        const unsigned c = wcol[w], t = c >> 16;
+        if (base[t] && bad[t] != stale) atomicMax(&writer[c & 0xFFFFu], last | t);
+    }
+    __syncthreads();
+    if (stamp) stamp[13] = clock64();
+    // among its lanes with a slot in range, the least version, then its
+    // write; the lanes of this thread that are their key's last writer's
+    unsigned mask = 0u;
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+        const int w = tid + j * RES_THREADS;
+        if (w < W && writer[wcol[w] & 0xFFFFu] == (last | (wcol[w] >> 16))) mask |= 1u << j;
+    }
+    {
+        int g[COLS];
+        int2 v[COLS];
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            const int w = tid + j * RES_THREADS;
+            const bool on = (mask >> j) & 1u;
+            g[j] = on ? w_gid[w] : -1;
+            v[j] = on ? reinterpret_cast<const int2*>(w_ver)[w] : make_int2(0, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < COLS; ++j)
+            if (g[j] >= 0 && g[j] < cap)
+                atomicMin(&best[wcol[tid + j * RES_THREADS] & 0xFFFFu], version_key(v[j].x, v[j].y));
+        __syncthreads();
+        if (stamp) stamp[14] = clock64();
+#pragma unroll
+        for (int j = 0; j < COLS; ++j)
+            if (g[j] >= 0 && g[j] < cap &&
+                version_key(v[j].x, v[j].y) == best[wcol[tid + j * RES_THREADS] & 0xFFFFu])
+                reinterpret_cast<int2*>(versions)[g[j]] = v[j];
+    }
+    if (stamp) stamp[15] = clock64();
+}
+
+#ifndef MVCC_KERNELS_ONLY
+
 extern "C" int mvcc_resolve_launch(const void* r_tx, const void* r_key, const void* r_static_bad,
                                    const void* w_tx, const void* w_key, int R, int W, int T,
                                    int K, void* min_writer, void* bad, void* base, void* valid,
@@ -232,13 +496,13 @@ extern "C" int mvcc_resolve_launch(const void* r_tx, const void* r_key, const vo
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mvcc_resolve_resident_launch(
+extern "C" int mvcc_resolve_resident_global_launch(
     void* versions, int cap, const void* init_idx, const void* init_ver, int I,
     const void* r_gid, const void* r_ver, const void* r_tx, const void* r_key, const void* w_tx,
     const void* w_key, const void* w_gid, const void* w_ver, int R, int W, int T, int K,
     void* static_bad, void* min_writer, void* best, void* bad, void* base, void* valid,
     void* status, void* stream) {
-    mvcc_resolve_resident<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    mvcc_resolve_resident_global<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(versions), cap, static_cast<const int*>(init_idx),
         static_cast<const int*>(init_ver), I, static_cast<const int*>(r_gid),
         static_cast<const int*>(r_ver), static_cast<const int*>(r_tx),
@@ -250,3 +514,47 @@ extern "C" int mvcc_resolve_resident_launch(
         static_cast<int*>(status));
     return static_cast<int>(cudaGetLastError());
 }
+
+// The shared route; a block past resident_fits is refused. stamps may be
+// null (STAMPS int64 otherwise).
+static int resident_launch(void* versions, int cap, const void* init_idx, const void* init_ver,
+                           int I, const void* r_gid, const void* r_ver, const void* r_tx,
+                           const void* r_key, const void* w_tx, const void* w_key,
+                           const void* w_gid, const void* w_ver, int R, int W, int T, int K,
+                           void* valid, void* status, void* stamps, void* stream) {
+    if (!resident_fits(R, W, T, K)) return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        mvcc_resolve_resident, cudaFuncAttributeMaxDynamicSharedMemorySize, SHARED_BYTES_MAX);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    const size_t bytes = static_cast<size_t>(resident_shared_bytes(T, K, W));
+    mvcc_resolve_resident<<<1, RES_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int*>(versions), cap, static_cast<const int*>(init_idx),
+        static_cast<const int*>(init_ver), I, static_cast<const int*>(r_gid),
+        static_cast<const int*>(r_ver), static_cast<const int*>(r_tx),
+        static_cast<const int*>(r_key), static_cast<const int*>(w_tx),
+        static_cast<const int*>(w_key), static_cast<const int*>(w_gid),
+        static_cast<const int*>(w_ver), R, W, T, K, static_cast<uint8_t*>(valid),
+        static_cast<int*>(status), static_cast<long long*>(stamps));
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mvcc_resolve_resident_launch(
+    void* versions, int cap, const void* init_idx, const void* init_ver, int I,
+    const void* r_gid, const void* r_ver, const void* r_tx, const void* r_key, const void* w_tx,
+    const void* w_key, const void* w_gid, const void* w_ver, int R, int W, int T, int K,
+    void* valid, void* status, void* stream) {
+    return resident_launch(versions, cap, init_idx, init_ver, I, r_gid, r_ver, r_tx, r_key, w_tx,
+                           w_key, w_gid, w_ver, R, W, T, K, valid, status, nullptr, stream);
+}
+
+// The same launch with thread 0's clock stamps (the kernel's STAMPS).
+extern "C" int mvcc_resolve_resident_stamped_launch(
+    void* versions, int cap, const void* init_idx, const void* init_ver, int I,
+    const void* r_gid, const void* r_ver, const void* r_tx, const void* r_key, const void* w_tx,
+    const void* w_key, const void* w_gid, const void* w_ver, int R, int W, int T, int K,
+    void* valid, void* status, void* stamps, void* stream) {
+    return resident_launch(versions, cap, init_idx, init_ver, I, r_gid, r_ver, r_tx, r_key, w_tx,
+                           w_key, w_gid, w_ver, R, W, T, K, valid, status, stamps, stream);
+}
+
+#endif  // MVCC_KERNELS_ONLY

@@ -24,12 +24,24 @@
 //   G: built once on the host (ops/p256_kernel.g_comb_words), read through
 //     the read-only cache; it stays in L2.
 //   Q (K2): one comb per distinct key column, built on the card by
-//     p256_key_tables (a block a key): warp 0 runs the 255 doublings of the
-//     chain Q, 2Q, ..., 2^255 Q as a team (below) and writes the entries of
-//     digits 1, 2, 4, 8 of every window; then all 256 threads add the other
-//     eleven digits of every window from those (17 additions a window). The
-//     provider keeps the tables of each key it has seen (by SKI), so a key
-//     is built once, not once a batch.
+//     p256_key_tables (a block of four warps a key). The chain Q, 2Q, ...,
+//     2^255 Q (the entries of digits 1, 2, 4, 8 of every window) cannot be
+//     cut, so the kernel shortens each of its 255 doublings: warp 0 runs
+//     algorithm 6 rearranged into two levels of products (8, then 6) with
+//     W = b Z, 2X - W and 2W - X carried along, on plain field elements: a
+//     product on a quad of threads (partial rows, a shuffle sum, and NIST's
+//     reduction for p's special form: word sums, two carry chains, one
+//     subtraction, where Montgomery's takes eight dependent steps), and the
+//     additions between the levels as one small linear combination a lane
+//     by the same word sums, the lanes side by side; no thread funnels the
+//     others' work.
+//     Warps 1-3 put a window's chain entries into Montgomery form and fill
+//     its other eleven digits (12 complete additions in chains of at most
+//     3) as soon as the chain has passed it, so only the last windows' fill
+//     is left after the chain. Its stored words are the ones of algorithm 6
+//     and of the additions key_tables_ref forms.
+//     The provider keeps the tables of each key it has seen (by SKI), so a
+//     key is built once, not once a batch.
 //   Q (K1): every lane brings its own key, so u2 * Q stays a Horner ladder
 //     over Q's 16 multiples (in shared memory), and u1's digits are added
 //     into the same accumulator from window 0 of G's comb (d * G), which
@@ -46,7 +58,7 @@
 //     combs (15 additions), and a shuffle tree of complete additions joins
 //     the eight partial sums (7 additions in 3 levels). A lane's chain is
 //     about 18 additions after the inverse.
-//   K1 and the table chain: a team. Each formula is three levels of
+//   K1: a team. Each formula is three levels of
 //     independent multiplies (addition 6, 2, 6; doubling 6, 3, 4); thread k
 //     of the team computes product k of a level from operands the team's
 //     leader (thread 0) wrote to shared memory, and the leader does the
@@ -88,7 +100,10 @@
 // slots each), mod n 128 and 8 low products. Per live lane K2 runs 1,782
 // multiplies mod p (8 threads x 15 additions, 7 in the tree, 4 in the check)
 // and 3 mod n (s to Montgomery, u1, u2), and 340 mod n a block with a live
-// lane; each key table 18,549 mod p (2, 255 doublings, 64 x 17 additions).
+// lane; each key table 15,090 mod p (255 doublings of 14, 768 entry
+// coordinates into Montgomery form, 64 x 12 additions), of which the
+// chain's 3,570 set its time: 255 x 2 levels of products, each a quad's
+// rows, shuffle sum and reduction.
 // K1 runs 5,256 mod p (2, 14 additions for Q's multiples, one addition and
 // 63 windows of 4 doublings and 2 additions, 4) and 298 mod n (1, 295, 2).
 // The least work known for the function, from which PERF.md's bound_ms is
@@ -150,6 +165,9 @@ __constant__ u32 ONEN[8] = {0x039CDAAFu, 0x0C46353Du, 0x58E8617Bu, 0x43190552u,
                             0x00000000u, 0x00000000u, 0xFFFFFFFFu, 0x00000000u};
 __constant__ u32 BMONT[8] = {0x29C4BDDFu, 0xD89CDF62u, 0x78843090u, 0xACF005CDu,
                              0xF7212ED6u, 0xE5A220ABu, 0x04874834u, 0xDC30061Du};
+// b itself (plain)
+__constant__ u32 B_PLAIN[8] = {0x27D2604Bu, 0x3BCE3C3Eu, 0xCC53B0F6u, 0x651D06B0u,
+                               0x769886BCu, 0xB3EBBD55u, 0xAA3A93E7u, 0x5AC635D8u};
 __constant__ u32 P_MINUS_N[8] = {0x039CDAAEu, 0x0C46353Du, 0x58E8617Bu, 0x43190553u,
                                  0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
 __constant__ u32 N_WORDS[8] = {0xFC632551u, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
@@ -739,51 +757,388 @@ __device__ __forceinline__ Pt key_point(const long long* x, const long long* y,
 constexpr int GROUP = 8;                // threads a lane
 constexpr int THREADS = 128;            // K1, K2: 16 lanes a block
 constexpr int LANES = THREADS / GROUP;
-constexpr int TABLE_THREADS = 256;      // p256_key_tables: a block a key
-constexpr int FILL_DIGITS = 11;         // the digits not a power of two
+// ---------------------------------------------------------------------------
+// The key combs: the doubling chain on warp 0, its products by quads and its
+// additions spread over lanes; the fill on warps 1-3 beside it
+// ---------------------------------------------------------------------------
 
-__constant__ int FILL[FILL_DIGITS] = {3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15};
+constexpr int TABLE_THREADS = 128;  // p256_key_tables: a block a key
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+#ifndef FMUL_COUNT
+#define FMUL_COUNT() ((void)0)
+#endif
+
+// t[0..10] = a * (b0 + b1 2^32); t[10] is 0.
+__device__ __forceinline__ void rows2(u32 t[11], const Fe& a, u32 b0, u32 b1) {
+#pragma unroll
+    for (int j = 0; j < 11; ++j) t[j] = 0u;
+#ifdef __CUDACC__
+    mul_row(t, a, b0);
+    mul_row(t + 1, a, b1);
+#else
+    for (int i = 0; i < 2; ++i) {
+        const u32 bi = i ? b1 : b0;
+        u64 c = 0;
+        for (int j = 0; j < 8; ++j) {
+            c = (u64)a.w[j] * bi + t[i + j] + (c >> 32);
+            t[i + j] = (u32)c;
+        }
+        c = (u64)t[i + 8] + (c >> 32);
+        t[i + 8] = (u32)c;
+        t[i + 9] += (u32)(c >> 32);
+    }
+#endif
+}
+
+// t[OFF..OFF+N) += u[0..N), the carry out of the last word dropped (the
+// callers' sums fit).
+template <int OFF, int N>
+__device__ __forceinline__ void add_at(u32 t[16], const u32 u[N]) {
+#ifdef __CUDACC__
+    t[OFF] = add_cc(t[OFF], u[0]);
+#pragma unroll
+    for (int j = 1; j < N - 1; ++j) t[OFF + j] = addc_cc(t[OFF + j], u[j]);
+    t[OFF + N - 1] = addc(t[OFF + N - 1], u[N - 1]);
+#else
+    u64 c = 0;
+    for (int j = 0; j < N; ++j) {
+        c = (u64)t[OFF + j] + u[j] + (c >> 32);
+        t[OFF + j] = (u32)c;
+    }
+#endif
+}
+
+// Word sums (each below 2^40, word j at 32 j) -> 9 words: one carry chain
+// over each sum's low word and the high part of the sum below it.
+__device__ __forceinline__ void carry_words(const u64 acc[8], u32 out[9]) {
+#ifdef __CUDACC__
+    out[0] = (u32)acc[0];
+    out[1] = add_cc((u32)acc[1], (u32)(acc[0] >> 32));
+#pragma unroll
+    for (int j = 2; j < 8; ++j) out[j] = addc_cc((u32)acc[j], (u32)(acc[j - 1] >> 32));
+    out[8] = addc((u32)(acc[7] >> 32), 0u);
+#else
+    u64 c = acc[0] >> 32;
+    out[0] = (u32)acc[0];
+    for (int j = 1; j < 8; ++j) {
+        c += (u32)acc[j];
+        out[j] = (u32)c;
+        c = (c >> 32) + (acc[j] >> 32);
+    }
+    out[8] = (u32)c;
+#endif
+}
+
+// 33 p in redundant digits of at least 2^37 (words 0-7, nothing above):
+// added to word sums of small signed multiples of 32-bit words, it keeps
+// each sum positive.
+__constant__ u64 BIAS_33P[8] = {0x20FFFFFFDFull, 0x20FFFFFFDFull, 0x20FFFFFFDFull,
+                                0x2000000000ull, 0x20FFFFFFE0ull, 0x20FFFFFFDFull,
+                                0x2000000000ull, 0x20FFFFFFBFull};
+
+// Word sums acc (each positive, below 2^40; their value a multiple of p
+// apart from the wanted one) -> the value mod p: carried into nine words
+// S = L + h 2^256 (h < 2^8), then S - h p = L + h (2^256 - p), below 2p,
+// carried again and reduced once.
+__device__ __forceinline__ Fe fold_p(u64 acc[8]) {
+    constexpr u32 CP[8] = {1u, 0u, 0u, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFEu, 0u};
+    u32 t[9];
+    carry_words(acc, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = (u64)t[j] + (u64)t[8] * CP[j];
+    carry_words(acc, t);
+    return reduce9<ModP>(t);
+}
+
+// (cx x + cy y + cz z) mod p for x, y, z < p and small signed constants
+// whose negative ones sum to at most 15 in size, in about the time of two
+// additions: each word's sum is formed apart, then folded (fold_p).
+__device__ __forceinline__ Fe lincomb(const Fe& x, int cx, const Fe& y, int cy, const Fe& z,
+                                      int cz) {
+    u64 acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        acc[j] = (u64)((long long)BIAS_33P[j] + (long long)cx * x.w[j] +
+                       (long long)cy * y.w[j] + (long long)cz * z.w[j]);
+    return fold_p(acc);
+}
+
+// t mod p for t < 2^512 (16 words) by p's special form (NIST's reduction
+// for P-256): word j of the result is a small signed sum of t's words,
+// each formed apart, then folded (fold_p).
+__device__ __forceinline__ Fe reduce_p512(const u32 t[16]) {
+    long long c[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) c[j] = t[j];
+    u64 acc[8];
+    acc[0] = (u64)((long long)BIAS_33P[0] + c[0] + c[8] + c[9] - c[11] - c[12] - c[13] - c[14]);
+    acc[1] = (u64)((long long)BIAS_33P[1] + c[1] + c[9] + c[10] - c[12] - c[13] - c[14] - c[15]);
+    acc[2] = (u64)((long long)BIAS_33P[2] + c[2] + c[10] + c[11] - c[13] - c[14] - c[15]);
+    acc[3] = (u64)((long long)BIAS_33P[3] + c[3] + 2 * (c[11] + c[12]) + c[13] - c[8] - c[9] -
+                   c[15]);
+    acc[4] = (u64)((long long)BIAS_33P[4] + c[4] + 2 * (c[12] + c[13]) + c[14] - c[9] - c[10]);
+    acc[5] = (u64)((long long)BIAS_33P[5] + c[5] + 2 * (c[13] + c[14]) + c[15] - c[10] - c[11]);
+    acc[6] = (u64)((long long)BIAS_33P[6] + c[6] + c[13] + 3 * c[14] + 2 * c[15] - c[8] - c[9]);
+    acc[7] = (u64)((long long)BIAS_33P[7] + c[7] + c[8] + 3 * c[15] - c[10] - c[11] - c[12] -
+                   c[13]);
+    return fold_p(acc);
+}
+
+// a * b mod p (plain, not Montgomery) by the four threads of a quad (r =
+// lane & 3): thread r forms the 320-bit partial product a (b_2r + b_2r+1
+// 2^32) (b0, b1), two shuffle levels sum the four into the 512-bit product,
+// and p's special form reduces it (reduce_p512). The result is the one of
+// the quad's thread 0. Every thread of the warp calls it (the shuffles take
+// the full mask).
+__device__ __forceinline__ Fe quad_mul(const Fe& a, u32 b0, u32 b1) {
+    u32 row[11], t[16], o[12];
+    rows2(row, a, b0, b1);
+#pragma unroll
+    for (int j = 0; j < 11; ++j) t[j] = row[j];
+#pragma unroll
+    for (int j = 11; j < 16; ++j) t[j] = 0u;
+    // thread r + 1's partial product, two words up: r even holds r, r + 1
+#pragma unroll
+    for (int j = 0; j < 10; ++j) o[j] = __shfl_down_sync(FULL, row[j], 1, 4);
+    add_at<2, 10>(t, o);
+    // thread r + 2's pair, four words up: thread 0 holds the product
+#pragma unroll
+    for (int j = 0; j < 12; ++j) o[j] = __shfl_down_sync(FULL, t[j], 2, 4);
+    add_at<4, 12>(t, o);
+    return reduce_p512(t);
+}
+
+// The chain's values in shared memory, by slot: the current point X, Y, Z,
+// W = b Z, U = 2X - W and V = 2W - X; the first level's products s0..s7;
+// A, B, C, D, 2 s3, 2 s4 and 8 s1; the second level's p0..p3 (its other
+// two products are the next Z and W); zero.
+enum { SX, SY, SZ, SW, SU, SV, SS = 6, SA = 14, SB, SC, SD, S2S3, S2S4, S8S1, SP = 21,
+       SZERO = 25, NSLOTS };
+
+// Operand slots of quad k (byte k) for the two levels, and where the
+// second level's products go.
+constexpr u64 slots8(int s0, int s1, int s2, int s3, int s4, int s5, int s6, int s7) {
+    return (u64)s0 | (u64)s1 << 8 | (u64)s2 << 16 | (u64)s3 << 24 | (u64)s4 << 32 |
+           (u64)s5 << 40 | (u64)s6 << 48 | (u64)s7 << 56;
+}
+constexpr u64 L1_A = slots8(SX, SY, SZ, SX, SY, SY, SU, SV);
+constexpr u64 L1_B = slots8(SX, SY, SZ, SY, SZ, SW, SZ, SX);
+constexpr u64 L2_A = slots8(SA, SA, SC, S2S4, SS + 4, SS + 5, SZERO, SZERO);
+constexpr u64 L2_B = slots8(SB, S2S3, SD, SD, S8S1, S8S1, SZERO, SZERO);
+constexpr u64 L2_OUT = slots8(SP, SP + 1, SP + 2, SP + 3, SZ, SW, SZERO, SZERO);
+constexpr u64 MID_OUT = slots8(SA, SB, SC, SD, S2S3, S2S4, S8S1, SZERO);
+constexpr u64 POINT_OUT = slots8(SX, SY, SU, SV, SZERO, SZERO, SZERO, SZERO);
+
+__device__ __forceinline__ int slot_of(u64 table, int k) { return (int)(table >> (8 * k)) & 0xFF; }
+
+// A lane's linear combination: three slots and their constants (5 bits
+// each, the constants biased by 16).
+constexpr u32 lc(int sx, int cx, int sy = SZERO, int cy = 0, int sz = SZERO, int cz = 0) {
+    return (u32)sx | (u32)(cx + 16) << 5 | (u32)sy << 10 | (u32)(cy + 16) << 15 |
+           (u32)sz << 20 | (u32)(cz + 16) << 25;
+}
+// A = s1 + 3 s6, B = s1 - 3 s6, C = 3 s0 - 3 s2, D = 3 s7 - 9 s2, 2 s3,
+// 2 s4, 8 s1 (lanes 0-6)
+__constant__ u32 MID_LC[8] = {lc(SS + 1, 1, SS + 6, 3), lc(SS + 1, 1, SS + 6, -3),
+                              lc(SS + 0, 3, SS + 2, -3), lc(SS + 7, 3, SS + 2, -9),
+                              lc(SS + 3, 2), lc(SS + 4, 2), lc(SS + 1, 8), lc(SZERO, 0)};
+// X' = p1 - p3, Y' = p0 + p2, U' = 2 p1 - 2 p3 - W', V' = -p1 + p3 + 2 W'
+// (lanes 0-3)
+__constant__ u32 POINT_LC[4] = {lc(SP + 1, 1, SP + 3, -1), lc(SP + 0, 1, SP + 2, 1),
+                                lc(SP + 1, 2, SP + 3, -2, SW, -1),
+                                lc(SP + 1, -1, SP + 3, 1, SW, 2)};
+
+__device__ __forceinline__ Fe run_lc(const Fe* f, u32 c) {
+    return lincomb(f[c & 31u], (int)((c >> 5) & 31u) - 16, f[(c >> 10) & 31u],
+                   (int)((c >> 15) & 31u) - 16, f[(c >> 20) & 31u], (int)((c >> 25) & 31u) - 16);
+}
+
+struct Chain {
+    Pt pts[256];      // 2^i Q: digit 2^(i % 4) of window i / 4
+    Fe f[NSLOTS];
+    int ready;        // windows whose four chain entries are stored
+};
+
+// The doubling 2 (X : Y : Z), equal as a point representation to RCB 2016
+// algorithm 6 (a = -3), on plain field elements (the fill puts the chain's
+// entries into Montgomery form), in two levels of products, W = b Z,
+// U = 2X - W and V = 2W - X carried along:
+//   s0..s7 = X^2, Y^2, Z^2, X Y, Y Z, Y W, U Z, V X;
+//   A = s1 + 3 s6, B = s1 - 3 s6, C = 3 (s0 - s2), D = 3 (s7 - 3 s2);
+//   p0..p5 = A B, A (2 s3), C D, (2 s4) D, s4 (8 s1), s5 (8 s1);
+//   X' = p1 - p3, Y' = p0 + p2, Z' = p4, W' = p5 (= b Z'),
+//   U' = 2X' - W', V' = 2W' - X'.
+// (Algorithm 6's 3 (b Z^2 - 2 X Z) is -3 s6, its 3 (2 b X Z - 3 Z^2 - X^2)
+// is D, its 2 X Y and 2 Y Z times A and D give X'.) Quad k computes product
+// k of a level; between the levels lanes 0-6 each form one linear
+// combination (MID_LC), after the second lanes 0-3 (POINT_LC), by one code
+// path (lincomb), so that the lanes run side by side. Every thread of warp
+// 0 calls it; the new point is in f and pts[i]. With split, lane 0 writes
+// clock64 at the start and after each of the four steps.
+__device__ __forceinline__ void chain_double(Chain& ch, int i, int lane, u32 mid, u32 point,
+                                             long long* split) {
+    Fe* f = ch.f;
+    if (split && lane == 0) split[0] = clock64();
+    const int k = lane >> 2, r4 = lane & 3;
+    // level 1
+    {
+        const Fe& a = f[slot_of(L1_A, k)];
+        const Fe& b = f[slot_of(L1_B, k)];
+        const Fe prod = quad_mul(a, b.w[2 * r4], b.w[2 * r4 + 1]);
+        if (r4 == 0) {
+            FMUL_COUNT();
+            f[SS + k] = prod;
+        }
+    }
+    __syncwarp(FULL);
+    if (split && lane == 0) split[1] = clock64();
+    {
+        const Fe r = run_lc(f, mid);
+        if (lane < 7) f[slot_of(MID_OUT, lane)] = r;
+    }
+    __syncwarp(FULL);
+    if (split && lane == 0) split[2] = clock64();
+    // level 2 (quads 6 and 7 multiply zeros)
+    {
+        const Fe& a = f[slot_of(L2_A, k)];
+        const Fe& b = f[slot_of(L2_B, k)];
+        const Fe prod = quad_mul(a, b.w[2 * r4], b.w[2 * r4 + 1]);
+        if (r4 == 0 && k < 6) {
+            FMUL_COUNT();
+            f[slot_of(L2_OUT, k)] = prod;
+            if (k == 4) ch.pts[i].z = prod;
+        }
+    }
+    __syncwarp(FULL);
+    if (split && lane == 0) split[3] = clock64();
+    {
+        const Fe r = run_lc(f, point);
+        if (lane < 4) f[slot_of(POINT_OUT, lane)] = r;
+        if (lane == 0) ch.pts[i].x = r;
+        if (lane == 1) ch.pts[i].y = r;
+    }
+    __syncwarp(FULL);
+    if (split && lane == 0) split[4] = clock64();
+}
+
+// A flag between the chain's warp and the fill's warps.
+__device__ __forceinline__ void publish(int* flag, int v) {
+#ifdef __CUDACC__
+    __threadfence_block();
+    *(volatile int*)flag = v;
+#else
+    __atomic_store_n(flag, v, __ATOMIC_RELEASE);
+#endif
+}
+
+__device__ __forceinline__ int observe(int* flag) {
+#ifdef __CUDACC__
+    const int v = *(volatile int*)flag;
+    __threadfence_block();
+    return v;
+#else
+    return __atomic_load_n(flag, __ATOMIC_ACQUIRE);
+#endif
+}
+
+// The fill's jobs, 7 a window, each a chain of complete additions from a
+// chain entry, every sum the one key_tables_ref forms (a digit's bits
+// added lowest first to the lowest): nibbles of FILL_JOB[j] are the start
+// bit, then for each step the bit added and the digit stored (0: none).
+//   3, 7, 15 | 5, 13 | 6, 14 | 9 | 10 | 12 | (3), 11
+constexpr int FILL_JOBS = 7;
+constexpr int FILL_STEPS = 3;
+constexpr int GROUP_WINDOWS = 4;  // a fill warp's windows at a time
+__constant__ u32 FILL_JOB[FILL_JOBS] = {
+    0x0F372310u, 0x000D3520u, 0x000E3621u, 0x00000930u, 0x00000A31u, 0x00000C32u, 0x000B3010u};
 
 // The comb of each key column: kx, ky (20, K) limbs -> tables (K, 64, 16,
-// 3, 8) words.
-extern "C" __global__ void __launch_bounds__(TABLE_THREADS)
+// 3, 8) words. A block a key: warp 0 runs the chain 2^i Q (i = 0..255,
+// digit 2^(i % 4) of window i / 4) into shared memory and counts the
+// windows done; warps 1-3 each take four windows at a time once the chain
+// has passed them, put its entries into Montgomery form, store their
+// digits 0, 1, 2, 4 and 8 and add the other eleven (lanes 0-27: seven jobs
+// a window; lanes 28-31: the copies). With
+// stamps, the block writes clock64 into stamps[STAMPS b ..]: at its start,
+// at the chain's end, (the latest of the fill warps') at the fill's end,
+// and at the start of doubling 128 and after each of its four steps.
+constexpr int STAMPS = 8;
+extern "C" __global__ void __launch_bounds__(TABLE_THREADS, 1)
 p256_key_tables(const long long* __restrict__ kx, const long long* __restrict__ ky,
-                u32* __restrict__ tables, int K) {
-    __shared__ Team tm;
+                u32* __restrict__ tables, int K, long long* __restrict__ stamps) {
+    __shared__ Chain ch;
     u32* tab = tables + (long long)blockIdx.x * TABLE_WORDS;
-    if (threadIdx.x < 32) {
-        // the chain 2^i Q, i = 0..255: digit 2^(i % 4) of window i / 4
-        const int k = threadIdx.x;
-        Pt p;
-        if (k == 0) {
-            p = key_point(kx + blockIdx.x, ky + blockIdx.x, K);
-            store_pt(tab + 24, p);
+    long long* stamp = stamps ? stamps + STAMPS * blockIdx.x : nullptr;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) ch.ready = 0;
+    __syncthreads();
+    if (warp == 0) {
+        if (stamp && lane == 0) stamp[0] = clock64();
+        if (lane < 4) {
+            // Q, plain: X, Y, Z = 1, W = b; and zero
+            Fe v = fe_zero();
+            if (lane < 2) v = reduce_once<ModP>(fe_from_limbs((lane ? ky : kx) + blockIdx.x, K));
+            else if (lane == 2) v.w[0] = 1u;
+            else v = fe_const(B_PLAIN);
+            ch.f[lane] = v;
+            Pt& pt = ch.pts[0];
+            if (lane < 3) (lane == 0 ? pt.x : lane == 1 ? pt.y : pt.z) = v;
+            if (lane == 0) ch.f[SZERO] = fe_zero();
         }
+        __syncwarp(FULL);
+        if (lane < 2) {  // U = 2X - W, V = 2W - X
+            const Fe& m = ch.f[lane ? SW : SX];
+            ch.f[SU + lane] = FSUB(FADD(m, m), ch.f[lane ? SX : SW]);
+        }
+        __syncwarp(FULL);
+        const u32 mid = MID_LC[lane < 8 ? lane : 7], point = POINT_LC[lane & 3];
 #pragma unroll 1
         for (int i = 1; i < 256; ++i) {
-            team_double(tm, k, 0xFFFFFFFFu, p);
-            if (k == 0) store_pt(tab + ((i >> 2) * 16 + (1 << (i & 3))) * 24, p);
+            chain_double(ch, i, lane, mid, point, stamp && i == 128 ? stamp + 3 : nullptr);
+            if ((i & 3) == 3 && lane == 0) publish(&ch.ready, (i >> 2) + 1);
+        }
+        if (stamp && lane == 0) stamp[1] = clock64();
+        return;
+    }
+    const int w_in = lane / FILL_JOBS, job = lane % FILL_JOBS;
+#pragma unroll 1
+    for (int g = warp - 1; g < 64 / GROUP_WINDOWS; g += TABLE_THREADS / 32 - 1) {
+        const int w0 = g * GROUP_WINDOWS;
+        while (observe(&ch.ready) < w0 + GROUP_WINDOWS) __nanosleep(256);
+        // the group's 16 chain entries into Montgomery form, in place (the
+        // chain works on plain values and never reads them again)
+#pragma unroll 1
+        for (int c = lane; c < 3 * 4 * GROUP_WINDOWS; c += 32) {
+            Pt& e = ch.pts[4 * w0 + c / 3];
+            Fe& v = c % 3 == 0 ? e.x : c % 3 == 1 ? e.y : e.z;
+            v = FMUL(v, fe_const(R2P));
+        }
+        __syncwarp(FULL);
+        if (lane < GROUP_WINDOWS * FILL_JOBS) {
+            const int w = w0 + w_in;
+            const Pt* pw = ch.pts + 4 * w;  // digits 1, 2, 4, 8
+            u32* row = tab + w * 16 * 24;
+            const u32 code = FILL_JOB[job];
+            Pt acc = pw[code & 15u];
+#pragma unroll 1
+            for (int st = 0; st < FILL_STEPS; ++st) {
+                const u32 bit = (code >> (4 + 8 * st)) & 15u, d = (code >> (8 + 8 * st)) & 15u;
+                if (bit == 0u) break;
+                acc = pt_add(acc, pw[bit]);
+                if (d) store_pt(row + d * 24, acc);
+            }
+        } else {
+            // lanes 28-31: each a window's identity and chain entries
+            const int w = w0 + lane - GROUP_WINDOWS * FILL_JOBS;
+            u32* row = tab + w * 16 * 24;
+            store_pt(row, pt_identity());
+#pragma unroll 1
+            for (int b = 0; b < 4; ++b) store_pt(row + (1 << b) * 24, ch.pts[4 * w + b]);
         }
     }
-    __syncthreads();
-    // every window's identity and its eleven other digits, a warp a digit
-    const Pt ident = pt_identity();
-#pragma unroll 1
-    for (int i = threadIdx.x; i < 64 * (FILL_DIGITS + 1); i += TABLE_THREADS) {
-        const int w = i & 63, which = i >> 6;
-        u32* row = tab + w * 16 * 24;
-        if (which == FILL_DIGITS) {
-            store_pt(row, ident);
-            continue;
-        }
-        const int d = FILL[which];
-        const int low = d & -d;
-        Pt acc = load_pt(row + low * 24);
-#pragma unroll 1
-        for (int bit = low << 1; bit < 16; bit <<= 1)
-            if (d & bit) acc = pt_add(acc, load_pt(row + bit * 24));
-        store_pt(row + d * 24, acc);
-    }
+    if (stamp && lane == 0)
+        atomicMax((unsigned long long*)stamp + 2, (unsigned long long)clock64());
 }
 
 // K2's shared memory: the block's product tree of its lanes' s (leaves at
@@ -949,7 +1304,18 @@ extern "C" int p256_key_tables_launch(const void* kx, const void* ky, void* tabl
                                       void* stream) {
     if (K > 0) {
         p256_key_tables<<<K, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
-            (const long long*)kx, (const long long*)ky, (u32*)tables, K);
+            (const long long*)kx, (const long long*)ky, (u32*)tables, K, nullptr);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The same launch, each block also writing the SM clock (clock64) into
+// stamps (K, STAMPS) int64 (p256_key_tables).
+extern "C" int p256_key_tables_stamped_launch(const void* kx, const void* ky, void* tables,
+                                              void* stamps, int K, void* stream) {
+    if (K > 0) {
+        p256_key_tables<<<K, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
+            (const long long*)kx, (const long long*)ky, (u32*)tables, K, (long long*)stamps);
     }
     return (int)cudaGetLastError();
 }

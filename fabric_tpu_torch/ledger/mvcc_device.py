@@ -13,12 +13,17 @@ fixpoint:
 Tx t depends only on txs u < t, so the sweep converges to the unique
 sequential answer in at most T + 1 sweeps (in real blocks, 2-3).
 
-`resolve` (K5) and `resolve_resident` (K6) are the wrappers of the two
+`resolve` (K5) and `resolve_resident` (K6) are the wrappers of the
 kernels of `csrc/mvcc_resolve.cu`, which replace the JAX package's jitted
 `_resolve` and `_resolve_resident`. Given CUDA tensors they launch on the
 current stream and do not synchronize; given CPU tensors they run the plain
 versions `resolve_ref` / `resolve_resident_ref`. Anything else raises;
-there is no fallback. They take exact sizes: the power-of-two buckets of
+there is no fallback. K6 has two routes, chosen by the block's size alone
+(`resident_route`): `mvcc_resolve_resident`, its scratch in shared memory
+and its columns in registers, for a block within `resident_fits`'s limits
+(config #4's and the 1M-key chain's blocks), and
+`mvcc_resolve_resident_global`, its scratch in device memory, for any
+other. They take exact sizes: the power-of-two buckets of
 the JAX package exist so that XLA reuses a compiled program, and a CUDA
 kernel needs none. Each returns the (T,) validity mask and a (1,) int32
 status: the number of sweeps, or a negative code that `converged_sweeps`
@@ -54,7 +59,37 @@ _INT32_MAX = 2**31 - 1
 
 # Kernel launches per wrapper, counted where they launch (never for the
 # plain versions).
-LAUNCHES: Dict[str, int] = {"mvcc_resolve": 0, "mvcc_resolve_resident": 0}
+LAUNCHES: Dict[str, int] = {"mvcc_resolve": 0, "mvcc_resolve_resident": 0,
+                            "mvcc_resolve_resident_global": 0}
+
+# K6's shared route (csrc/mvcc_resolve.cu resident_fits): a block of
+# RESIDENT_THREADS threads holding up to RESIDENT_COLS reads each in
+# registers, tx ids and sweep stamps in 16 bits, and 12 bytes a key, 4 a
+# write and 5 a transaction (and 16) of shared memory within the 232,448
+# bytes a block may have.
+RESIDENT_THREADS = 1024
+RESIDENT_COLS = 12
+RESIDENT_T_MAX = 65532
+RESIDENT_SHARED_MAX = 232448
+
+
+def resident_shared_bytes(num_txs: int, num_keys: int, n_writes: int) -> int:
+    return 12 * num_keys + 4 * n_writes + 5 * num_txs + 16
+
+
+def resident_fits(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> bool:
+    cols = RESIDENT_THREADS * RESIDENT_COLS
+    return (n_reads <= cols and n_writes <= cols and num_txs <= RESIDENT_T_MAX
+            and num_keys < 1 << 16
+            and resident_shared_bytes(num_txs, num_keys, n_writes) <= RESIDENT_SHARED_MAX)
+
+
+def resident_route(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> str:
+    """The K6 kernel a block's sizes select: "mvcc_resolve_resident"
+    (shared memory) or "mvcc_resolve_resident_global" (device memory)."""
+    if resident_fits(n_reads, n_writes, num_txs, num_keys):
+        return "mvcc_resolve_resident"
+    return "mvcc_resolve_resident_global"
 
 # status codes written by the kernels (and the plain versions)
 NOT_CONVERGED = -1
@@ -169,9 +204,17 @@ def _lib() -> ctypes.CDLL:
     lib.mvcc_resolve_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P] * 6
     lib.mvcc_resolve_launch.restype = _I
     lib.mvcc_resolve_resident_launch.argtypes = (
-        [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 8
+        [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3
     )
     lib.mvcc_resolve_resident_launch.restype = _I
+    lib.mvcc_resolve_resident_stamped_launch.argtypes = (
+        [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 4
+    )
+    lib.mvcc_resolve_resident_stamped_launch.restype = _I
+    lib.mvcc_resolve_resident_global_launch.argtypes = (
+        [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 8
+    )
+    lib.mvcc_resolve_resident_global_launch.restype = _I
     return lib
 
 
@@ -246,7 +289,59 @@ def resolve_resident(
     The version table is updated IN PLACE (init scatter, then the commit
     scatter), where the JAX program donates it and returns a new one. After
     a launch whose status is negative, or a failed launch, its contents are
-    unreliable and the caller drops it."""
+    unreliable and the caller drops it. The kernel is the one
+    `resident_route` names for the sizes: shared memory for a block within
+    `resident_fits`, device memory for any other; each counts its own
+    launches."""
+    args = (versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key, w_gid, w_ver)
+    device, n_r, n_w = _resident_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if not cudalib.kernel_device(device, "MVCC"):
+        return resolve_resident_ref(*args, num_txs, num_keys)
+    return _launch_resident(resident_route(n_r, n_w, num_txs, num_keys), *args,
+                            num_txs=num_txs, num_keys=num_keys)
+
+
+def launch_resident(route: str, *args, num_txs: int, num_keys: int):
+    """K6's kernel `route` ("mvcc_resolve_resident" or
+    "mvcc_resolve_resident_global") on CUDA tensors in `resolve_resident`'s
+    layout, whatever the sizes would pick: the entry through which
+    `chip_smoke.py` holds each route to the plain version at one shape. The
+    shared route raises on a block past `resident_fits`."""
+    device, _n_r, _n_w = _resident_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if device.type != "cuda":
+        raise ValueError("launch_resident runs a kernel: give it CUDA tensors")
+    return _launch_resident(route, *args, num_txs=num_txs, num_keys=num_keys)
+
+
+def resolve_resident_stamped(*args, num_txs: int, num_keys: int):
+    """K6's shared route on CUDA tensors in `resolve_resident`'s layout, with
+    thread 0's SM clock (clock64) stamps: (valid, status, (18,) int64) in
+    the kernel's slots: the block's start (0), the columns' barrier (1),
+    the versions' check (2), each barrier of sweeps 0-4 (3-12: writers,
+    readers; 0 for a sweep not run), the commit's two barriers and the end
+    (13-15), and thread 0's reads and writes loaded (16, 17). The probe
+    behind the split of K6's time; it counts as a launch of
+    `mvcc_resolve_resident`."""
+    device, n_r, n_w = _resident_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if device.type != "cuda":
+        raise ValueError("resolve_resident_stamped reads the card's clock: give it CUDA tensors")
+    versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key, w_gid, w_ver = args
+    valid = torch.empty(num_txs, dtype=torch.bool, device=device)
+    status = torch.empty(1, dtype=torch.int32, device=device)
+    stamps = torch.zeros(18, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = _lib().mvcc_resolve_resident_stamped_launch(
+            versions.data_ptr(), versions.shape[0], init_idx.data_ptr(), init_ver.data_ptr(),
+            init_idx.shape[0], r_gid.data_ptr(), r_ver.data_ptr(), r_tx.data_ptr(),
+            r_key.data_ptr(), w_tx.data_ptr(), w_key.data_ptr(), w_gid.data_ptr(),
+            w_ver.data_ptr(), n_r, n_w, num_txs, num_keys, valid.data_ptr(),
+            status.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _launch_check("mvcc_resolve_resident", rc)
+    return valid, status, stamps
+
+
+def _resident_checks(versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key,
+                     w_gid, w_ver, *, num_txs: int, num_keys: int):
     device = versions.device
     cap = versions.shape[0] if versions.dim() == 2 else -1
     n_i = init_idx.shape[0] if init_idx.dim() == 1 else -1
@@ -263,28 +358,38 @@ def resolve_resident(
     for name, t, shape in checks:
         cudalib.check_tensor(name, t, torch.int32, shape, device)
     _sizes(num_txs, num_keys)
-    if not cudalib.kernel_device(device, "MVCC"):
-        return resolve_resident_ref(
-            versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx, w_key, w_gid,
-            w_ver, num_txs, num_keys,
-        )
+    return device, n_r, n_w
+
+
+def _launch_resident(route, versions, init_idx, init_ver, r_gid, r_ver, r_tx, r_key, w_tx,
+                     w_key, w_gid, w_ver, *, num_txs: int, num_keys: int):
+    device = versions.device
+    n_r, n_w = r_tx.shape[0], w_tx.shape[0]
     valid = torch.empty(num_txs, dtype=torch.bool, device=device)
     status = torch.empty(1, dtype=torch.int32, device=device)
-    static_bad = torch.empty(n_r, dtype=torch.uint8, device=device)
-    min_writer = torch.empty(num_keys, dtype=torch.int32, device=device)
-    best = torch.empty(num_keys, dtype=torch.int64, device=device)
-    bad = torch.empty(num_txs, dtype=torch.int32, device=device)
-    base = torch.empty(num_txs, dtype=torch.uint8, device=device)
+    cols = (
+        versions.data_ptr(), versions.shape[0], init_idx.data_ptr(), init_ver.data_ptr(),
+        init_idx.shape[0], r_gid.data_ptr(), r_ver.data_ptr(), r_tx.data_ptr(),
+        r_key.data_ptr(), w_tx.data_ptr(), w_key.data_ptr(), w_gid.data_ptr(),
+        w_ver.data_ptr(), n_r, n_w, num_txs, num_keys,
+    )
     with torch.cuda.device(device):
-        rc = _lib().mvcc_resolve_resident_launch(
-            versions.data_ptr(), cap, init_idx.data_ptr(), init_ver.data_ptr(), n_i,
-            r_gid.data_ptr(), r_ver.data_ptr(), r_tx.data_ptr(), r_key.data_ptr(),
-            w_tx.data_ptr(), w_key.data_ptr(), w_gid.data_ptr(), w_ver.data_ptr(),
-            n_r, n_w, num_txs, num_keys, static_bad.data_ptr(), min_writer.data_ptr(),
-            best.data_ptr(), bad.data_ptr(), base.data_ptr(), valid.data_ptr(),
-            status.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
-    _launch_check("mvcc_resolve_resident", rc)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if route == "mvcc_resolve_resident":
+            rc = _lib().mvcc_resolve_resident_launch(
+                *cols, valid.data_ptr(), status.data_ptr(), stream)
+        elif route == "mvcc_resolve_resident_global":
+            static_bad = torch.empty(n_r, dtype=torch.uint8, device=device)
+            min_writer = torch.empty(num_keys, dtype=torch.int32, device=device)
+            best = torch.empty(num_keys, dtype=torch.int64, device=device)
+            bad = torch.empty(num_txs, dtype=torch.int32, device=device)
+            base = torch.empty(num_txs, dtype=torch.uint8, device=device)
+            rc = _lib().mvcc_resolve_resident_global_launch(
+                *cols, static_bad.data_ptr(), min_writer.data_ptr(), best.data_ptr(),
+                bad.data_ptr(), base.data_ptr(), valid.data_ptr(), status.data_ptr(), stream)
+        else:
+            raise ValueError(f"no K6 route {route!r}")
+    _launch_check(route, rc)
     return valid, status
 
 

@@ -101,9 +101,15 @@ KERNEL_MOD_P_BYTES = THREADS_PER_LANE * 15 * MULS_ADD + 7 * MULS_ADD + MULS_CHEC
 # 4 doublings and 2 additions, the check
 KERNEL_MOD_P_LIMBS = (2 + 14 * MULS_ADD + MULS_ADD
                       + (NUM_WINDOWS - 1) * (4 * MULS_DOUBLE + 2 * MULS_ADD) + MULS_CHECK)
-# a key's comb: Q to Montgomery, 255 doublings, 17 additions a window
-TABLE_FILL_ADDS = 17
-KERNEL_MOD_P_TABLE = 2 + 255 * MULS_DOUBLE + NUM_WINDOWS * TABLE_FILL_ADDS * MULS_ADD
+# a key's comb: 255 doublings of two levels (8 and 6 products, W = b Z
+# carried along) on plain field elements, the 256 chain entries' three
+# coordinates into Montgomery form, 12 additions a window (its 11 other
+# digits, 3 formed twice)
+MULS_DOUBLE_TABLE = 8 + 6
+TABLE_TO_MONT = 256 * 3
+TABLE_FILL_ADDS = 12
+KERNEL_MOD_P_TABLE = (255 * MULS_DOUBLE_TABLE + TABLE_TO_MONT
+                      + NUM_WINDOWS * TABLE_FILL_ADDS * MULS_ADD)
 
 # The replaced one-thread-a-lane kernel: 332 mod n (Fermat with a
 # 4-bit fixed window) and 5,322 mod p (per-lane Q table, 64 windows of 4
@@ -566,6 +572,8 @@ def _lib() -> ctypes.CDLL:
     lib.p256_verify_limbs_launch.restype = _I
     lib.p256_key_tables_launch.argtypes = [_P] * 3 + [_I, _P]
     lib.p256_key_tables_launch.restype = _I
+    lib.p256_key_tables_stamped_launch.argtypes = [_P] * 4 + [_I, _P]
+    lib.p256_key_tables_stamped_launch.restype = _I
     return lib
 
 
@@ -595,6 +603,32 @@ def key_tables(kx: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:
         )
     _launch_check("p256_key_tables", rc)
     return out
+
+
+def key_tables_stamped(kx: torch.Tensor, ky: torch.Tensor):
+    """`key_tables` on the card with each block's SM clock stamps: the
+    tables and (K, 8) int64 clock64 readings at the block's start, the end
+    of its doubling chain, the end of its fill, and the start of doubling
+    128 and the end of each of its four steps (first level of products,
+    A..D, second level, the new point). The probe behind the split of the
+    table kernel's time; it counts as a launch of `p256_key_tables`."""
+    device = kx.device
+    nkeys = kx.shape[1] if kx.dim() == 2 else -1
+    for name, t in (("kx", kx), ("ky", ky)):
+        cudalib.check_tensor(name, t, torch.int64, (bn.NLIMBS, nkeys), device)
+    if device.type != "cuda":
+        raise ValueError("key_tables_stamped reads the card's clocks: give it CUDA tensors")
+    out = torch.empty((nkeys, NUM_WINDOWS, 16, 3, 8), dtype=torch.int32, device=device)
+    stamps = torch.zeros((nkeys, 8), dtype=torch.int64, device=device)
+    if nkeys == 0:
+        return out, stamps
+    with torch.cuda.device(device):
+        rc = _lib().p256_key_tables_stamped_launch(
+            kx.data_ptr(), ky.data_ptr(), out.data_ptr(), stamps.data_ptr(), nkeys,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _launch_check("p256_key_tables", rc)
+    return out, stamps
 
 
 def verify_batch(

@@ -48,9 +48,12 @@ int main(int argc, char** argv) {
     const auto kx = read_file(dir + "kx.bin"), ky = read_file(dir + "ky.bin");
     const auto gcomb = read_file(dir + "gcomb.bin"), valid = read_file(dir + "valid.bin");
     std::vector<u32> tables((size_t)K * TABLE_WORDS);
+    std::vector<long long> stamps((size_t)K * STAMPS, 0);
     launch(K, TABLE_THREADS, [&] {
-        p256_key_tables((const long long*)kx.data(), (const long long*)ky.data(), tables.data(), K);
+        p256_key_tables((const long long*)kx.data(), (const long long*)ky.data(), tables.data(), K,
+                        stamps.data());
     });
+    write_file(dir + "stamps.bin", stamps.data(), stamps.size() * sizeof(long long));
     write_counts(dir, "tables");
     write_file(dir + "tables.bin", tables.data(), tables.size() * sizeof(u32));
 

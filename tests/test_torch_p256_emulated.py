@@ -113,6 +113,7 @@ def emulated(tmp_path_factory):
         "plain_bytes": pk.verify_batch_bytes(*args_b).tolist(),
         "plain_limbs": pk.verify_batch(*args_l).tolist(),
         "tables": np.fromfile(build / "tables.bin", dtype=np.uint32),
+        "stamps": np.fromfile(build / "stamps.bin", dtype=np.int64).reshape(len(points), -1),
         "plain_tables": pk.key_tables(t(kx), t(ky)).numpy().view(np.uint32),
         "shape": (group, block, table_block),
         "counts": {"bytes": counts("bytes", group, len(lanes)),
@@ -152,3 +153,14 @@ def test_threads_and_multiplies_match_the_counts(emulated):
         for b in per_block]
     tables = emulated["counts"]["tables"]
     assert set(tables["fmuls"]) == {pk.KERNEL_MOD_P_TABLE} and set(tables["nmuls"]) == {0}
+
+
+def test_table_stamps_in_order(emulated):
+    """Each table block's clock stamps (what key_tables_stamped returns on
+    the card): the start, then doubling 128's start and the ends of its
+    four steps, then the chain's end; the fill's end after the start."""
+    st = emulated["stamps"]
+    assert st.shape[1] == 8
+    for row in st:
+        assert all(np.diff(row[[0, 3, 4, 5, 6, 7, 1]]) >= 0)
+        assert row[2] >= row[0] > 0
