@@ -31,16 +31,20 @@ key-comb kernel, csrc/p256_verify.cu; `p256_phases`):
 
 The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
 
-  6. mvcc_kernel_vs_plain: K5 and both K6 routes (shared memory, global
-     memory; mvcc_device.resident_route picks one by size) against their
-     plain versions on seeded columns with a 64-tx alternating chain, keys
-     with no writer, txs with no reads, duplicate writers, deletes and
-     drop-sentinel indices; and a seeded block past the shared route's
-     limit (19,400 keys), which takes the global route and which the
-     shared route refuses;
+  6. mvcc_kernel_vs_plain: both K5 routes and both K6 routes (shared
+     memory, global memory; mvcc_device.resolve_route and resident_route
+     pick one by size) against their plain versions on seeded columns with
+     a 64-tx alternating chain, keys with no writer, txs with no reads,
+     duplicate writers, deletes and drop-sentinel indices; a seeded block
+     past K5's shared limit (13,000 reads) and one past K6's (19,400 keys),
+     each taking its global route, which the shared route refuses;
   7. mvcc_5k: BASELINE config #4 (bench.py bench_mvcc), a 5,000-tx block
      through serialize -> parse -> DeviceValidator: codes and updates equal
-     to the host oracle's, 500 conflicts;
+     to the host oracle's, 500 conflicts, K5's shared route; then the same
+     block shape at 13,000 txs, past K5's shared route, through K5's global
+     route; both routes held to the plain version at both shapes, timed in
+     turns at config #4 and the global route at 13,000 txs, the shared
+     route's time split from its clock stamps (`k5_probe`);
   8. mvcc_resident_5k: config #4's resident blocks (bench.py bench_mvcc,
      its resident variant), 4 blocks through kvledger.commit_block_state
      with a ResidentDeviceValidator against a second state DB behind the
@@ -56,7 +60,7 @@ The ledger's commit-time MVCC (K5 and K6, csrc/mvcc_resolve.cu):
      and rebuilds the table, and K6 launches 18 times; its last block
      held, timed and split as block 4 of 8;
  10. each kernel's time at its main-path shapes, its plain version's time
-     and its bound.
+     and its bound; a route of a kernel is an entry of its own.
 
 Idemix batch verification of BASELINE config #3 (K3 and K4, csrc/bn256.cu):
 
@@ -91,13 +95,17 @@ csrc/policy_eval.cu; K2 and K6 on the validator's path):
      oracle on tests/test_policy.py's exhaustive and random policies and on
      edge lanes (S in {31, 32, 33, 64, 65, 100}, n = 0, n above the child
      count, NOutOf with no children, failing branches that claimed signers,
-     depth 23, B = 1); B = 0 launches nothing;
+     depth 23, B = 1), each case on the route its shape picks
+     (policy_kernel.policy_route: the shared route up to 32 signers, the
+     global route past it) and on each route that takes it; B = 0 launches nothing;
  15. validator_config2: bench.py's config #2 (Org1-3 minted by the port's
      cryptogen, a 1,000-tx block of 3,000 signature lanes from 3 keys under
      OutOf(2, ...)) through BlockValidator over CUDAProvider, a warm-up and
      5 timed runs on fresh validators: all VALID, K2 once a block, ms per
-     block and its split; then K7 on the block's 1,000 satisfaction rows,
-     its verdicts equal to the flags and the plain version, and its time;
+     block and its split; then K7 through compile_batched on the block's
+     1,000 satisfaction rows (the shared route) and on the same rows in a
+     batch 33 signers wide (the global route), verdicts equal to the flags and
+     the plain version, both routes timed in turns at the block's shape;
  16. validator_mask: 70 txs of ten kinds (valid, flipped creator signature,
      flipped endorsement, unknown MSP, unknown chaincode, bad txid, in-block
      duplicate, nil envelope, unparseable payload, a CRL-revoked endorser),
@@ -106,7 +114,9 @@ csrc/policy_eval.cu; K2 and K6 on the validator's path):
  17. validator_commit: three config #2 blocks validated and committed
      through kvledger.commit_block_state with a ResidentDeviceValidator
      (K6), commit hashes equal to the host route's on a second state DB;
- 18. the kernels line, then the card's name and power limit.
+ 18. the launch floor (a kernel that does nothing, timed as the kernels
+     are), the kernels line with it as floor_ms, then the card's name and
+     power limit.
 
 Signature inputs are signed by the port's oracle with fixed keys and
 nonces, a known subset corrupted (flipped digest, wrong key, s+1, high-S,
@@ -159,12 +169,20 @@ CHAIN_BLOCKS = 20
 CHAIN_KEYS = 1_000_000
 CHAIN_HASHED_KEYS = 50_000
 ZIPF_S = 1.1
-# K6's two kernels, chosen by a block's size (mvcc_device.resident_route)
+# K5's and K6's two kernels each, chosen by a block's size
+# (mvcc_device.resolve_route, resident_route)
+K5_ROUTES = ("mvcc_resolve", "mvcc_resolve_global")
 K6_ROUTES = ("mvcc_resolve_resident", "mvcc_resolve_resident_global")
+# config #4's block shape past K5's shared route (12,288 reads)
+PAST_K5_TXS = 13_000
 
 
 def k6_launches(md) -> dict:
     return {r: md.LAUNCHES[r] for r in K6_ROUTES}
+
+
+def k5_launches(md) -> dict:
+    return {r: md.LAUNCHES[r] for r in K5_ROUTES}
 
 
 def mvcc_kernel_cases(np):
@@ -420,6 +438,37 @@ def k6_probe(np, md, table, args, kw) -> dict:
     return {"cycles": out, "total_cycles": int(st[15] - st[0])}
 
 
+def k5_probe(np, md, args, kw) -> dict:
+    """K5's shared route's time split at one shape, from thread 0's SM clock
+    stamps (`mvcc_device.resolve_stamped`): the columns' load (the first
+    six columns' loads in flight while the scratch is cleared, up to its
+    barrier; their use; the second six; the barrier), the writers and
+    readers of sweeps 0-4 (later sweeps fall in the last interval), the
+    mask; in cycles."""
+    _valid, status, stamps = md.resolve_stamped(*args, **kw)
+    st = stamps.cpu().numpy().astype(np.int64)
+    sweeps = md.converged_sweeps(status.cpu())
+    last = "mask" if sweeps <= 5 else f"sweeps_5_to_{sweeps}_and_mask"
+    names = ["load_scratch_barrier", "load_first_half", "load_second_half", "load_barrier"] + [
+        f"sweep{i}_{part}" for i in range(5) for part in ("writers", "readers")] + [last]
+    out, prev = {}, st[0]
+    for slot, name in zip(range(1, 16), names):
+        if st[slot]:
+            out[name] = int(st[slot] - prev)
+            prev = st[slot]
+    return {"cycles": out, "total_cycles": int(st[15] - st[0])}
+
+
+def plain_ms(torch, fn) -> float:
+    """Host-clock milliseconds of one call of `fn` (a plain version on the
+    card), with the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def device_ms(torch, launch, reps: int, prepare=None) -> float:
     """Mean device time of `launch()` over `reps` launches, from CUDA events
     around each launch. The launches are queued behind a sleep kernel, so
@@ -456,14 +505,31 @@ def mvcc_phases(torch, np, dev):
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
-    def k5_vs_plain(args, T, K):
-        valid, status = md.resolve(*args, T, K)
+    def k5_vs_plain(args, T, K, route):
+        valid, status = md.launch_resolve(route, *args, num_txs=T, num_keys=K)
         torch.cuda.synchronize()
         pvalid, pstatus = md.resolve_ref(*args, T, K)
         sweeps = md.converged_sweeps(status.cpu())
         if valid.tolist() != pvalid.tolist() or status.tolist() != pstatus.tolist():
-            raise AssertionError("mvcc_resolve: kernel and plain version differ")
+            raise AssertionError(f"{route}: kernel and plain version differ")
         return int((valid.int() - pvalid.int()).abs().max().item()) if T else 0, sweeps
+
+    def k5_routes(args, T, K):
+        """Both K5 routes against the plain version at one shape (the
+        shared one where the block fits it, and refusing it where not); the
+        route its sizes pick."""
+        R, W = args[0].numel(), args[3].numel()
+        errs, sweeps = [], None
+        for route in K5_ROUTES:
+            if route == K5_ROUTES[0] and not md.resolve_fits(R, W, T, K):
+                try:
+                    md.launch_resolve(route, *args, num_txs=T, num_keys=K)
+                except RuntimeError:
+                    continue
+                raise AssertionError("the shared K5 route took a block past its limit")
+            err, sweeps = k5_vs_plain(args, T, K, route)
+            errs.append(err)
+        return max(errs), sweeps, md.resolve_route(R, W, T, K)
 
     def k6_vs_plain(table, args, T, K, route):
         kt, pt = table.clone(), table.clone()
@@ -497,8 +563,17 @@ def mvcc_phases(torch, np, dev):
     t_phase = time.perf_counter()
     k5, k6 = mvcc_kernel_cases(np)
     r_tx, r_key, r_bad, w_tx, w_key, T, K = k5
-    err5, sweeps5 = k5_vs_plain(
+    err5, sweeps5, route5 = k5_routes(
         (i32(r_tx), i32(r_key), torch.from_numpy(r_bad).to(dev), i32(w_tx), i32(w_key)), T, K)
+    # past K5's shared limit (13,000 reads): the global route by size, and
+    # the shared route refuses it
+    table, _ii, _iv, r_gid, r_ver, p_tx, p_key, q_tx, q_key, *_rest, Tq, Kq = mvcc_random_case(
+        np, np.random.default_rng(MVCC_SEED + 3), 5000, 6_000, PAST_K5_TXS, 5_000, 8_192)
+    q_bad = (np.asarray(r_ver) != table[np.clip(r_gid, 0, len(table) - 1)]).any(axis=1)
+    errq, sweepsq, routeq = k5_routes(
+        (i32(p_tx), i32(p_key), torch.from_numpy(q_bad).to(dev), i32(q_tx), i32(q_key)), Tq, Kq)
+    if route5 != K5_ROUTES[0] or routeq != K5_ROUTES[1]:
+        raise AssertionError(f"K5 routes {route5}, {routeq}")
     table, *cols, T6, K6 = k6
     err6, sweeps6, _, route6 = k6_routes(i32(table), tuple(i32(c) for c in cols), T6, K6)
     if sweeps5 < 64 or sweeps6 < 64:
@@ -519,6 +594,10 @@ def mvcc_phases(torch, np, dev):
         raise AssertionError(f"K6 routes {route6}, {routep}")
     emit({"phase": "mvcc_kernel_vs_plain", "txs": T, "keys": K, "reads": len(r_tx),
           "writes": len(w_tx), "sweeps": [sweeps5, sweeps6], "max_abs_err": [err5, err6],
+          "k5_route": route5, "k5_routes_held": list(K5_ROUTES),
+          "k5_past_shared_limit": {"txs": Tq, "keys": Kq, "reads": len(p_tx),
+                                   "writes": len(q_tx), "route": routeq, "sweeps": sweepsq,
+                                   "max_abs_err": errq, "shared_route_refused": True},
           "k6_route": route6, "k6_routes_held": list(K6_ROUTES),
           "past_shared_limit": {"txs": Tp, "keys": Kp, "reads": cols[2].numel(),
                                 "writes": cols[6].numel(), "route": routep, "sweeps": sweepsp,
@@ -536,66 +615,108 @@ def mvcc_phases(torch, np, dev):
         captured["k6"] = (versions.clone(), args, kw)
         return real_resident(versions, *args, **kw)
 
-    # --- mvcc_5k: BASELINE config #4 through DeviceValidator --------------
-    t_phase = time.perf_counter()
-    db = statedb.VersionedDB()
-    seed = statedb.UpdateBatch()
-    for i in range(MVCC_TXS):
-        seed.put("cc", f"k{i}", b"v0", rw.Version(0, i))
-    db.apply_updates(seed)
-    txs = mvcc_config4_rwsets(rw)
-    t0 = time.perf_counter()
-    raw = [serialize_tx_rwset(t) for t in txs]
-    t1 = time.perf_counter()
-    parsed = [parse_tx_rwset(b) for b in raw]
-    t2 = time.perf_counter()
-    if parsed != txs:
-        raise AssertionError("config #4 rwsets do not survive serialize -> parse")
-    incoming = [VALID] * MVCC_TXS
-    host_ms = []
-    for _ in range(3):
-        t3 = time.perf_counter()
-        want = mvcc.Validator(db).validate_and_prepare_batch(1, parsed, incoming)
-        host_ms.append((time.perf_counter() - t3) * 1e3)
-    conflicts = sum(c == TxValidationCode.MVCC_READ_CONFLICT for c in want[0])
-    if conflicts != MVCC_TXS // 10:
-        raise AssertionError(f"config #4: the host oracle found {conflicts} conflicts")
-    dv = md.DeviceValidator(db, device=dev)
-    md.resolve = capture_resolve
-    for k in md.LAUNCHES:
-        md.LAUNCHES[k] = 0
-    try:
-        splits, block_ms = [], []
+    def config4_block(n_txs):
+        """bench.py bench_mvcc's block of n_txs over as many committed keys:
+        the state DB, the rwsets through serialize -> parse, the host
+        oracle's result (3 timed runs) and its conflicts."""
+        db = statedb.VersionedDB()
+        seed = statedb.UpdateBatch()
+        for i in range(n_txs):
+            seed.put("cc", f"k{i}", b"v0", rw.Version(0, i))
+        db.apply_updates(seed)
+        txs = mvcc_config4_rwsets(rw, n_txs=n_txs)
+        t0 = time.perf_counter()
+        raw = [serialize_tx_rwset(t) for t in txs]
+        t1 = time.perf_counter()
+        parsed = [parse_tx_rwset(b) for b in raw]
+        t2 = time.perf_counter()
+        if parsed != txs:
+            raise AssertionError("config #4 rwsets do not survive serialize -> parse")
+        incoming = [VALID] * n_txs
+        host_ms = []
         for _ in range(3):
             t3 = time.perf_counter()
-            got = dv.validate_and_prepare_batch(1, parsed, incoming)
-            block_ms.append((time.perf_counter() - t3) * 1e3)
-            if dv.last_path != "device":
-                raise AssertionError("config #4 block did not take the device route")
-            if (got[0] != want[0] or batches_as_values(got[1]) != batches_as_values(want[1])
-                    or batches_as_values(got[2]) != batches_as_values(want[2])):
-                raise AssertionError("config #4: device codes or updates differ from the oracle's")
-            splits.append(dict(dv.last_ms))
-    finally:
-        md.resolve = real_resolve
-    launches5 = md.LAUNCHES["mvcc_resolve"]
-    if launches5 == 0:
-        raise AssertionError("mvcc_resolve never launched on the MVCC path")
-    args5, kw5 = captured["k5"]
-    err5b, sweeps5b = k5_vs_plain(args5, kw5["num_txs"], kw5["num_keys"])
-    ms5 = device_ms(torch, lambda: real_resolve(*args5, **kw5), 20)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    md.resolve_ref(*args5, **kw5)
-    torch.cuda.synchronize()
-    plain5 = (time.perf_counter() - t3) * 1e3
+            want = mvcc.Validator(db).validate_and_prepare_batch(1, parsed, incoming)
+            host_ms.append((time.perf_counter() - t3) * 1e3)
+        conflicts = sum(c == TxValidationCode.MVCC_READ_CONFLICT for c in want[0])
+        if conflicts != n_txs // 10:
+            raise AssertionError(f"config #4 at {n_txs} txs: the oracle found {conflicts} conflicts")
+        return {"db": db, "seed": seed, "parsed": parsed, "incoming": incoming, "want": want,
+                "conflicts": conflicts, "serialize_ms": (t1 - t0) * 1e3,
+                "parse_ms": (t2 - t1) * 1e3, "host_oracle_ms": host_ms}
+
+    def device_blocks(blk):
+        """Three runs of the block through a DeviceValidator, each held to
+        the host oracle's codes and updates: the main path. K5's launches by
+        route are counted from 0 over the three runs; returns them with the
+        runs' times and splits and the last K5 call's arguments."""
+        dv = md.DeviceValidator(blk["db"], device=dev)
+        md.resolve = capture_resolve
+        for k in md.LAUNCHES:
+            md.LAUNCHES[k] = 0
+        try:
+            splits, block_ms = [], []
+            for _ in range(3):
+                t3 = time.perf_counter()
+                got = dv.validate_and_prepare_batch(1, blk["parsed"], blk["incoming"])
+                block_ms.append((time.perf_counter() - t3) * 1e3)
+                want = blk["want"]
+                if dv.last_path != "device":
+                    raise AssertionError("a config #4 block did not take the device route")
+                if (got[0] != want[0] or batches_as_values(got[1]) != batches_as_values(want[1])
+                        or batches_as_values(got[2]) != batches_as_values(want[2])):
+                    raise AssertionError("config #4: device codes or updates differ from the oracle's")
+                splits.append(dict(dv.last_ms))
+        finally:
+            md.resolve = real_resolve
+        return {"device_ms": block_ms, "device_split_ms": splits, "sweeps": dv.last_sweeps,
+                "route_launches": k5_launches(md), "call": captured["k5"]}
+
+    # --- mvcc_5k: BASELINE config #4 through DeviceValidator, then the same
+    # block shape at 13,000 txs, past K5's shared route ----------------------
+    t_phase = time.perf_counter()
+    c4 = config4_block(MVCC_TXS)
+    seed = c4["seed"]
+    run4 = device_blocks(c4)
+    past = config4_block(PAST_K5_TXS)
+    runp = device_blocks(past)
+    if (run4["route_launches"] != {K5_ROUTES[0]: 3, K5_ROUTES[1]: 0}
+            or runp["route_launches"] != {K5_ROUTES[0]: 0, K5_ROUTES[1]: 3}):
+        raise AssertionError(f"K5 launches on the MVCC path: {run4['route_launches']}, "
+                             f"{runp['route_launches']}")
+    launches5, launches5g = run4["route_launches"][K5_ROUTES[0]], runp["route_launches"][K5_ROUTES[1]]
+    args5, kw5 = run4["call"]
+    args5p, kw5p = runp["call"]
+    err5b, sweeps5b, _ = k5_routes(args5, kw5["num_txs"], kw5["num_keys"])
+    err5p, sweeps5p, _ = k5_routes(args5p, kw5p["num_txs"], kw5p["num_keys"])
+    # each route's time, in turns at config #4 (global, shared, shared, global)
+    shared4 = lambda: real_resolve(*args5, **kw5)  # noqa: E731
+    global4 = lambda: md.launch_resolve(K5_ROUTES[1], *args5, **kw5)  # noqa: E731
+    turns5 = [device_ms(torch, fn, 20) for fn in (global4, shared4, shared4, global4)]
+    ms5, ms5_global = (turns5[1] + turns5[2]) / 2, (turns5[0] + turns5[3]) / 2
+    ms5p = device_ms(torch, lambda: real_resolve(*args5p, **kw5p), 20)
+    split5 = k5_probe(np, md, args5, kw5)
+    plain5 = plain_ms(torch, lambda: md.resolve_ref(*args5, **kw5))
+    plain5p = plain_ms(torch, lambda: md.resolve_ref(*args5p, **kw5p))
     R5, W5 = args5[0].numel(), args5[3].numel()
+    R5p, W5p = args5p[0].numel(), args5p[3].numel()
     bound5 = k5_bytes(R5, W5, kw5["num_txs"]) / HBM_BYTES_PER_S * 1e3
-    emit({"phase": "mvcc_5k", "txs": MVCC_TXS, "conflicts": conflicts, "reads": R5,
-          "writes": W5, "keys": kw5["num_keys"], "sweeps": dv.last_sweeps,
-          "serialize_ms": (t1 - t0) * 1e3, "parse_ms": (t2 - t1) * 1e3,
-          "host_oracle_ms": host_ms, "device_ms": block_ms, "device_split_ms": splits,
-          "kernel_ms": ms5, "codes_equal_oracle": True, "updates_equal_oracle": True,
+    bound5p = k5_bytes(R5p, W5p, kw5p["num_txs"]) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "mvcc_5k", "txs": MVCC_TXS, "conflicts": c4["conflicts"], "reads": R5,
+          "writes": W5, "keys": kw5["num_keys"], "sweeps": run4["sweeps"],
+          "serialize_ms": c4["serialize_ms"], "parse_ms": c4["parse_ms"],
+          "host_oracle_ms": c4["host_oracle_ms"], "device_ms": run4["device_ms"],
+          "device_split_ms": run4["device_split_ms"], "route_launches": run4["route_launches"],
+          "kernel_ms": ms5, "global_route_ms": ms5_global, "kernel_ms_in_turns": turns5,
+          "k5_split": split5,
+          "past_shared_limit": {
+              "txs": PAST_K5_TXS, "conflicts": past["conflicts"], "reads": R5p, "writes": W5p,
+              "keys": kw5p["num_keys"], "sweeps": runp["sweeps"],
+              "host_oracle_ms": past["host_oracle_ms"], "device_ms": runp["device_ms"],
+              "device_split_ms": runp["device_split_ms"],
+              "route_launches": runp["route_launches"], "global_route_ms": ms5p,
+              "shared_route_refused": True},
+          "routes_equal_plain": True, "codes_equal_oracle": True, "updates_equal_oracle": True,
           "seconds": time.perf_counter() - t_phase})
 
     # --- mvcc_resident_5k: config #4's resident blocks (bench.py:679-725) --
@@ -651,11 +772,7 @@ def mvcc_phases(torch, np, dev):
     ms6_global = device_ms(torch, lambda: md.launch_resident(K6_ROUTES[1], scratch, *args6, **kw6),
                            20, prepare=lambda: scratch.copy_(table6))
     split6 = k6_probe(np, md, table6, args6, kw6)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    md.resolve_resident_ref(table6.clone(), *args6, **kw6)
-    torch.cuda.synchronize()
-    plain6 = (time.perf_counter() - t3) * 1e3
+    plain6 = plain_ms(torch, lambda: md.resolve_resident_ref(table6.clone(), *args6, **kw6))
     cap6 = table6.shape[0]
     I6, R6, W6 = args6[0].numel(), args6[2].numel(), args6[6].numel()
     bound6 = k6_bytes(np, cap6, args6, valid6) / HBM_BYTES_PER_S * 1e3
@@ -743,7 +860,16 @@ def mvcc_phases(torch, np, dev):
         {"name": "mvcc_resolve", "route": "cuda", "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
          "replaces": "fabric_tpu/ledger/mvcc_device.py:85", "launches": launches5,
          "max_abs_err": max(err5, err5b), "ms": ms5, "plain_ms": plain5, "bound_ms": bound5,
-         "bound_by": "bytes", "sweeps": sweeps5b, "library_ms": None},
+         "bound_by": "bytes", "sweeps": sweeps5b, "library_ms": None,
+         "global_route_ms": ms5_global, "shape": {"reads": R5, "writes": W5,
+                                                  "txs": kw5["num_txs"], "keys": kw5["num_keys"]}},
+        {"name": "mvcc_resolve_global", "route": "cuda",
+         "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
+         "replaces": "fabric_tpu/ledger/mvcc_device.py:85", "launches": launches5g,
+         "max_abs_err": max(errq, err5p), "ms": ms5p, "plain_ms": plain5p, "bound_ms": bound5p,
+         "bound_by": "bytes", "sweeps": sweeps5p, "library_ms": None, "config4_ms": ms5_global,
+         "shape": {"reads": R5p, "writes": W5p, "txs": kw5p["num_txs"],
+                   "keys": kw5p["num_keys"]}},
         {"name": "mvcc_resolve_resident", "route": "cuda",
          "source": "fabric_tpu_torch/csrc/mvcc_resolve.cu",
          "replaces": "fabric_tpu/ledger/mvcc_device.py:268", "launches": launches6,
@@ -1365,9 +1491,17 @@ def policy_bound_ms(B: int, S: int, P: int, nodes: int) -> float:
     return (B * S * P + B + 16 * nodes) / HBM_BYTES_PER_S * 1e3
 
 
+K7_ROUTES = ("policy_eval", "policy_eval_global")
+# a batch as wide as its widest transaction: 33 signatures take K7 past its
+# shared route's one signer word
+WIDE_SIGNERS = 33
+
+
 def policy_kernel_vs_plain(torch, np, dev) -> int:
     """K7 against its plain version on the card and against evaluate_host,
-    every lane of every case; returns the largest difference."""
+    every lane of every case: through `policy_eval` on the route the case's
+    shape picks, and on each route that takes the shape (the global
+    route takes every one); returns the largest difference."""
     from fabric_tpu_torch.ops import policy_kernel as pk
     from fabric_tpu_torch.policy.ast import SignaturePolicyEnvelope
     from fabric_tpu_torch.policy.evaluator import evaluate_host
@@ -1377,37 +1511,54 @@ def policy_kernel_vs_plain(torch, np, dev) -> int:
     lanes = differing = 0
     err = 0
     widest = (0, 0)
+    by_route = {r: {"cases": 0, "lanes": 0} for r in K7_ROUTES}
     for rule, P, sat_np in cases:
         program = pk.encode_program(rule, P, dev)
         sat = torch.from_numpy(np.ascontiguousarray(sat_np)).to(dev)
-        got = pk.policy_eval(sat, program)
+        S, nodes = sat_np.shape[1], program.nodes.shape[0]
+        picked = pk.policy_route(S, P, program.depth, nodes)
+        runs = [pk.policy_eval(sat, program)]
+        for route in K7_ROUTES:
+            if route == K7_ROUTES[0] and not pk.shared_fits(S, P, program.depth, nodes):
+                try:
+                    pk.launch_route(route, sat, program)
+                except RuntimeError:
+                    continue
+                raise AssertionError("K7's shared route took a shape past its limits")
+            runs.append(pk.launch_route(route, sat, program))
+            by_route[route]["cases"] += 1
+            by_route[route]["lanes"] += len(sat_np)
         torch.cuda.synchronize()
-        plain = pk.policy_eval_ref(sat, program)
+        plain = pk.policy_eval_ref(sat, program).cpu()
         env = SignaturePolicyEnvelope(rule, [None] * P)
         host = torch.tensor([evaluate_host(env, m) for m in sat_np], dtype=torch.bool)
-        g, p = got.cpu(), plain.cpu()
-        err = max(err, int((g.to(torch.int32) - p.to(torch.int32)).abs().max().item()))
-        differing += int((g != p).sum().item()) + int((g != host).sum().item())
+        for got in runs:
+            g = got.cpu()
+            err = max(err, int((g.to(torch.int32) - plain.to(torch.int32)).abs().max().item()))
+            differing += int((g != plain).sum().item()) + int((g != host).sum().item())
         lanes += len(sat_np)
-        widest = max(widest, (pk.state_words(sat_np.shape[1], P, program.depth), program.depth))
-    # B = 0 returns an empty verdict and launches nothing
-    before = pk.LAUNCHES["policy_eval"]
-    empty = pk.policy_eval(torch.zeros((0, 2, 2), dtype=torch.bool, device=dev),
-                           pk.encode_program(cases[0][0], 2, dev))
-    if empty.shape != (0,) or pk.LAUNCHES["policy_eval"] != before:
+        if picked == K7_ROUTES[0]:
+            widest = max(widest, (pk.shared_bytes(S, P, program.depth, nodes), program.depth))
+    # B = 0 returns an empty verdict and launches nothing, on either route
+    before = dict(pk.LAUNCHES)
+    empty_sat = torch.zeros((0, 2, 2), dtype=torch.bool, device=dev)
+    empty_prog = pk.encode_program(cases[0][0], 2, dev)
+    empties = [pk.policy_eval(empty_sat, empty_prog)] + [
+        pk.launch_route(r, empty_sat, empty_prog) for r in K7_ROUTES]
+    if any(e.shape != (0,) for e in empties) or pk.LAUNCHES != before:
         raise AssertionError("K7 launched on an empty batch")
     if differing or err:
         raise AssertionError(f"K7: {differing} lanes differ from the plain version or the oracle")
     emit({"phase": "policy_kernel_vs_plain", "cases": len(cases), "lanes": lanes,
-          "differing_lanes": differing, "max_abs_err": err, "widest_state_words": widest[0],
-          "deepest": widest[1], "empty_batch_launched": False,
-          "seconds": time.perf_counter() - t_phase})
+          "by_route": by_route, "differing_lanes": differing, "max_abs_err": err,
+          "shared_route_widest_bytes": widest[0], "deepest": widest[1],
+          "empty_batch_launched": False, "seconds": time.perf_counter() - t_phase})
     return err
 
 
 def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
     """validator_config2, validator_mask and validator_commit; returns K7's
-    entry of the kernels line. `k2_block`, K2's and the table kernel's times
+    two entries of the kernels line (a route each). `k2_block`, K2's and the table kernel's times
     at the block's shape, goes on config #2's line beside its verify wait."""
     from fabric_tpu_torch.common.txflags import TxValidationCode
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
@@ -1459,24 +1610,44 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
         sat_np[i, : r.shape[0]] = r
     sat = torch.from_numpy(sat_np).to(dev)
     verdicts = compile_batched(net.policy, S, device=dev)(sat)
+    # the same rows in a batch 33 signers wide, as compile_batched takes a
+    # batch whose widest transaction carries 33 signatures: the global route
+    wide_np = np.zeros((len(rows), WIDE_SIGNERS, P), dtype=bool)
+    wide_np[:, :S] = sat_np
+    wide = torch.from_numpy(wide_np).to(dev)
+    verdicts_wide = compile_batched(net.policy, WIDE_SIGNERS, device=dev)(wide)
     launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
-                "policy_eval": pk.LAUNCHES["policy_eval"]}
-    if launches["p256_verify_bytes"] != runs + 2 or launches["policy_eval"] != 1:
+                "policy_eval": pk.LAUNCHES["policy_eval"],
+                "policy_eval_global": pk.LAUNCHES["policy_eval_global"]}
+    if (launches["p256_verify_bytes"] != runs + 2 or launches["policy_eval"] != 1
+            or launches["policy_eval_global"] != 1):
         raise AssertionError(f"config #2 path launches: {launches}")
     program = pk.encode_program(net.policy.rule, P, dev)
     plain = pk.policy_eval_ref(sat, program)
+    plain_wide = pk.policy_eval_ref(wide, program)
     want = torch.tensor([f == 0 for f in flags.tobytes()], dtype=torch.bool)
-    if not (torch.equal(verdicts.cpu(), plain.cpu()) and torch.equal(verdicts.cpu(), want)):
-        raise AssertionError("K7's verdicts on config #2 differ from the plain version or the flags")
-    err7 = max(err7, int((verdicts.cpu().to(torch.int32) - plain.cpu().to(torch.int32)).abs().max()))
-    ms7 = device_ms(torch, lambda: pk.policy_eval(sat, program), 50)
+    for got, ref in ((verdicts, plain), (verdicts_wide, plain_wide)):
+        if not (torch.equal(got.cpu(), ref.cpu()) and torch.equal(got.cpu(), want)):
+            raise AssertionError("K7's verdicts on config #2 differ from the plain version or the flags")
+    global2 = pk.launch_route(K7_ROUTES[1], sat, program)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pk.policy_eval_ref(sat, program)
-    torch.cuda.synchronize()
-    plain7 = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(global2.cpu(), want):
+        raise AssertionError("K7's global route differs from the flags on config #2")
+    err7 = max(err7, *(int((g.cpu().to(torch.int32) - r.cpu().to(torch.int32)).abs().max())
+                       for g, r in ((verdicts, plain), (verdicts_wide, plain_wide),
+                                    (global2, plain))))
+    # each route's time, in turns at config #2's shape (global, shared,
+    # shared, global); the global route alone at the wide batch
+    shared2 = lambda: pk.policy_eval(sat, program)  # noqa: E731
+    global2_fn = lambda: pk.launch_route(K7_ROUTES[1], sat, program)  # noqa: E731
+    turns7 = [device_ms(torch, fn, 50) for fn in (global2_fn, shared2, shared2, global2_fn)]
+    ms7, ms7_global = (turns7[1] + turns7[2]) / 2, (turns7[0] + turns7[3]) / 2
+    ms7w = device_ms(torch, lambda: pk.policy_eval(wide, program), 50)
+    plain7 = plain_ms(torch, lambda: pk.policy_eval_ref(sat, program))
+    plain7w = plain_ms(torch, lambda: pk.policy_eval_ref(wide, program))
     nodes = program.nodes.shape[0]
     bound7 = policy_bound_ms(len(rows), S, P, nodes)
+    bound7w = policy_bound_ms(len(rows), WIDE_SIGNERS, P, nodes)
     best = min(r["ms"] for r in per_run)
     emit({"phase": "validator_config2", "txs": n_txs, "signature_lanes": 3 * n_txs, "keys": 3,
           "setup_seconds": setup_s, "runs": per_run, "ms_per_block_best": best,
@@ -1485,7 +1656,11 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
           "verify_wait_ms": [r["split_ms"].get("verify_wait") for r in per_run],
           "k2_at_block_ms": k2_block,
           "k7": {"lanes": len(rows), "signers": S, "principals": P, "nodes": nodes, "ms": ms7,
-                 "bound_ms": bound7, "plain_ms": plain7, "launches": launches["policy_eval"],
+                 "global_route_ms": ms7_global, "ms_in_turns": turns7, "bound_ms": bound7,
+                 "plain_ms": plain7, "launches": launches["policy_eval"],
+                 "wide": {"signers": WIDE_SIGNERS, "route": K7_ROUTES[1], "ms": ms7w,
+                          "bound_ms": bound7w, "plain_ms": plain7w,
+                          "launches": launches["policy_eval_global"]},
                  "verdicts_equal_flags": True},
           "seconds": time.perf_counter() - t_phase})
 
@@ -1538,12 +1713,17 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
           "per_block": per_block, "k6_launches": 3, "k2_launches": 3,
           "commit_hashes_equal_host_route": True, "seconds": time.perf_counter() - t_phase})
 
-    return {"name": "policy_eval", "route": "cuda",
-            "source": "fabric_tpu_torch/csrc/policy_eval.cu",
-            "replaces": "fabric_tpu/policy/evaluator.py:68", "launches": launches["policy_eval"],
-            "max_abs_err": err7, "ms": ms7, "plain_ms": plain7, "bound_ms": bound7,
-            "bound_by": "bytes", "lanes": len(rows), "signers": S, "principals": P,
-            "library_ms": None}
+    source, replaces = "fabric_tpu_torch/csrc/policy_eval.cu", "fabric_tpu/policy/evaluator.py:68"
+    return [
+        {"name": "policy_eval", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches["policy_eval"], "max_abs_err": err7, "ms": ms7,
+         "plain_ms": plain7, "bound_ms": bound7, "bound_by": "bytes", "lanes": len(rows),
+         "signers": S, "principals": P, "library_ms": None, "global_route_ms": ms7_global},
+        {"name": "policy_eval_global", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches["policy_eval_global"], "max_abs_err": err7, "ms": ms7w,
+         "plain_ms": plain7w, "bound_ms": bound7w, "bound_by": "bytes", "lanes": len(rows),
+         "signers": WIDE_SIGNERS, "principals": P, "library_ms": None, "config2_ms": ms7_global},
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -2017,6 +2197,32 @@ def p256_phases(torch, np, dev, imad_rate):
     return kernels, {"kernel_ms": shapes["block"]["ms"], "table_ms": table_times["block"]["ms"]}
 
 
+# the repetitions device_ms takes for K5 and K6 (20) and for K7 (50)
+FLOOR_REPS = (20, 50)
+
+
+def floor_ms(torch, cudalib, dev, threads: int = 1, shared_bytes: int = 0) -> dict:
+    """What one launch costs between two events on this card: device_ms of
+    a kernel that does nothing (csrc/policy_eval.cu launch_floor; one block
+    of `threads` threads and `shared_bytes` of dynamic shared memory), at
+    each of FLOOR_REPS, after a warm-up launch. A measurement, not a
+    feature: no wrapper launches it."""
+    import ctypes
+
+    lib = cudalib.load("policy_eval")
+    lib.launch_floor_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.launch_floor_launch.restype = ctypes.c_int
+
+    def launch():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if lib.launch_floor_launch(threads, shared_bytes, stream) != 0:
+            raise RuntimeError("launch_floor failed to launch")
+
+    launch()
+    torch.cuda.synchronize()
+    return {reps: device_ms(torch, launch, reps) for reps in FLOOR_REPS}
+
+
 def main() -> int:
     import torch
 
@@ -2047,9 +2253,12 @@ def main() -> int:
         "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
                          if "registers" in ln or "spill" in ln or "stack" in ln]
                   for name in sources},
-        # the kernels redesigned last: registers, stack, spills, shared memory
-        "redesigned": {fn: by_function.get(fn) for fn in ("p256_key_tables",
-                                                          "mvcc_resolve_resident")},
+        # the kernels redesigned last (K5's and K7's shared routes), the two
+        # instances of K7's global route and K6's shared route beside them:
+        # registers, stack, spills, shared memory
+        "redesigned": {fn: lines for fn, lines in by_function.items()
+                       if fn in ("mvcc_resolve", "policy_eval", "mvcc_resolve_resident")
+                       or "policy_eval_kernel" in fn},
     })
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2061,10 +2270,12 @@ def main() -> int:
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
     kernels += idemix_phases(torch, np, dev, imad_rate)
     # --- Block validation of config #2, K7 ----------------------------------
-    kernels.append(validator_phases(torch, np, dev, k2_block))
+    kernels += validator_phases(torch, np, dev, k2_block)
+    floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "floor_ms": floor[FLOOR_REPS[-1]],
+          "floor_ms_by_reps": {str(r): floor[r] for r in FLOOR_REPS}})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

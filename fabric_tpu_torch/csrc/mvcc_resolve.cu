@@ -2,8 +2,10 @@
 // columns in, each transaction's validity out, in one thread block.
 //
 // Replaces, in the JAX package:
-//   fabric_tpu/ledger/mvcc_device.py  _resolve (jit)           -> mvcc_resolve
-//     (K5: the Jacobi fixpoint over a block's read and write columns)
+//   fabric_tpu/ledger/mvcc_device.py  _resolve (jit)           -> mvcc_resolve,
+//                                                                 mvcc_resolve_global
+//     (K5: the Jacobi fixpoint over a block's read and write columns; two
+//     routes, chosen by size alone)
 //   fabric_tpu/ledger/mvcc_device.py  _resolve_resident (jit,
 //     donate_argnums=(0,))                     -> mvcc_resolve_resident,
 //                                                 mvcc_resolve_resident_global
@@ -36,7 +38,7 @@
 // (lexicographic; a delete, (-1, -1), over a put), which is the host
 // oracle's rule that a transaction's delete of a key wins over its put.
 //
-// Bound. Both kernels move few bytes and do almost no arithmetic. The
+// Bound. The kernels move few bytes and do almost no arithmetic. The
 // function needs each column once: at a 5,000-transaction block with one
 // read and one write a transaction, K5's r_tx, r_key, w_tx, w_key, flags
 // and mask are about 90 KB, 27 ns at 3.35 TB/s. What sets the time is
@@ -45,20 +47,28 @@
 // round trip between sweeps) on one block of 1,024 threads, so a barrier
 // is a __syncthreads; it uses 1 of the card's 132 SMs.
 //
-// K5 and K6's global route (mvcc_resolve, mvcc_resolve_resident_global)
+// The global routes (mvcc_resolve_global, mvcc_resolve_resident_global)
 // keep their scratch (min_writer, bad, base, valid; K6's static_bad and
 // best) in device memory: every phase is a round trip to L2 with global
 // atomics, four barriers a sweep, the columns read again each sweep.
 //
-// K6's shared route (mvcc_resolve_resident), for the blocks that fit:
-//   - scratch in shared memory: best (8 bytes a key) and the min/last
-//     writer word (4 bytes a key), a bad stamp (4 bytes) and base (1 byte)
+// The shared routes (mvcc_resolve, mvcc_resolve_resident), for the blocks
+// that fit:
+//   - scratch in shared memory: the min/last writer word (4 bytes a key;
+//     K6 also best, 8 bytes a key), a bad stamp (4 bytes) and base (1 byte)
 //     a transaction; atomics hit shared memory, not L2;
 //   - the columns loaded once, (tx << 16 | key): each thread's reads in
 //     registers (COLS = 12 of its 1,024 threads' strided share), the
 //     writes in shared memory (4 bytes each), so a sweep reads no device
-//     memory; every phase that does (the columns, the versions' check, the
-//     commit's versions) issues a thread's loads before it uses one;
+//     memory; every phase that does (the columns, K6's versions' check and
+//     its commit's versions) issues a thread's loads before it uses one.
+//     K5 reads its static flags in the same load, where they clear base,
+//     issues a thread's reads and writes of six columns together, and runs
+//     its second six only for a block past 6,144 reads or writes: straight
+//     code that a launch runs once costs time even where its loads are all
+//     predicated off (thread 0's clock stamps on the card: about 2,000
+//     cycles for the second six at config #4's block), as if each launch
+//     fetched its code anew;
 //   - no clearing: the writer word of sweep i holds (i + 1) << 16 |
 //     (0xFFFF - t) (an atomicMax keeps the smallest live writer t of the
 //     sweep, a stamp from an earlier sweep loses), and a read that finds
@@ -66,23 +76,25 @@
 //     atomicMax, whose old value feeds two counts (marked, newly marked):
 //     the sweep has converged when none is new and as many are marked as
 //     in the sweep before, so a sweep is two barriers (writers, readers),
-//     and no sweep runs only to find that nothing changed;
-//   - the commit's last writer is one more stamped atomicMax into the same
-//     word. At config #4's block (2 sweeps): 7 barriers, against 16.
-// Its limits (resident_fits): R and W at most 1,024 * COLS = 12,288; T at
-// most 65,532 (stamps and tx ids in 16 bits, sweeps at most T + 1); K
-// below 65,536; and 12 K + 4 W + 5 T + 16 bytes within the 227 KB a block
-// may have (232,448 bytes: 15,619 keys at config #4's T = W = 5,000). A
-// block past any of them takes the global route; the shared route's
+//     and no sweep runs only to find that nothing changed (shared_sweeps,
+//     one function for both);
+//   - K6's commit's last writer is one more stamped atomicMax into the
+//     same word. At config #4's block (2 sweeps) K6 passes 7 barriers and
+//     K5 6, against 16 and 10 on the global routes.
+// Their limits (resolve_fits, resident_fits): R and W at most 1,024 * COLS
+// = 12,288; T at most 65,532 (stamps and tx ids in 16 bits, sweeps at most
+// T + 1); K below 65,536; and 4 K + 4 W + 5 T + 16 bytes (K5) or 12 K +
+// 4 W + 5 T + 16 (K6) within the 227 KB a block may have (232,448 bytes).
+// A block past any of them takes the global route; a shared route's
 // launcher refuses one (cudaErrorInvalidValue), and its wrapper raises.
 //
 // Interface: plain C, raw pointers, a cudaStream_t; each launcher returns
 // cudaGetLastError(). Columns are int32, masks uint8 (torch.bool), the
 // version table and the version columns (n, 2) int32 rows. Scratch of the
-// global-memory kernels comes from the wrapper; the kernels allocate
-// nothing. Defining MVCC_KERNELS_ONLY leaves out the launchers and the
-// CUDA runtime, so that the kernels compile for the CPU under stand-ins
-// for the CUDA constructs (tests/cuda_emu).
+// global routes comes from the wrapper; the kernels allocate nothing.
+// Defining MVCC_KERNELS_ONLY leaves out the launchers and the CUDA
+// runtime, so that the kernels compile for the CPU under stand-ins for the
+// CUDA constructs (tests/cuda_emu).
 
 #include <climits>
 #include <cstdint>
@@ -174,12 +186,12 @@ __device__ __forceinline__ unsigned long long version_key(int v0, int v1) {
 
 }  // namespace
 
-// K5.
+// K5's global route.
 extern "C" __global__ void __launch_bounds__(THREADS)
-mvcc_resolve(const int* __restrict__ r_tx, const int* __restrict__ r_key,
-             const uint8_t* __restrict__ r_static_bad, const int* __restrict__ w_tx,
-             const int* __restrict__ w_key, int R, int W, int T, int K, int* min_writer,
-             int* bad, uint8_t* base, uint8_t* valid, int* status) {
+mvcc_resolve_global(const int* __restrict__ r_tx, const int* __restrict__ r_key,
+                    const uint8_t* __restrict__ r_static_bad, const int* __restrict__ w_tx,
+                    const int* __restrict__ w_key, int R, int W, int T, int K,
+                    int* min_writer, int* bad, uint8_t* base, uint8_t* valid, int* status) {
     const Columns c{r_tx, r_key, w_tx, w_key, R, W, T, K};
     const Scratch s{min_writer, bad, base, valid};
     const int sweeps = fixpoint(c, r_static_bad, s);
@@ -251,17 +263,29 @@ mvcc_resolve_resident_global(int* __restrict__ versions, int cap, const int* __r
 }
 
 // ---------------------------------------------------------------------------
-// K6's shared route
+// The shared routes
 // ---------------------------------------------------------------------------
 
-constexpr int RES_THREADS = THREADS;         // the shared route's block
+constexpr int RES_THREADS = THREADS;         // the shared routes' block
 constexpr int COLS = 12;                     // reads a thread holds in registers
+constexpr int HALF = COLS / 2;               // K5's columns loaded together
 constexpr int SHARED_BYTES_MAX = 232448;     // a block's shared memory, opted in
 constexpr int T_MAX = 65532;                 // stamps and tx ids in 16 bits
-constexpr int STAMPS = 18;
+constexpr int STAMPS = 18;                   // K6's clock stamps
+constexpr int K5_STAMPS = 16;                // K5's
 
-// Shared bytes the shared route needs for T transactions, K keys and W
-// writes.
+// Shared bytes K5's shared route needs for T transactions, K keys and W
+// writes, and its limits.
+constexpr long long resolve_shared_bytes(long long T, long long K, long long W) {
+    return 4 * K + 4 * W + 5 * T + 16;
+}
+
+constexpr bool resolve_fits(long long R, long long W, long long T, long long K) {
+    return R <= (long long)RES_THREADS * COLS && W <= (long long)RES_THREADS * COLS &&
+           T <= T_MAX && K < 65536 && resolve_shared_bytes(T, K, W) <= SHARED_BYTES_MAX;
+}
+
+// The same for K6's.
 constexpr long long resident_shared_bytes(long long T, long long K, long long W) {
     return 12 * K + 4 * W + 5 * T + 16;
 }
@@ -276,9 +300,186 @@ constexpr bool resident_fits(long long R, long long W, long long T, long long K)
 #else
 #define MVCC_DYNAMIC_SHARED extern  // the CPU harness defines the array
 #endif
-MVCC_DYNAMIC_SHARED unsigned long long k6_shared[];
+MVCC_DYNAMIC_SHARED unsigned long long mvcc_shared[];
 
 __device__ __forceinline__ unsigned pack(int t, int k) { return (unsigned)t << 16 | (unsigned)k; }
+
+// The sweeps of both shared routes and the mask they leave. rd holds this
+// thread's reads (tx << 16 | key, read tid + j * RES_THREADS in rd[j]),
+// wcol the block's writes; writer (K), bad (T) and cnt (4) start at 0 and
+// base (T) holds the static verdicts, all behind a barrier. Sweep i: the
+// writers of valid_i transactions (base[t] and bad[t] != i + 1: sweep
+// i - 1 stamped t with i + 1) stamp their keys' words with i + 1; the
+// readers that find an earlier writer stamp their transaction's bad word
+// with i + 2 by an atomicMax, whose old value says whether t was marked
+// already in this sweep, in the last one, or not. valid_(i+1) equals
+// valid_i iff no transaction was newly marked and as many were marked as
+// in sweep i - 1: the counts, kept by parity, decide after the readers'
+// barrier. Writes valid_(i+1) of the last sweep i (returned in `last`) and
+// returns the sweep count, or -1 past T + 1 sweeps. With stamps, thread 0
+// writes clock64 after each barrier of sweeps 0-4 (stamp[2 i] writers,
+// stamp[2 i + 1] readers).
+__device__ __forceinline__ int shared_sweeps(const unsigned (&rd)[COLS], const unsigned* wcol,
+                                             unsigned* writer, unsigned* bad, unsigned* cnt,
+                                             const uint8_t* base, int R, int W, int T,
+                                             uint8_t* __restrict__ valid, long long* stamp,
+                                             int& last) {
+    const int tid = threadIdx.x;
+    unsigned* marked = cnt;     // [i & 1]: transactions marked in sweep i
+    unsigned* fresh = cnt + 2;  // [i & 1]: of those, not marked in sweep i - 1
+    unsigned before = 0u;
+    int sweeps = 0, i = 0;
+#pragma unroll 1
+    for (;; ++i) {
+        const unsigned stale = (unsigned)(i + 1), mark = (unsigned)(i + 1) << 16;
+#pragma unroll 4
+        for (int w = tid; w < W; w += RES_THREADS) {
+            const unsigned c = wcol[w], t = c >> 16;
+            if (base[t] && bad[t] != stale) atomicMax(&writer[c & 0xFFFFu], mark | (0xFFFFu - t));
+        }
+        __syncthreads();
+        if (stamp && i < 5) stamp[2 * i] = clock64();
+        if (tid == 0) marked[(i + 1) & 1] = fresh[(i + 1) & 1] = 0u;
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+            if (j * RES_THREADS >= R) break;
+            if (tid + j * RES_THREADS < R) {
+                const unsigned t = rd[j] >> 16, v = writer[rd[j] & 0xFFFFu];
+                if ((v >> 16) == (unsigned)(i + 1) && 0xFFFFu - (v & 0xFFFFu) < t && base[t]) {
+                    const unsigned old = atomicMax(&bad[t], (unsigned)(i + 2));
+                    if (old != (unsigned)(i + 2)) {
+                        atomicAdd(&marked[i & 1], 1u);
+                        if (old != stale) atomicAdd(&fresh[i & 1], 1u);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        if (stamp && i < 5) stamp[2 * i + 1] = clock64();
+        const unsigned now = marked[i & 1];
+        if (fresh[i & 1] == 0u && now == before) {
+            sweeps = i + 1;
+            break;
+        }
+        before = now;
+        if (i + 1 > T) {
+            sweeps = -1;
+            break;
+        }
+    }
+    // valid_(i+1): base[t] and no stamp i + 2
+#pragma unroll 1
+    for (int t = tid; t < T; t += RES_THREADS) valid[t] = base[t] && bad[t] != (unsigned)(i + 2);
+    last = i;
+    return sweeps;
+}
+
+// Six columns of a thread's reads (tx, key, static flag) and writes (tx,
+// key): K5's shared route loads them together.
+struct Half {
+    int rt[HALF], rk[HALF], wt[HALF], wk[HALF];
+    uint8_t rb[HALF];
+};
+
+// Issues the loads of columns H .. H + HALF - 1 of this thread.
+template <int H>
+__device__ __forceinline__ void load_half(Half& h, const int* __restrict__ r_tx,
+                                          const int* __restrict__ r_key,
+                                          const uint8_t* __restrict__ r_static_bad,
+                                          const int* __restrict__ w_tx,
+                                          const int* __restrict__ w_key, int R, int W) {
+#pragma unroll
+    for (int q = 0; q < HALF; ++q) {
+        const int c = threadIdx.x + (H + q) * RES_THREADS;
+        h.rt[q] = c < R ? r_tx[c] : 0;
+        h.rk[q] = c < R ? r_key[c] : 0;
+        h.rb[q] = c < R ? r_static_bad[c] : 0;
+        h.wt[q] = c < W ? w_tx[c] : 0;
+        h.wk[q] = c < W ? w_key[c] : 0;
+    }
+}
+
+// Uses them, after base is set: the reads into rd (a statically bad one
+// clears its transaction's base), the writes into wcol. Returns 1 if an
+// index is out of range (and then writes nothing out of range).
+template <int H>
+__device__ __forceinline__ int use_half(const Half& h, unsigned (&rd)[COLS], unsigned* wcol,
+                                        uint8_t* base, int R, int W, int T, int K) {
+    int oob = 0;
+#pragma unroll
+    for (int q = 0; q < HALF; ++q) {
+        const int c = threadIdx.x + (H + q) * RES_THREADS;
+        if (c < R) {
+            if ((unsigned)h.rt[q] >= (unsigned)T || (unsigned)h.rk[q] >= (unsigned)K)
+                oob = 1;
+            else if (h.rb[q])
+                base[h.rt[q]] = 0;
+        }
+        rd[H + q] = pack(h.rt[q], h.rk[q]);
+        if (c < W) {
+            if ((unsigned)h.wt[q] >= (unsigned)T || (unsigned)h.wk[q] >= (unsigned)K) oob = 1;
+            wcol[c] = pack(h.wt[q], h.wk[q]);
+        }
+    }
+    return oob;
+}
+
+// K5's shared route: as K5's global route, its scratch in shared memory,
+// its reads in registers and its writes in shared memory (the header); the
+// launch's dynamic shared memory is resolve_shared_bytes(T, K, W). Each
+// thread issues the loads of its first six columns of reads and writes
+// before it uses one, and clears the scratch while they are in flight; the
+// second six are loaded, used and even fetched as code only by a block of
+// more than 6,144 reads or writes. With stamps, thread 0 writes clock64 at
+// its start (slot 0), after the scratch's barrier (1), after each half of
+// its columns is in (2, 3), after the columns' barrier (4), after each
+// barrier of sweeps 0-4 (5-14: writers, then readers) and at its end (15);
+// those of sweeps not run stay 0.
+extern "C" __global__ void __launch_bounds__(RES_THREADS)
+mvcc_resolve(const int* __restrict__ r_tx, const int* __restrict__ r_key,
+             const uint8_t* __restrict__ r_static_bad, const int* __restrict__ w_tx,
+             const int* __restrict__ w_key, int R, int W, int T, int K,
+             uint8_t* __restrict__ valid, int* __restrict__ status,
+             long long* __restrict__ stamps) {
+    unsigned* writer = reinterpret_cast<unsigned*>(mvcc_shared);  // K: stamped writer words
+    unsigned* wcol = writer + K;                                    // W: the writes, t << 16 | k
+    unsigned* bad = wcol + W;                                       // T: bad stamps
+    unsigned* cnt = bad + T;                                        // 4: the sweeps' counts
+    uint8_t* base = reinterpret_cast<uint8_t*>(cnt + 4);            // T
+    const int tid = threadIdx.x;
+    long long* stamp = tid == 0 ? stamps : nullptr;
+    if (stamp) stamp[0] = clock64();
+    unsigned rd[COLS] = {};
+    Half first;
+    load_half<0>(first, r_tx, r_key, r_static_bad, w_tx, w_key, R, W);
+    for (int t = tid; t < T; t += RES_THREADS) {
+        base[t] = 1;
+        bad[t] = 0u;
+    }
+    if (tid < 4) cnt[tid] = 0u;
+    for (int k = tid; k < K; k += RES_THREADS) writer[k] = 0u;
+    __syncthreads();
+    if (stamp) stamp[1] = clock64();
+    int oob = use_half<0>(first, rd, wcol, base, R, W, T, K);
+    if (stamp) stamp[2] = clock64();
+    if (HALF * RES_THREADS < max(R, W)) {  // uniform across the block
+        Half second;
+        load_half<HALF>(second, r_tx, r_key, r_static_bad, w_tx, w_key, R, W);
+        oob |= use_half<HALF>(second, rd, wcol, base, R, W, T, K);
+    }
+    if (stamp) stamp[3] = clock64();
+    if (__syncthreads_or(oob)) {
+        for (int t = tid; t < T; t += RES_THREADS) valid[t] = 0;
+        if (tid == 0) *status = -2;
+        return;
+    }
+    if (stamp) stamp[4] = clock64();
+    int last;
+    const int sweeps = shared_sweeps(rd, wcol, writer, bad, cnt, base, R, W, T, valid,
+                                     stamp ? stamp + 5 : nullptr, last);
+    if (tid == 0) *status = sweeps;
+    if (stamp) stamp[15] = clock64();
+}
 
 // K6's shared route: as K6's global route, its scratch in shared memory,
 // its reads in registers and its writes in shared memory (the header).
@@ -299,7 +500,7 @@ mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict
                       const int* __restrict__ w_ver, int R, int W, int T, int K,
                       uint8_t* __restrict__ valid, int* __restrict__ status,
                       long long* __restrict__ stamps) {
-    unsigned long long* best = k6_shared;                     // K: the commit's least version
+    unsigned long long* best = mvcc_shared;                    // K: the commit's least version
     unsigned* writer = reinterpret_cast<unsigned*>(best + K);  // K: stamped writer words
     unsigned* wcol = writer + K;                                // W: the writes, t << 16 | k
     unsigned* bad = wcol + W;                                   // T: bad stamps
@@ -383,59 +584,9 @@ mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict
     __syncthreads();
     if (stamp) stamp[2] = clock64();
 
-    // sweep i: the writers of valid_i transactions (base[t] and bad[t] !=
-    // i + 1: read i - 1 stamped t with i + 1) stamp their keys' words with
-    // i + 1; the readers that find an earlier writer stamp their
-    // transaction's bad word with i + 2 by an atomicMax, whose old value
-    // says whether t was marked already in this sweep, in the last one, or
-    // not. valid_(i+1) equals valid_i iff no transaction was newly marked
-    // and as many were marked as in sweep i - 1: the counts, kept by
-    // parity, decide after the readers' barrier.
-    unsigned* marked = cnt;     // [i & 1]: transactions marked in sweep i
-    unsigned* fresh = cnt + 2;  // [i & 1]: of those, not marked in sweep i - 1
-    unsigned before = 0u;
-    int sweeps = 0, i = 0;
-#pragma unroll 1
-    for (;; ++i) {
-        const unsigned stale = (unsigned)(i + 1), mark = (unsigned)(i + 1) << 16;
-#pragma unroll 4
-        for (int w = tid; w < W; w += RES_THREADS) {
-            const unsigned c = wcol[w], t = c >> 16;
-            if (base[t] && bad[t] != stale) atomicMax(&writer[c & 0xFFFFu], mark | (0xFFFFu - t));
-        }
-        __syncthreads();
-        if (stamp && i < 5) stamp[3 + 2 * i] = clock64();
-        if (tid == 0) marked[(i + 1) & 1] = fresh[(i + 1) & 1] = 0u;
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-            if (j * RES_THREADS >= R) break;
-            if (tid + j * RES_THREADS < R) {
-                const unsigned t = rd[j] >> 16, v = writer[rd[j] & 0xFFFFu];
-                if ((v >> 16) == (unsigned)(i + 1) && 0xFFFFu - (v & 0xFFFFu) < t && base[t]) {
-                    const unsigned old = atomicMax(&bad[t], (unsigned)(i + 2));
-                    if (old != (unsigned)(i + 2)) {
-                        atomicAdd(&marked[i & 1], 1u);
-                        if (old != stale) atomicAdd(&fresh[i & 1], 1u);
-                    }
-                }
-            }
-        }
-        __syncthreads();
-        if (stamp && i < 5) stamp[4 + 2 * i] = clock64();
-        const unsigned now = marked[i & 1];
-        if (fresh[i & 1] == 0u && now == before) {
-            sweeps = i + 1;
-            break;
-        }
-        before = now;
-        if (i + 1 > T) {
-            sweeps = -1;
-            break;
-        }
-    }
-    // valid_(i+1): base[t] and no stamp i + 2
-#pragma unroll 1
-    for (int t = tid; t < T; t += RES_THREADS) valid[t] = base[t] && bad[t] != (unsigned)(i + 2);
+    int i;
+    const int sweeps = shared_sweeps(rd, wcol, writer, bad, cnt, base, R, W, T, valid,
+                                     stamp ? stamp + 3 : nullptr, i);
     if (tid == 0) *status = sweeps;
     if (sweeps < 0) return;  // uniform across the block: no commit
 
@@ -483,16 +634,35 @@ mvcc_resolve_resident(int* __restrict__ versions, int cap, const int* __restrict
 
 #ifndef MVCC_KERNELS_ONLY
 
-extern "C" int mvcc_resolve_launch(const void* r_tx, const void* r_key, const void* r_static_bad,
-                                   const void* w_tx, const void* w_key, int R, int W, int T,
-                                   int K, void* min_writer, void* bad, void* base, void* valid,
-                                   void* status, void* stream) {
-    mvcc_resolve<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+extern "C" int mvcc_resolve_global_launch(const void* r_tx, const void* r_key,
+                                          const void* r_static_bad, const void* w_tx,
+                                          const void* w_key, int R, int W, int T, int K,
+                                          void* min_writer, void* bad, void* base, void* valid,
+                                          void* status, void* stream) {
+    mvcc_resolve_global<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(r_tx), static_cast<const int*>(r_key),
         static_cast<const uint8_t*>(r_static_bad), static_cast<const int*>(w_tx),
         static_cast<const int*>(w_key), R, W, T, K, static_cast<int*>(min_writer),
         static_cast<int*>(bad), static_cast<uint8_t*>(base), static_cast<uint8_t*>(valid),
         static_cast<int*>(status));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K5's shared route; a block past resolve_fits is refused. stamps may be
+// null (K5_STAMPS int64 otherwise).
+extern "C" int mvcc_resolve_launch(const void* r_tx, const void* r_key, const void* r_static_bad,
+                                   const void* w_tx, const void* w_key, int R, int W, int T,
+                                   int K, void* valid, void* status, void* stamps, void* stream) {
+    if (!resolve_fits(R, W, T, K)) return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        mvcc_resolve, cudaFuncAttributeMaxDynamicSharedMemorySize, SHARED_BYTES_MAX);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    const size_t bytes = static_cast<size_t>(resolve_shared_bytes(T, K, W));
+    mvcc_resolve<<<1, RES_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(r_tx), static_cast<const int*>(r_key),
+        static_cast<const uint8_t*>(r_static_bad), static_cast<const int*>(w_tx),
+        static_cast<const int*>(w_key), R, W, T, K, static_cast<uint8_t*>(valid),
+        static_cast<int*>(status), static_cast<long long*>(stamps));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -515,7 +685,7 @@ extern "C" int mvcc_resolve_resident_global_launch(
     return static_cast<int>(cudaGetLastError());
 }
 
-// The shared route; a block past resident_fits is refused. stamps may be
+// K6's shared route; a block past resident_fits is refused. stamps may be
 // null (STAMPS int64 otherwise).
 static int resident_launch(void* versions, int cap, const void* init_idx, const void* init_ver,
                            int I, const void* r_gid, const void* r_ver, const void* r_tx,

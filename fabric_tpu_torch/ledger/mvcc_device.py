@@ -18,12 +18,14 @@ kernels of `csrc/mvcc_resolve.cu`, which replace the JAX package's jitted
 `_resolve` and `_resolve_resident`. Given CUDA tensors they launch on the
 current stream and do not synchronize; given CPU tensors they run the plain
 versions `resolve_ref` / `resolve_resident_ref`. Anything else raises;
-there is no fallback. K6 has two routes, chosen by the block's size alone
-(`resident_route`): `mvcc_resolve_resident`, its scratch in shared memory
-and its columns in registers, for a block within `resident_fits`'s limits
-(config #4's and the 1M-key chain's blocks), and
-`mvcc_resolve_resident_global`, its scratch in device memory, for any
-other. They take exact sizes: the power-of-two buckets of
+there is no fallback. Each has two routes, chosen by the block's size
+alone (`resolve_route`, `resident_route`): a shared route
+(`mvcc_resolve`, `mvcc_resolve_resident`), its scratch in shared memory
+and its columns in registers, for a block within `resolve_fits` /
+`resident_fits` (config #4's and the 1M-key chain's blocks), and a global
+route (`mvcc_resolve_global`, `mvcc_resolve_resident_global`), its
+scratch in device memory, for any other. They take exact sizes: the
+power-of-two buckets of
 the JAX package exist so that XLA reuses a compiled program, and a CUDA
 kernel needs none. Each returns the (T,) validity mask and a (1,) int32
 status: the number of sweeps, or a negative code that `converged_sweeps`
@@ -59,18 +61,43 @@ _INT32_MAX = 2**31 - 1
 
 # Kernel launches per wrapper, counted where they launch (never for the
 # plain versions).
-LAUNCHES: Dict[str, int] = {"mvcc_resolve": 0, "mvcc_resolve_resident": 0,
-                            "mvcc_resolve_resident_global": 0}
+LAUNCHES: Dict[str, int] = {"mvcc_resolve": 0, "mvcc_resolve_global": 0,
+                            "mvcc_resolve_resident": 0, "mvcc_resolve_resident_global": 0}
 
-# K6's shared route (csrc/mvcc_resolve.cu resident_fits): a block of
-# RESIDENT_THREADS threads holding up to RESIDENT_COLS reads each in
-# registers, tx ids and sweep stamps in 16 bits, and 12 bytes a key, 4 a
-# write and 5 a transaction (and 16) of shared memory within the 232,448
-# bytes a block may have.
+# The shared routes (csrc/mvcc_resolve.cu resolve_fits, resident_fits): a
+# block of RESIDENT_THREADS threads holding up to RESIDENT_COLS reads each
+# in registers, tx ids and sweep stamps in 16 bits, and 4 bytes a key (K6:
+# 12), 4 a write and 5 a transaction (and 16) of shared memory within the
+# 232,448 bytes a block may have.
 RESIDENT_THREADS = 1024
 RESIDENT_COLS = 12
 RESIDENT_T_MAX = 65532
 RESIDENT_SHARED_MAX = 232448
+RESOLVE_STAMPS = 16
+
+
+def _shared_fits(n_reads: int, n_writes: int, num_txs: int, num_keys: int,
+                 shared_bytes: int) -> bool:
+    cols = RESIDENT_THREADS * RESIDENT_COLS
+    return (n_reads <= cols and n_writes <= cols and num_txs <= RESIDENT_T_MAX
+            and num_keys < 1 << 16 and shared_bytes <= RESIDENT_SHARED_MAX)
+
+
+def resolve_shared_bytes(num_txs: int, num_keys: int, n_writes: int) -> int:
+    return 4 * num_keys + 4 * n_writes + 5 * num_txs + 16
+
+
+def resolve_fits(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> bool:
+    return _shared_fits(n_reads, n_writes, num_txs, num_keys,
+                        resolve_shared_bytes(num_txs, num_keys, n_writes))
+
+
+def resolve_route(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> str:
+    """The K5 kernel a block's sizes select: "mvcc_resolve" (shared
+    memory) or "mvcc_resolve_global" (device memory)."""
+    if resolve_fits(n_reads, n_writes, num_txs, num_keys):
+        return "mvcc_resolve"
+    return "mvcc_resolve_global"
 
 
 def resident_shared_bytes(num_txs: int, num_keys: int, n_writes: int) -> int:
@@ -78,10 +105,8 @@ def resident_shared_bytes(num_txs: int, num_keys: int, n_writes: int) -> int:
 
 
 def resident_fits(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> bool:
-    cols = RESIDENT_THREADS * RESIDENT_COLS
-    return (n_reads <= cols and n_writes <= cols and num_txs <= RESIDENT_T_MAX
-            and num_keys < 1 << 16
-            and resident_shared_bytes(num_txs, num_keys, n_writes) <= RESIDENT_SHARED_MAX)
+    return _shared_fits(n_reads, n_writes, num_txs, num_keys,
+                        resident_shared_bytes(num_txs, num_keys, n_writes))
 
 
 def resident_route(n_reads: int, n_writes: int, num_txs: int, num_keys: int) -> str:
@@ -201,8 +226,10 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cudalib.load("mvcc_resolve")
-    lib.mvcc_resolve_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P] * 6
+    lib.mvcc_resolve_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P] * 4
     lib.mvcc_resolve_launch.restype = _I
+    lib.mvcc_resolve_global_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P] * 6
+    lib.mvcc_resolve_global_launch.restype = _I
     lib.mvcc_resolve_resident_launch.argtypes = (
         [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3
     )
@@ -239,7 +266,48 @@ def resolve(
     num_keys: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (R,) int32 r_tx, r_key, (R,) bool r_static_bad, (W,) int32 w_tx,
-    w_key -> ((num_txs,) bool valid, (1,) int32 status)."""
+    w_key -> ((num_txs,) bool valid, (1,) int32 status). The kernel is the
+    one `resolve_route` names for the sizes: shared memory for a block
+    within `resolve_fits`, device memory for any other; each counts its own
+    launches."""
+    args = (r_tx, r_key, r_static_bad, w_tx, w_key)
+    device, n_r, n_w = _resolve_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if not cudalib.kernel_device(device, "MVCC"):
+        return resolve_ref(*args, num_txs, num_keys)
+    return _launch_resolve(resolve_route(n_r, n_w, num_txs, num_keys), *args,
+                           num_txs=num_txs, num_keys=num_keys)
+
+
+def launch_resolve(route: str, *args, num_txs: int, num_keys: int):
+    """K5's kernel `route` ("mvcc_resolve" or "mvcc_resolve_global") on
+    CUDA tensors in `resolve`'s layout, whatever the sizes would pick: the
+    entry through which `chip_smoke.py` holds each route to the plain
+    version at one shape. The shared route raises on a block past
+    `resolve_fits`."""
+    device, _n_r, _n_w = _resolve_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if device.type != "cuda":
+        raise ValueError("launch_resolve runs a kernel: give it CUDA tensors")
+    return _launch_resolve(route, *args, num_txs=num_txs, num_keys=num_keys)
+
+
+def resolve_stamped(*args, num_txs: int, num_keys: int):
+    """K5's shared route on CUDA tensors in `resolve`'s layout, with thread
+    0's SM clock (clock64) stamps: (valid, status, (16,) int64) in the
+    kernel's slots: the block's start (0), the scratch's barrier (1), each
+    half of thread 0's columns in (2, 3), the columns' barrier (4), each
+    barrier of sweeps 0-4 (5-14: writers, readers; 0 for a sweep not run)
+    and the end (15). The probe behind the split of K5's time; it
+    counts as a launch of `mvcc_resolve`."""
+    device, _n_r, _n_w = _resolve_checks(*args, num_txs=num_txs, num_keys=num_keys)
+    if device.type != "cuda":
+        raise ValueError("resolve_stamped reads the card's clock: give it CUDA tensors")
+    stamps = torch.zeros(RESOLVE_STAMPS, dtype=torch.int64, device=device)
+    valid, status = _launch_resolve("mvcc_resolve", *args, num_txs=num_txs, num_keys=num_keys,
+                                    stamps=stamps)
+    return valid, status, stamps
+
+
+def _resolve_checks(r_tx, r_key, r_static_bad, w_tx, w_key, *, num_txs: int, num_keys: int):
     device = r_tx.device
     n_r = r_tx.shape[0] if r_tx.dim() == 1 else -1
     n_w = w_tx.shape[0] if w_tx.dim() == 1 else -1
@@ -249,21 +317,33 @@ def resolve(
     for name, t in (("w_tx", w_tx), ("w_key", w_key)):
         cudalib.check_tensor(name, t, torch.int32, (n_w,), device)
     _sizes(num_txs, num_keys)
-    if not cudalib.kernel_device(device, "MVCC"):
-        return resolve_ref(r_tx, r_key, r_static_bad, w_tx, w_key, num_txs, num_keys)
+    return device, n_r, n_w
+
+
+def _launch_resolve(route, r_tx, r_key, r_static_bad, w_tx, w_key, *, num_txs: int,
+                    num_keys: int, stamps: Optional[torch.Tensor] = None):
+    device = r_tx.device
+    n_r, n_w = r_tx.shape[0], w_tx.shape[0]
     valid = torch.empty(num_txs, dtype=torch.bool, device=device)
     status = torch.empty(1, dtype=torch.int32, device=device)
-    min_writer = torch.empty(num_keys, dtype=torch.int32, device=device)
-    bad = torch.empty(num_txs, dtype=torch.int32, device=device)
-    base = torch.empty(num_txs, dtype=torch.uint8, device=device)
+    cols = (r_tx.data_ptr(), r_key.data_ptr(), r_static_bad.data_ptr(), w_tx.data_ptr(),
+            w_key.data_ptr(), n_r, n_w, num_txs, num_keys)
     with torch.cuda.device(device):
-        rc = _lib().mvcc_resolve_launch(
-            r_tx.data_ptr(), r_key.data_ptr(), r_static_bad.data_ptr(), w_tx.data_ptr(),
-            w_key.data_ptr(), n_r, n_w, num_txs, num_keys, min_writer.data_ptr(),
-            bad.data_ptr(), base.data_ptr(), valid.data_ptr(), status.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _launch_check("mvcc_resolve", rc)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if route == "mvcc_resolve":
+            rc = _lib().mvcc_resolve_launch(
+                *cols, valid.data_ptr(), status.data_ptr(),
+                None if stamps is None else stamps.data_ptr(), stream)
+        elif route == "mvcc_resolve_global":
+            min_writer = torch.empty(num_keys, dtype=torch.int32, device=device)
+            bad = torch.empty(num_txs, dtype=torch.int32, device=device)
+            base = torch.empty(num_txs, dtype=torch.uint8, device=device)
+            rc = _lib().mvcc_resolve_global_launch(
+                *cols, min_writer.data_ptr(), bad.data_ptr(), base.data_ptr(),
+                valid.data_ptr(), status.data_ptr(), stream)
+        else:
+            raise ValueError(f"no K5 route {route!r}")
+    _launch_check(route, rc)
     return valid, status
 
 

@@ -1,5 +1,5 @@
 """K7, the greedy cauthdsl policy circuit (`csrc/policy_eval.cu`), its
-program encoding, its plain version and its launch counter.
+program encoding, its plain version and its launch counters.
 
 `encode_program` compiles a policy rule once into preorder nodes of four
 int32 words: kind (SIGNED_BY or N_OUT_OF), argument (principal index, or n),
@@ -9,6 +9,12 @@ tensor it launches K7 on the current stream and does not synchronize; on a
 CPU tensor it runs the plain version `policy_eval_ref`, which is the JAX
 package's `compile_batched` walk (`policy/evaluator.py:72-95`) in torch ops,
 reading the same program. Anything else raises; there is no fallback.
+
+K7 has two routes, chosen by shape alone (`policy_route`): `policy_eval`,
+the program and a block's tile of sat in shared memory, for at most 32
+signers, 65,535 nodes and a block's shared memory within 232,448 bytes
+(`shared_fits`), and the global route `policy_eval_global`, a thread a lane walking
+the program from device memory, for any other shape.
 """
 
 from __future__ import annotations
@@ -26,8 +32,18 @@ from fabric_tpu_torch.policy.ast import SignedBy
 SIGNED_BY, N_OUT_OF = 0, 1
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 
-# Kernel launches, counted where the kernel launches (never for the plain version).
-LAUNCHES: Dict[str, int] = {"policy_eval": 0}
+# Kernel launches by route, counted where a kernel launches (never for the
+# plain version).
+LAUNCHES: Dict[str, int] = {"policy_eval": 0, "policy_eval_global": 0}
+
+# The shared route's limits (csrc/policy_eval.cu shared_fits): a block of
+# SHARED_LANES threads, one signer word, node indices in 16 bits, and the
+# program (16 bytes a node), the block's tile of sat, P masks and two words
+# a frame a lane within the 232,448 bytes of shared memory a block may have.
+SHARED_LANES = 128
+SHARED_MAX_SIGNERS = 32
+SHARED_MAX_NODES = 65535
+SHARED_BYTES_MAX = 232448
 
 
 @dataclass(frozen=True)
@@ -101,8 +117,10 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cudalib.load("policy_eval")
-    lib.policy_eval_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.policy_eval_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.policy_eval_launch.restype = _I
+    lib.policy_eval_global_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.policy_eval_global_launch.restype = _I
     lib.policy_eval_local_words.argtypes = []
     lib.policy_eval_local_words.restype = _I
     return lib
@@ -114,8 +132,26 @@ def state_words(S: int, P: int, depth: int) -> int:
     return (P + depth) * ((S + 31) // 32) + 4 * depth
 
 
-def policy_eval(sat: torch.Tensor, program: Program) -> torch.Tensor:
-    """K7: (B, S, P) bool sat -> (B,) bool verdicts of `program`."""
+def shared_bytes(S: int, P: int, depth: int, nodes: int) -> int:
+    """Shared memory of a block of the shared route: the program, the
+    block's tile of sat as the 32-bit words that cover it from any byte
+    offset, P masks and `depth` two-word frames a lane."""
+    tile_words = SHARED_LANES * S * P // 4 + 2
+    return 16 * nodes + 4 * tile_words + 4 * SHARED_LANES * (P + 2 * depth)
+
+
+def shared_fits(S: int, P: int, depth: int, nodes: int) -> bool:
+    return (S <= SHARED_MAX_SIGNERS and 1 <= nodes <= SHARED_MAX_NODES
+            and shared_bytes(S, P, depth, nodes) <= SHARED_BYTES_MAX)
+
+
+def policy_route(S: int, P: int, depth: int, nodes: int) -> str:
+    """The K7 kernel a shape selects: "policy_eval" (shared memory) or
+    "policy_eval_global" (the program read from device memory)."""
+    return "policy_eval" if shared_fits(S, P, depth, nodes) else "policy_eval_global"
+
+
+def _checks(sat: torch.Tensor, program: Program) -> int:
     device = sat.device
     if sat.dim() != 3:
         raise ValueError(f"sat must be (B, S, P), got shape {tuple(sat.shape)}")
@@ -128,22 +164,55 @@ def policy_eval(sat: torch.Tensor, program: Program) -> torch.Tensor:
     words = state_words(S, P, program.depth)
     if max(B, S, P, words, B * S * P) > _INT32_MAX:
         raise ValueError("sat is too large for 32-bit sizes")
-    if not cudalib.kernel_device(device, "policy"):
+    return words
+
+
+def policy_eval(sat: torch.Tensor, program: Program) -> torch.Tensor:
+    """K7: (B, S, P) bool sat -> (B,) bool verdicts of `program`, on the
+    route `policy_route` names for the shape."""
+    words = _checks(sat, program)
+    if not cudalib.kernel_device(sat.device, "policy"):
         return policy_eval_ref(sat, program)
+    _B, S, P = sat.shape
+    route = policy_route(S, P, program.depth, program.nodes.shape[0])
+    return _launch(route, sat, program, words)
+
+
+def launch_route(route: str, sat: torch.Tensor, program: Program) -> torch.Tensor:
+    """K7's kernel `route` ("policy_eval" or "policy_eval_global") on CUDA
+    tensors, whatever the shape would pick: the entry through which
+    `chip_smoke.py` holds each route to the plain version at one shape. The
+    shared route raises on a shape past `shared_fits`."""
+    words = _checks(sat, program)
+    if sat.device.type != "cuda":
+        raise ValueError("launch_route runs a kernel: give it CUDA tensors")
+    return _launch(route, sat, program, words)
+
+
+def _launch(route: str, sat: torch.Tensor, program: Program, words: int) -> torch.Tensor:
+    device = sat.device
+    B, S, P = sat.shape
     out = torch.empty(B, dtype=torch.uint8, device=device)
     if B == 0:
         return out.view(torch.bool)  # a grid of zero blocks is a launch error
     lib = _lib()
-    scratch = None
-    if words > lib.policy_eval_local_words():
-        scratch = torch.empty((B, words), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        rc = lib.policy_eval_launch(
-            sat.data_ptr(), program.nodes.data_ptr(), B, S, P, program.depth, words, out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if route == "policy_eval":
+            rc = lib.policy_eval_launch(sat.data_ptr(), program.nodes.data_ptr(), B, S, P,
+                                        program.depth, program.nodes.shape[0], out.data_ptr(),
+                                        stream)
+        elif route == "policy_eval_global":
+            scratch = None
+            if words > lib.policy_eval_local_words():
+                scratch = torch.empty((B, words), dtype=torch.int32, device=device)
+            rc = lib.policy_eval_global_launch(
+                sat.data_ptr(), program.nodes.data_ptr(), B, S, P, program.depth, words,
+                out.data_ptr(), None if scratch is None else scratch.data_ptr(), stream)
+        else:
+            raise ValueError(f"no K7 route {route!r}")
     if rc != 0:
-        raise RuntimeError(f"policy_eval launch failed: cudaError {rc}")
-    LAUNCHES["policy_eval"] += 1
+        raise RuntimeError(f"{route} launch failed: cudaError {rc}")
+    LAUNCHES[route] += 1
     return out.view(torch.bool)
+

@@ -1,12 +1,13 @@
 // Stand-ins for the CUDA constructs of fabric_tpu_torch/csrc/bn256.cu,
-// p256_verify.cu and mvcc_resolve.cu, so that g++ compiles their kernels
+// p256_verify.cu, mvcc_resolve.cu and policy_eval.cu, so that g++ compiles their kernels
 // for the CPU: a block runs as std::threads, one a CUDA thread; __syncwarp
 // is a barrier over the live threads of the caller's warp and
 // __syncthreads (and its _or form) one over the block's (a thread that
 // returns drops out of both), __shfl_down_sync an exchange through a
 // shared array between two warp barriers; __shared__ variables are
 // statics, which the blocks, run one after another, reuse, and a kernel's
-// extern __shared__ array is one its harness defines, int2 a pair of ints;
+// extern __shared__ array is one its harness defines, int2 and int4 a pair
+// and a quad of ints;
 // atomicMin and atomicMax are compare-and-swap loops and atomicAdd a
 // fetch-and-add, clock64 the host's clock. FMUL and NMUL count the calling
 // thread's Montgomery multiplies (mod p and, in p256_verify.cu, mod n),
@@ -24,6 +25,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
@@ -39,6 +41,10 @@ struct alignas(8) int2 {
     int x, y;
 };
 inline int2 make_int2(int x, int y) { return {x, y}; }
+struct alignas(16) int4 {
+    int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 
 struct Dim3 {
     unsigned x = 0;

@@ -1,4 +1,4 @@
-"""K5 and both routes of K6 as the card runs them, compiled for the CPU,
+"""Both routes of K5 and of K6 as the card runs them, compiled for the CPU,
 against their plain versions.
 
 `fabric_tpu_torch/csrc/mvcc_resolve.cu` is compiled with g++ under the
@@ -7,9 +7,10 @@ stand-ins of `tests/cuda_emu/stand_in.h` (a block as 1,024 std::threads,
 atomicMax compare-and-swap loops, the shared route's extern `__shared__`
 array one the harness defines), with MVCC_KERNELS_ONLY, which leaves out
 its launchers, and run through `tests/cuda_emu/run_mvcc.cpp` on columns
-laid out as the wrappers lay them out. K5 (`mvcc_resolve`), K6's shared
-route (`mvcc_resolve_resident`: scratch in shared memory, columns in
-registers, stamped writer words) and its global route
+laid out as the wrappers lay them out. K5's shared route (`mvcc_resolve`:
+scratch in shared memory, columns in registers, stamped writer words) and
+its global route (`mvcc_resolve_global`), K6's shared route
+(`mvcc_resolve_resident`) and its global route
 (`mvcc_resolve_resident_global`) each run on every case, and their masks,
 status words and version tables must equal `resolve_ref` /
 `resolve_resident_ref` exactly. The cases: the smoke's edge cases
@@ -17,10 +18,13 @@ status words and version tables must equal `resolve_ref` /
 writers, deletes, drop-sentinel slots), a config #4-shaped block of 400
 transactions, a 5,000-transaction block shaped like the smoke's 1M-key
 chain (Zipf keys, two reads and two writes a tx, about 10,000 of each),
-and a block past the shared route's limit (19,400 keys), which
-`resident_route` sends to the global route and which the shared route
-refuses. The compiler, registers and timing show only on the card
-(`chip_smoke.py`).
+a block past K6's shared limit (19,400 keys), which `resident_route` sends
+to K6's global route and which K6's shared route refuses, and a block past
+both shared limits (13,000 reads), which `resolve_route` sends to K5's
+global route and which K5's shared route refuses, and one of 301
+transactions. The limits themselves
+are held to the .cu's `resolve_fits` / `resident_fits` at each edge. The
+compiler, registers and timing show only on the card (`chip_smoke.py`).
 """
 
 import subprocess
@@ -73,6 +77,8 @@ def _cases():
         "chain_like": chip_smoke.mvcc_random_case(np, rng, 5000, 100_000, 10_000, 10_000,
                                                   131_072, zipf=chip_smoke.ZIPF_S),
         "past_shared": chip_smoke.mvcc_random_case(np, rng, 300, 19_400, 3_000, 9_000, 20_000),
+        "past_k5": chip_smoke.mvcc_random_case(np, rng, 5000, 6_000, 13_000, 5_000, 8_192),
+        "odd_txs": chip_smoke.mvcc_random_case(np, rng, 301, 97, 700, 650, 256),
     }
 
 
@@ -104,22 +110,25 @@ def emulated(tmp_path_factory):
         printed = subprocess.run([str(exe), str(d)], check=True, capture_output=True,
                                  text=True, timeout=600).stdout
         threads, ncols = map(int, printed.split())
+        out.setdefault("exe", exe)
 
         def t32(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
         res = {"T": T, "K": K, "R": len(r_tx), "W": len(w_tx), "threads": threads,
                "cols": ncols}
-        for route in ("k5", "shared", "global"):
+        for route in ("k5", "k5global", "shared", "global"):
             res[route] = {
                 "valid": np.fromfile(d / f"valid_{route}.bin", dtype=np.uint8).tolist(),
                 "status": int(np.fromfile(d / f"status_{route}.bin", dtype=np.int32)[0]),
             }
-            if route != "k5":
+            if route in ("shared", "global"):
                 res[route]["versions"] = np.fromfile(
                     d / f"versions_{route}.bin", dtype=np.int32).reshape(cap, 2)
         if (d / "stamps_shared.bin").exists():
             res["stamps"] = np.fromfile(d / "stamps_shared.bin", dtype=np.int64)
+        if (d / "stamps_k5.bin").exists():
+            res["stamps_k5"] = np.fromfile(d / "stamps_k5.bin", dtype=np.int64)
         valid, status = md.resolve_ref(t32(r_tx), t32(r_key), torch.from_numpy(r_bad.astype(bool)),
                                        t32(w_tx), t32(w_key), T, K)
         res["plain_k5"] = {"valid": valid.to(torch.uint8).tolist(), "status": int(status[0])}
@@ -134,14 +143,46 @@ def emulated(tmp_path_factory):
 
 
 CASES = ("edge", "config4", "chain_like", "past_shared")
+K5_CASES = CASES + ("past_k5", "odd_txs")
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_k5_matches_plain(emulated, case):
+    """K5's shared route, which every one of these blocks fits."""
     got, want = emulated[case]["k5"], emulated[case]["plain_k5"]
     assert want["status"] >= 1
     assert got["status"] == want["status"]
     assert got["valid"] == want["valid"]
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_k5_global_route_matches_plain(emulated, case):
+    got, want = emulated[case]["k5global"], emulated[case]["plain_k5"]
+    assert want["status"] >= 1
+    assert got["status"] == want["status"]
+    assert got["valid"] == want["valid"]
+
+
+def test_k5_shared_route_odd_block(emulated):
+    """301 transactions over 97 keys: a block whose sizes are multiples of
+    neither four nor a thread block."""
+    got, want = emulated["odd_txs"]["k5"], emulated["odd_txs"]["plain_k5"]
+    assert emulated["odd_txs"]["T"] % 4 == 1
+    assert want["status"] >= 1
+    assert got["status"] == want["status"]
+    assert got["valid"] == want["valid"]
+
+
+def test_k5_shared_route_refuses_past_its_limit(emulated):
+    """13,000 reads are past K5's shared route (and K6's): resolve_route
+    sends the block to the global route, the shared launcher refuses it."""
+    res = emulated["past_k5"]
+    assert res["R"] > md.RESIDENT_THREADS * md.RESIDENT_COLS
+    assert not md.resolve_fits(res["R"], res["W"], res["T"], res["K"])
+    assert md.resolve_route(res["R"], res["W"], res["T"], res["K"]) == "mvcc_resolve_global"
+    assert res["k5"]["status"] == 99 and res["shared"]["status"] == 99  # no launch
+    assert res["global"]["valid"] == res["plain_k6"]["valid"]
+    assert res["global"]["status"] == res["plain_k6"]["status"]
 
 
 @pytest.mark.parametrize("route", ["shared", "global"])
@@ -168,11 +209,12 @@ def test_route_by_size_alone(emulated):
     limits and the global one past them; the chain-like block fills more
     than eight of its threads' register columns, and the edge chain takes
     at least 64 sweeps."""
-    routes = {c: md.resident_route(r["R"], r["W"], r["T"], r["K"]) for c, r in emulated.items()}
+    routes = {c: md.resident_route(emulated[c]["R"], emulated[c]["W"], emulated[c]["T"],
+                                   emulated[c]["K"]) for c in CASES}
     assert routes == {"edge": "mvcc_resolve_resident", "config4": "mvcc_resolve_resident",
                       "chain_like": "mvcc_resolve_resident",
                       "past_shared": "mvcc_resolve_resident_global"}
-    first = next(iter(emulated.values()))
+    first = emulated["edge"]
     assert (first["threads"], first["cols"]) == (md.RESIDENT_THREADS, md.RESIDENT_COLS)
     assert emulated["chain_like"]["R"] > 8 * md.RESIDENT_THREADS
     assert emulated["edge"]["plain_k6"]["status"] >= 64
@@ -194,3 +236,55 @@ def test_shared_route_stamps_in_order(emulated, case):
     assert written == [0, 1, 2] + barriers + [13, 14, 15, 16, 17]
     in_time = [0, 16, 17, 1, 2] + barriers + [13, 14, 15]
     assert all(np.diff(st[in_time]) >= 0)
+
+
+@pytest.mark.parametrize("case", CASES[:3])
+def test_k5_shared_route_stamps_in_order(emulated, case):
+    """Thread 0's clock stamps on K5's shared route (what resolve_stamped
+    returns on the card): the start, the scratch's barrier, each half of its
+    columns in, the columns' barrier, each barrier of the sweeps run (up to
+    five) and the end, in that order."""
+    st = emulated[case]["stamps_k5"]
+    sweeps = emulated[case]["plain_k5"]["status"]
+    assert len(st) == md.RESOLVE_STAMPS
+    barriers = [5 + j for j in range(2 * min(sweeps, 5))]
+    written = [i for i in range(len(st)) if st[i]]
+    assert written == [0, 1, 2, 3, 4] + barriers + [15]
+    assert all(np.diff(st[written]) >= 0)
+
+
+def _edges():
+    """name -> (R, W, T, K) just inside a limit, the same just past it, and
+    which shared routes the limit is theirs ("both", "k5" or "k6"). The
+    16-bit limits on T and K bind no shape: the bytes bind first (5 T and
+    4 K within 232,448)."""
+    cols = md.RESIDENT_THREADS * md.RESIDENT_COLS
+    # keys that fill the block's shared memory at W = T = 5,000
+    room = md.RESIDENT_SHARED_MAX - 16 - 4 * 5000 - 5 * 5000
+    k5_keys, k6_keys = room // 4, room // 12
+    return {
+        "reads": ((cols, 10, 10, 10), (cols + 1, 10, 10, 10), "both"),
+        "writes": ((10, cols, 10, 10), (10, cols + 1, 10, 10), "both"),
+        "k5_bytes": ((5000, 5000, 5000, k5_keys), (5000, 5000, 5000, k5_keys + 1), "k5"),
+        "k5_bytes_txs": ((10, 0, 46_486, 0), (10, 0, 46_487, 0), "k5"),
+        "k6_bytes": ((5000, 5000, 5000, k6_keys), (5000, 5000, 5000, k6_keys + 1), "k6"),
+    }
+
+
+@pytest.mark.parametrize("edge", sorted(_edges()))
+def test_resolve_route_at_each_limit(emulated, edge):
+    """resolve_route and resident_route at each limit's edge: the last shape
+    inside takes the shared route and the first past it the global one,
+    and the Python limits equal the .cu's resolve_fits / resident_fits."""
+    inside, past, which = _edges()[edge]
+    for shape in (inside, past):
+        printed = subprocess.run([str(emulated["exe"]), "fits", *map(str, shape)], check=True,
+                                 capture_output=True, text=True, timeout=60).stdout
+        assert tuple(map(int, printed.split())) == (md.resolve_fits(*shape),
+                                                    md.resident_fits(*shape))
+    if which in ("both", "k5"):
+        assert md.resolve_route(*inside) == "mvcc_resolve"
+        assert md.resolve_route(*past) == "mvcc_resolve_global"
+    if which in ("both", "k6"):
+        assert md.resident_route(*inside) == "mvcc_resolve_resident"
+        assert md.resident_route(*past) == "mvcc_resolve_resident_global"
