@@ -129,6 +129,7 @@ mismatch or error exits non-zero. The last line is
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import re
@@ -1326,14 +1327,14 @@ class Config2Net:
     def msp_configs(self, with_crl=False):
         return [o.msp_config(with_crl=with_crl) for o in self.orgs]
 
-    def validator(self, provider, with_crl=False):
+    def validator(self, provider, with_crl=False, channel=CONFIG2_CHANNEL):
         from fabric_tpu_torch.validation.validator import (
             BlockValidator, ChaincodeDefinition, ChaincodeRegistry)
 
         registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", self.policy)])
-        return BlockValidator(CONFIG2_CHANNEL, self.managers[with_crl], provider, registry)
+        return BlockValidator(channel, self.managers[with_crl], provider, registry)
 
-    def envelope(self, i, cc="benchcc", client=None, endorsers=None):
+    def envelope(self, i, cc="benchcc", client=None, endorsers=None, channel=CONFIG2_CHANNEL):
         """bench.py make_block's tx i: one write of k{i} in benchcc."""
         from fabric_tpu_torch.endorser import txbuilder as tb
         from fabric_tpu_torch.ledger import rwset as rw
@@ -1342,7 +1343,7 @@ class Config2Net:
         client = client or self.client
         results = serialize_tx_rwset(rw.TxRwSet((rw.NsRwSet(
             "benchcc", (), (rw.KVWrite(f"k{i}", False, b"v"),)),)))
-        bundle = tb.create_proposal(client, CONFIG2_CHANNEL, cc, [b"invoke", b"%d" % i])
+        bundle = tb.create_proposal(client, channel, cc, [b"invoke", b"%d" % i])
         responses = [tb.endorse_proposal(bundle, e, results) for e in endorsers or self.endorsers]
         return tb.create_signed_tx(bundle, client, responses)
 
@@ -1354,11 +1355,11 @@ class Config2Net:
         block["data"]["data"] = list(datas)
         return protoutil.seal_block(block)
 
-    def block(self, n_txs, number=1):
+    def block(self, n_txs, number=1, channel=CONFIG2_CHANNEL):
         from fabric_tpu_torch.protos import fabric, wire
 
         # every call draws fresh nonces, so fresh txids over the same keys
-        return self.make_block([wire.encode(fabric.ENVELOPE, self.envelope(i))
+        return self.make_block([wire.encode(fabric.ENVELOPE, self.envelope(i, channel=channel))
                                 for i in range(n_txs)], number)
 
     def mask_block(self):
@@ -1558,8 +1559,10 @@ def policy_kernel_vs_plain(torch, np, dev) -> int:
 
 def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONFIG2_RUNS):
     """validator_config2, validator_mask and validator_commit; returns K7's
-    two entries of the kernels line (a route each). `k2_block`, K2's and the table kernel's times
-    at the block's shape, goes on config #2's line beside its verify wait."""
+    two entries of the kernels line (a route each), and config #2's block and
+    the mask block (their envelopes) for the native phase. `k2_block`, K2's
+    and the table kernel's times at the block's shape, goes on config #2's
+    line beside its verify wait."""
     from fabric_tpu_torch.common.txflags import TxValidationCode
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
     from fabric_tpu_torch.ledger import kvledger, mvcc, statedb
@@ -1591,8 +1594,9 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
         ms = (time.perf_counter() - t0) * 1e3
         if flags.tobytes() != bytes(n_txs):
             raise AssertionError("config #2 expected an all-VALID block")
-        if validator.last_sig_backend != "cuda":
-            raise AssertionError(f"validator ran on {validator.last_sig_backend}")
+        if validator.last_sig_backend != "cuda" or validator.last_parser != "native":
+            raise AssertionError(f"validator ran on {validator.last_sig_backend}, parsed by "
+                                 f"{validator.last_parser}")
         if p256k.LAUNCHES["p256_verify_bytes"] - before != 1:
             raise AssertionError("config #2: K2 must launch once a block")
         if run:
@@ -1652,7 +1656,7 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
     emit({"phase": "validator_config2", "txs": n_txs, "signature_lanes": 3 * n_txs, "keys": 3,
           "setup_seconds": setup_s, "runs": per_run, "ms_per_block_best": best,
           "ms_per_block_range": [best, max(r["ms"] for r in per_run)],
-          "all_valid": True, "backend": "cuda", "k2_launches_per_block": 1,
+          "all_valid": True, "backend": "cuda", "parser": "native", "k2_launches_per_block": 1,
           "verify_wait_ms": [r["split_ms"].get("verify_wait") for r in per_run],
           "k2_at_block_ms": k2_block,
           "k7": {"lanes": len(rows), "signers": S, "principals": P, "nodes": nodes, "ms": ms7,
@@ -1668,8 +1672,10 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
     t_phase = time.perf_counter()
     mask_block, want_codes = net.mask_block()
     raw_mask = wire.encode(fabric.BLOCK, mask_block)
-    got = net.validator(CUDAProvider(device=dev), with_crl=True).validate(
-        wire.decode(fabric.BLOCK, raw_mask))
+    mask_validator = net.validator(CUDAProvider(device=dev), with_crl=True)
+    got = mask_validator.validate(wire.decode(fabric.BLOCK, raw_mask))
+    if mask_validator.last_sig_backend != "cuda" or mask_validator.last_parser != "native":
+        raise AssertionError("validator_mask: not the native parse and the card")
     oracle = net.validator(oracle_provider(), with_crl=True).validate(
         wire.decode(fabric.BLOCK, raw_mask))
     if list(got.tobytes()) != want_codes or oracle.tobytes() != got.tobytes():
@@ -1693,8 +1699,11 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
         b = wire.decode(fabric.BLOCK, raw_block) if number == 1 else net.block(n_txs, number)
         parsed = parse_block(b["data"]["data"])
         t0 = time.perf_counter()
-        flags = net.validator(CUDAProvider(device=dev)).validate(b, parsed=parsed)
+        commit_validator = net.validator(CUDAProvider(device=dev))
+        flags = commit_validator.validate(b, parsed=parsed)
         t1 = time.perf_counter()
+        if commit_validator.last_sig_backend != "cuda" or commit_validator.last_parser != "native":
+            raise AssertionError("validator_commit: not the native parse and the card")
         codes = [TxValidationCode(c) for c in flags.tobytes()]
         results = [tx.results for tx in parsed]
         d = kvledger.commit_block_state(resident, number, results, codes, prev_d)
@@ -1714,7 +1723,9 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
           "commit_hashes_equal_host_route": True, "seconds": time.perf_counter() - t_phase})
 
     source, replaces = "fabric_tpu_torch/csrc/policy_eval.cu", "fabric_tpu/policy/evaluator.py:68"
-    return [
+    blocks = {"config2": wire.decode(fabric.BLOCK, raw_block)["data"]["data"],
+              "mask": wire.decode(fabric.BLOCK, raw_mask)["data"]["data"]}
+    return blocks, [
         {"name": "policy_eval", "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches["policy_eval"], "max_abs_err": err7, "ms": ms7,
          "plain_ms": plain7, "bound_ms": bound7, "bound_by": "bytes", "lanes": len(rows),
@@ -1724,6 +1735,168 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
          "plain_ms": plain7w, "bound_ms": bound7w, "bound_by": "bytes", "lanes": len(rows),
          "signers": WIDE_SIGNERS, "principals": P, "library_ms": None, "config2_ms": ms7_global},
     ]
+
+
+# ---------------------------------------------------------------------------
+# The native host runtime, and BASELINE config #5 (multi-channel commit)
+# ---------------------------------------------------------------------------
+
+CONFIG5_CHANNELS = 4  # bench.py bench_multichannel: 4 channels x 2,000-tx blocks
+CONFIG5_TXS = 2000
+CONFIG5_RUNS = 5  # timed runs after one warm-up, on one validator a channel as bench.py keeps
+
+
+def parsed_view(tx, hashed: bool):
+    """What the validator and the commit read of a parsed tx; a job's
+    digest is hashed here from its signed bytes where the parse kept those
+    (`hashed`: the Python parse)."""
+
+    def job(j):
+        if j is None:
+            return None
+        return j.identity_bytes, j.signature, (hashlib.sha256(j.data).digest() if hashed
+                                               else j.digest)
+
+    return (int(tx.code), tx.header_type, tx.channel_id, tx.tx_id, tx.creator, tx.namespace,
+            tx.config_data, job(tx.creator_sig_job), [job(j) for j in tx.endorsement_jobs],
+            tx.ns_entries, tx.has_md_writes, tx.results, tx.rwset)
+
+
+def native_phase(np, build_s: float, der_sets: dict, blocks: dict) -> None:
+    """The native phase: the g++ build's seconds, which SHA-256 the library
+    runs, the native DER parse against its plain version (`crypto/sigparse.
+    batch_der_parse_python`) on each set of `der_sets`, and the native block
+    parse against the per-transaction Python parse on each block of
+    `blocks`, field by field, each route timed once on the host clock."""
+    from fabric_tpu_torch.crypto.sigparse import batch_der_parse, batch_der_parse_python
+    from fabric_tpu_torch.utils import native
+    from fabric_tpu_torch.validation.blockparse import parse_block, parse_block_python
+
+    t_phase = time.perf_counter()
+    out = {"phase": "native", "build_seconds": build_s, "library": native.library_path().name,
+           "sha256_backend": native.sha256_backend()}
+    for label, sigs in der_sets.items():
+        t0 = time.perf_counter()
+        got = batch_der_parse(sigs)
+        t1 = time.perf_counter()
+        want = batch_der_parse_python(sigs)
+        t2 = time.perf_counter()
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"native DER parse differs from the plain version on {label}")
+        out[f"der_{label}"] = {"signatures": len(sigs), "accepted": int((got[2] & got[3]).sum()),
+                               "native_ms": (t1 - t0) * 1e3, "python_ms": (t2 - t1) * 1e3,
+                               "equal_python": True}
+    for label, datas in blocks.items():
+        t0 = time.perf_counter()
+        got = parse_block(datas)
+        t1 = time.perf_counter()
+        want = parse_block_python(datas)
+        t2 = time.perf_counter()
+        if (not got.native or list(got.iter_written_keys()) != list(want.iter_written_keys())
+                or [parsed_view(g, False) for g in got] != [parsed_view(w, True) for w in want]):
+            raise AssertionError(f"native block parse differs from the Python parse on {label}")
+        out[f"parse_{label}"] = {"txs": len(datas), "native_ms": (t1 - t0) * 1e3,
+                                 "python_ms": (t2 - t1) * 1e3, "equal_python": True}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def multichannel_phase(torch, np, dev, imad_rate, n_channels=CONFIG5_CHANNELS,
+                       n_txs=CONFIG5_TXS, runs=CONFIG5_RUNS) -> dict:
+    """multichannel_config5: bench.py's config #5 (bench_multichannel,
+    bench.py:736-808) on the card, one block of `n_txs` txs per channel
+    through MultiChannelValidator, a warm-up and `runs` timed runs on one
+    validator a channel: every channel's flags all VALID and equal to that
+    channel's own validate, the native parse for every block, K1 once a
+    run. Returns K1's time, launches, plain version and bound at the stacked
+    shape, for its entry of the kernels line."""
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ops import p256_kernel as pk
+    from fabric_tpu_torch.parallel.multichannel import MultiChannelValidator
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    net = Config2Net()
+    channels = [f"bench{i}" for i in range(n_channels)]
+    raw = {ch: wire.encode(fabric.BLOCK, net.block(n_txs, channel=ch)) for ch in channels}
+    setup_s = time.perf_counter() - t_phase
+    # each channel alone, through its own validate over CUDAProvider (K2)
+    alone = {}
+    for ch in channels:
+        v = net.validator(CUDAProvider(device=dev), channel=ch)
+        alone[ch] = v.validate(wire.decode(fabric.BLOCK, raw[ch])).tobytes()
+        if alone[ch] != bytes(n_txs) or v.last_sig_backend != "cuda" or v.last_parser != "native":
+            raise AssertionError(f"config #5: channel {ch} alone is not all VALID on the card")
+
+    multi = MultiChannelValidator(
+        {ch: net.validator(CUDAProvider(device=dev), channel=ch) for ch in channels}, device=dev)
+    real, captured = pk.verify_batch, []
+
+    def capture(*args):
+        captured[:] = args
+        return real(*args)
+
+    for k in pk.LAUNCHES:
+        pk.LAUNCHES[k] = 0
+    per_run = []
+    pk.verify_batch = capture
+    try:
+        for run in range(runs + 1):  # run 0 is the warm-up
+            blocks = {ch: wire.decode(fabric.BLOCK, raw[ch]) for ch in channels}
+            before, parses = pk.LAUNCHES["p256_verify_limbs"], native.CALLS["fn_block_parse"]
+            full_gcs = gc.get_stats()[2]["collections"]
+            t0 = time.perf_counter()
+            flags = multi.validate(blocks)
+            ms = (time.perf_counter() - t0) * 1e3
+            full_gcs = gc.get_stats()[2]["collections"] - full_gcs
+            if pk.LAUNCHES["p256_verify_limbs"] - before != 1:
+                raise AssertionError("config #5: K1 must launch once a validate")
+            if native.CALLS["fn_block_parse"] - parses != n_channels:
+                raise AssertionError("config #5: a block did not take the native parse")
+            for ch in channels:
+                v = multi.validators[ch]
+                if (flags[ch].tobytes() != alone[ch] or v.last_parser != "native"
+                        or v.last_sig_backend != "cuda"):
+                    raise AssertionError(f"config #5: channel {ch} differs from its own validate")
+            if run:
+                per_run.append({"ms": ms, "tx_per_s": n_channels * n_txs / ms * 1e3,
+                                "device_ms": multi.last_device_ms, "full_gcs": full_gcs,
+                                "split_ms": dict(multi.last_split_ms)})
+    finally:
+        pk.verify_batch = real
+    launches = dict(pk.LAUNCHES)
+    if launches != {**launches, "p256_verify_limbs": runs + 1, "p256_verify_bytes": 0,
+                    "p256_key_tables": 0}:
+        raise AssertionError(f"config #5 path launches: {launches}")
+
+    # K1 alone at the stacked shape: its time, its plain version, its bound
+    args = list(captured)
+    lanes, live = args[0].shape[1], int(args[-1].sum().item())
+    ms1 = device_ms(torch, lambda: real(*args), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = pk.verify_batch_ref(*args)
+    torch.cuda.synchronize()
+    plain1 = (time.perf_counter() - t0) * 1e3
+    got = real(*args)
+    err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max().item())
+    if err:
+        raise AssertionError("config #5: K1 differs from its plain version at the stacked shape")
+    nbytes = sum(a.numel() * a.element_size() for a in args) + lanes + pk.g_comb_words().nbytes
+    k1 = {"lanes": lanes, "live_lanes": live, "channels": n_channels, "ms": ms1,
+          "plain_ms": plain1, "max_abs_err": err, "launches": launches["p256_verify_limbs"],
+          **p256_bounds(pk.work_limb_route(live), nbytes, imad_rate)}
+    best = min(r["ms"] for r in per_run)
+    emit({"phase": "multichannel_config5", "channels": n_channels, "txs_per_channel": n_txs,
+          "signature_lanes": 3 * n_channels * n_txs, "setup_seconds": setup_s, "runs": per_run,
+          "ms_range": [best, max(r["ms"] for r in per_run)],
+          "aggregate_tx_per_s_range": [min(r["tx_per_s"] for r in per_run),
+                                       max(r["tx_per_s"] for r in per_run)],
+          "all_valid": True, "flags_equal_each_channel_alone": True, "parser": "native",
+          "backend": "cuda", "k1_launches_per_validate": 1, "k1": k1,
+          "seconds": time.perf_counter() - t_phase})
+    return k1
 
 
 # ---------------------------------------------------------------------------
@@ -1901,15 +2074,42 @@ def p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys: int, nrows: int, ta
     return rows
 
 
+def p256_bounds(work, nbytes: int, imad_rate: float) -> dict:
+    """bound_ms (the least work known), bound_ms_kernel (the kernel's own),
+    bound_ms_replaced (the replaced one-thread-a-lane kernel's), each the
+    larger of its IMAD slots over the card's rate and the bytes over the
+    memory rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for key, slots in (("bound_ms", work["least"]), ("bound_ms_kernel", work["kernel"]),
+                       ("bound_ms_replaced", work.get("replaced"))):
+        if slots is not None:
+            out[key] = max(slots / imad_rate * 1e3, bytes_ms)
+    out["bound_by"] = "operations" if work["least"] / imad_rate * 1e3 >= bytes_ms else "bytes"
+    return out
+
+
+def der_parsed(native, before: int, batches: int) -> str:
+    """"native" when the provider's DER parse ran `batches` times through
+    the native library since `before` (its fn_batch_der_parse count);
+    anything else raises."""
+    ran = native.CALLS["fn_batch_der_parse"] - before
+    if ran != batches:
+        raise AssertionError(f"the native DER parse ran {ran} times for {batches} batches")
+    return "native"
+
+
 def p256_phases(torch, np, dev, imad_rate):
     """Phases 1-5 (the CUDAProvider and K1, K2 and the table kernel);
-    returns their entries of the kernels line, and K2's and the table
-    kernel's times at the block's shape."""
+    returns their entries of the kernels line, K2's and the table kernel's
+    times at the block's shape, and the DER signatures the native phase
+    parses (the headline's and the crafted lanes')."""
     from fabric_tpu_torch.common import der, p256
     from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError, parse_and_precheck
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, _bucket as bucket
     from fabric_tpu_torch.crypto.cuda_provider import be_bytes_to_limbs
     from fabric_tpu_torch.ops import p256_kernel as pk
+    from fabric_tpu_torch.utils import native
 
     # --- inputs ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2016,6 +2216,7 @@ def p256_phases(torch, np, dev, imad_rate):
         pk.LAUNCHES[k] = 0
     # headline: 3 timed passes, each with 2 batches in flight
     head = cols(head_rows)
+    der_calls = native.CALLS["fn_batch_der_parse"]
     pass_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2026,7 +2227,9 @@ def p256_phases(torch, np, dev, imad_rate):
         for m in masks:
             if m != head_want:
                 raise AssertionError("headline mask differs from the oracle's")
+    parser = {"headline": der_parsed(native, der_calls, 6)}
     block = cols(block_rows)
+    der_calls = native.CALLS["fn_batch_der_parse"]
     block_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2034,7 +2237,9 @@ def p256_phases(torch, np, dev, imad_rate):
         block_s.append(time.perf_counter() - t0)
         if m != block_want:
             raise AssertionError("block mask differs from the oracle's")
+    parser["block"] = der_parsed(native, der_calls, 3)
     limb = cols(limb_rows)
+    der_calls = native.CALLS["fn_batch_der_parse"]
     limb_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2042,6 +2247,7 @@ def p256_phases(torch, np, dev, imad_rate):
         limb_s.append(time.perf_counter() - t0)
         if m != limb_want:
             raise AssertionError("limb-route mask differs from the oracle's")
+    parser["limb_route"] = der_parsed(native, der_calls, 3)
     # every column of the key bucket in use (32 keys, the bytes route)
     if prov.batch_verify(*cols(keys32_rows)) != keys32_want:
         raise AssertionError("32-key mask differs from the oracle's")
@@ -2055,10 +2261,33 @@ def p256_phases(torch, np, dev, imad_rate):
 
     # --- kernel times at the main path's shapes ----------------------------
     head_prep_s = []
+    der_calls = native.CALLS["fn_batch_der_parse"]
     for _ in range(3):
         t0 = time.perf_counter()
         prov.prep_bytes(*head)
         head_prep_s.append(time.perf_counter() - t0)
+    der_parsed(native, der_calls, 3)
+    # the block's and the limb route's batches step by step, as
+    # batch_verify runs them: host prep, the inputs on the card (padding,
+    # copies, the key combs), the kernel and its wait, the mask to the host
+    batch_split = {}
+    for label, batch in (("block", block), ("limb_route", limb)):
+        batch_split[label] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prep, limbs = prov.prep_bytes(*batch)
+            t1 = time.perf_counter()
+            fn, args = prov.device_inputs(prep, limbs, bucket(len(batch[0])))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out[: len(batch[0])].tolist()
+            t4 = time.perf_counter()
+            batch_split[label].append({"host_prep": (t1 - t0) * 1e3, "inputs": (t2 - t1) * 1e3,
+                                       "kernel_wait": (t3 - t2) * 1e3,
+                                       "mask": (t4 - t3) * 1e3})
 
     def time_launch(fn, reps=5):
         fn()
@@ -2073,18 +2302,7 @@ def p256_phases(torch, np, dev, imad_rate):
         return start.elapsed_time(stop) / reps
 
     def bounds(work, nbytes: int):
-        """bound_ms (the least work known), bound_ms_kernel (the kernel's
-        own), bound_ms_replaced (the replaced one-thread-a-lane kernel's),
-        each the larger of its IMAD slots over the card's rate and the bytes
-        over the memory rate."""
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out = {}
-        for key, slots in (("bound_ms", work["least"]), ("bound_ms_kernel", work["kernel"]),
-                           ("bound_ms_replaced", work.get("replaced"))):
-            if slots is not None:
-                out[key] = max(slots / imad_rate * 1e3, bytes_ms)
-        out["bound_by"] = "operations" if work["least"] / imad_rate * 1e3 >= bytes_ms else "bytes"
-        return out
+        return p256_bounds(work, nbytes, imad_rate)
 
     comb_bytes = pk.g_comb_words().nbytes
     shapes = {}
@@ -2145,13 +2363,15 @@ def p256_phases(torch, np, dev, imad_rate):
           "pass_seconds": pass_s,
           "verifies_per_s": [lanes_per_pass / s for s in pass_s],
           "kernel_ms": shapes["headline"]["ms"], "host_prep_ms": [t * 1e3 for t in head_prep_s],
-          "mask_equal_oracle": True})
+          "parser": parser["headline"], "mask_equal_oracle": True})
     emit({"phase": "block", "lanes": len(block_rows), "keys": 3,
           "padded_to": bucket(len(block_rows)),
           "ms_per_batch": [s * 1e3 for s in block_s], "kernel_ms": shapes["block"]["ms"],
+          "split_ms": batch_split["block"], "parser": parser["block"],
           "mask_equal_oracle": True})
     emit({"phase": "limb_route", "lanes": len(limb_rows), "keys": 65,
           "ms_per_batch": [s * 1e3 for s in limb_s], "kernel_ms": shapes["limb"]["ms"],
+          "split_ms": batch_split["limb_route"], "parser": parser["limb_route"],
           "mask_equal_oracle": True})
     emit({"phase": "keys32", "lanes": len(keys32_rows), "keys": 32,
           "kernel_ms": shapes["keys32"]["ms"],
@@ -2194,7 +2414,10 @@ def p256_phases(torch, np, dev, imad_rate):
         emit({"phase": f"{label}_kernel", "kernel": "p256_verify_bytes", "lanes": sh["lanes"],
               "live_lanes": sh["live"], "keys": sh["keys"], "ms": sh["ms"], **bound_keys(sh),
               "table_ms": table_times[label]["ms"]})
-    return kernels, {"kernel_ms": shapes["block"]["ms"], "table_ms": table_times["block"]["ms"]}
+    der_sets = {"headline": head[1],
+                "crafted": [der.marshal_signature(r, s) for _pt, _d, r, s, _v in crafted]}
+    return (kernels, {"kernel_ms": shapes["block"]["ms"], "table_ms": table_times["block"]["ms"]},
+            der_sets)
 
 
 # the repetitions device_ms takes for K5 and K6 (20) and for K7 (50)
@@ -2233,23 +2456,35 @@ def main() -> int:
     import numpy as np
 
     from fabric_tpu_torch.ops import cudalib
+    from fabric_tpu_torch.utils import native
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    # --- build: one nvcc per source, all started together ---------------
+    # --- build: one nvcc per source and g++ for the native host runtime,
+    # all started together ---------------------------------------------------
     t0 = time.perf_counter()
     sources = ("p256_verify", "mvcc_resolve", "bn256", "policy_eval")
-    with ThreadPoolExecutor(len(sources)) as pool:
+
+    def timed_native_build() -> float:
+        t = time.perf_counter()
+        native.build()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        native_build = pool.submit(timed_native_build)
         list(pool.map(cudalib.build, sources))
+        native_build_s = native_build.result()
     for name in sources:
         cudalib.load(name)
+    native.load()
     by_function = {}
     for name in sources:
         by_function.update(ptxas_by_function(cudalib.ptxas_report(name)))
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
+        "native_build_seconds": native_build_s,
         "ptxas": {name: [ln for ln in cudalib.ptxas_report(name).splitlines()
                          if "registers" in ln or "spill" in ln or "stack" in ln]
                   for name in sources},
@@ -2264,13 +2499,19 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     imad_rate = IMAD_PER_SM_PER_CLOCK * sms * clock_hz
-    kernels, k2_block = p256_phases(torch, np, dev, imad_rate)
+    kernels, k2_block, der_sets = p256_phases(torch, np, dev, imad_rate)
     # --- MVCC: kernel vs plain, config #4, the resident chain --------------
     kernels += mvcc_phases(torch, np, dev)
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
     kernels += idemix_phases(torch, np, dev, imad_rate)
     # --- Block validation of config #2, K7 ----------------------------------
-    kernels += validator_phases(torch, np, dev, k2_block)
+    blocks, k7 = validator_phases(torch, np, dev, k2_block)
+    kernels += k7
+    # --- The native host runtime against the Python routes -----------------
+    native_phase(np, native_build_s, der_sets, blocks)
+    # --- Config #5: four channels, one K1 launch a validate ----------------
+    k1_config5 = multichannel_phase(torch, np, dev, imad_rate)
+    next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -145,15 +145,15 @@ class CUDAProvider(Provider):
         on_curve = np.asarray([c[2] for c in cols], dtype=bool)
         return kx_cols, ky_cols, on_curve, idx, [key.ski() for key in distinct]
 
-    def prep_bytes(
+    def _parse(
         self,
         keys: Sequence[ECDSAPublicKey],
         signatures: Sequence[bytes],
         digests: Sequence[bytes],
     ):
-        """DER parse and key-column dedup. Returns (prep, None) for the bytes
-        route, or (None, limbs) when the distinct keys exceed KEY_BUCKET.
-        prep is (e, r, s, kx, ky, key index, the key columns' SKIs, ok)."""
+        """The host prep both routes share: the native DER parse (high-S
+        and malformed lanes dead), the digests as rows, the distinct-key
+        columns (off-curve keys' lanes dead)."""
         n = len(signatures)
         if not (len(keys) == n == len(digests)):
             raise ValueError("keys, signatures and digests differ in length")
@@ -165,23 +165,53 @@ class CUDAProvider(Provider):
         kx_cols, ky_cols, on_curve, idx, skis = self._dedup_key_columns(keys)
         if kx_cols:
             ok &= on_curve[idx]
-        if len(kx_cols) > self.KEY_BUCKET:
+        return e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, skis, ok
+
+    @staticmethod
+    def _limbs(e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, ok):
+        """K1's inputs: (e, r, s, qx, qy) (20, n) int64 limbs, each lane
+        with its key's columns, and the (n,) mask."""
+        if kx_cols:
             qx = np.stack(kx_cols, axis=1)[:, idx]
             qy = np.stack(ky_cols, axis=1)[:, idx]
-            return None, (
-                be_bytes_to_limbs(e_bytes),
-                be_bytes_to_limbs(r_bytes),
-                be_bytes_to_limbs(s_bytes),
-                qx,
-                qy,
-                ok,
-            )
+        else:
+            qx = qy = np.zeros((NLIMBS, len(ok)), dtype=np.int64)
+        return (be_bytes_to_limbs(e_bytes), be_bytes_to_limbs(r_bytes),
+                be_bytes_to_limbs(s_bytes), qx, qy, ok)
+
+    def prep_bytes(
+        self,
+        keys: Sequence[ECDSAPublicKey],
+        signatures: Sequence[bytes],
+        digests: Sequence[bytes],
+    ):
+        """DER parse and key-column dedup. Returns (prep, None) for the bytes
+        route, or (None, limbs) when the distinct keys exceed KEY_BUCKET.
+        prep is (e, r, s, kx, ky, key index, the key columns' SKIs, ok)."""
+        e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, skis, ok = self._parse(
+            keys, signatures, digests)
+        if len(kx_cols) > self.KEY_BUCKET:
+            return None, self._limbs(e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, ok)
         kx_mat = np.zeros((NLIMBS, self.KEY_BUCKET), dtype=np.int64)
         ky_mat = np.zeros((NLIMBS, self.KEY_BUCKET), dtype=np.int64)
         if kx_cols:
             kx_mat[:, : len(kx_cols)] = np.stack(kx_cols, axis=1)
             ky_mat[:, : len(ky_cols)] = np.stack(ky_cols, axis=1)
         return (e_bytes, r_bytes, s_bytes, kx_mat, ky_mat, idx, skis, ok), None
+
+    def prep_limbs(
+        self,
+        keys: Sequence[ECDSAPublicKey],
+        signatures: Sequence[bytes],
+        digests: Sequence[bytes],
+    ):
+        """The limb route's host prep whatever the number of keys (the
+        multi-channel path, `parallel/multichannel.py`; the counterpart of
+        `TPUProvider.prep_limbs`): (e, r, s, qx, qy) (20, n) int64 limbs and
+        the (n,) bool mask, ready for K1 (`p256_kernel.verify_batch`)."""
+        e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, _skis, ok = self._parse(
+            keys, signatures, digests)
+        return self._limbs(e_bytes, r_bytes, s_bytes, kx_cols, ky_cols, idx, ok)
 
     # -- device dispatch ---------------------------------------------------
 

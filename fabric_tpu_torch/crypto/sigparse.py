@@ -1,7 +1,9 @@
 """Batch DER signature parsing for the device feed (host code).
 
-The port's counterpart of the pure-Python branch of the JAX package's
-`utils/native.batch_der_parse`; the port has no native library.
+The port's counterpart of the JAX package's `utils/native.batch_der_parse`:
+`batch_der_parse` runs the native library's `fn_batch_der_parse`
+(`utils/native.py`), and `batch_der_parse_python`, the JAX module's Python
+branch, is the plain version the tests hold it to.
 """
 
 from __future__ import annotations
@@ -11,9 +13,10 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from fabric_tpu_torch.common import der, p256
+from fabric_tpu_torch.utils.native import batch_der_parse  # noqa: F401  (the native route)
 
 
-def batch_der_parse(
+def batch_der_parse_python(
     sigs: Sequence[bytes],
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(r[N,32], s[N,32], ok[N], low_s[N]) as uint8 arrays.

@@ -2,8 +2,9 @@
 core/common/validation/msgvalidation.go) and the rwset parse
 (rwsetutil.TxRwSetFromProtoMsg), over the port's wire codec.
 
-The port's counterpart of the JAX package's `ledger/txparse`: `SigJob`,
-`ParsedTx`, `parse_transaction`, `_parse_endorser_tx`, `_parse_version` and
+The port's counterpart of the JAX package's `ledger/txparse`: `SigJob`
+(with the native parse's `digest`), `ParsedTx` (with its lazy `rwset`),
+`parse_transaction`, `_parse_endorser_tx`, `_parse_version` and
 `parse_tx_rwset`. Malformed bytes raise `wire.WireError`, a ValueError,
 wherever `protoutil.unmarshal` raises there, and map to the same codes.
 
@@ -20,11 +21,14 @@ from __future__ import annotations
 
 import hashlib
 import hmac
+import logging
 from typing import List, Optional, Tuple
 
 from fabric_tpu_torch.common.txflags import TxValidationCode
 from fabric_tpu_torch.ledger import rwset as rw
 from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+logger = logging.getLogger("fabric_tpu_torch.txparse")
 
 SUPPORTED_HEADER_TYPES = {fabric.ENDORSER_TRANSACTION, fabric.CONFIG_UPDATE, fabric.CONFIG}
 
@@ -110,14 +114,20 @@ def parse_tx_rwset(results: bytes) -> rw.TxRwSet:
 
 class SigJob:
     """One deferred signature check: verify `signature` by the identity
-    serialized in `identity_bytes` over `data`."""
+    serialized in `identity_bytes` over `data`.
 
-    __slots__ = ("identity_bytes", "signature", "data")
+    When the native block parse made the job, `digest` is the SHA-256 of the
+    signed bytes and `data` is b"": the signed bytes are never joined
+    (an endorsement signs proposal_response_payload || endorser)."""
 
-    def __init__(self, identity_bytes: bytes, signature: bytes, data: bytes):
+    __slots__ = ("identity_bytes", "signature", "data", "digest")
+
+    def __init__(self, identity_bytes: bytes, signature: bytes, data: bytes,
+                 digest: Optional[bytes] = None):
         self.identity_bytes = identity_bytes
         self.signature = signature
         self.data = data
+        self.digest = digest
 
 
 def writes_to_namespace(ns_rw: rw.NsRwSet) -> bool:
@@ -130,11 +140,18 @@ def writes_to_namespace(ns_rw: rw.NsRwSet) -> bool:
 
 class ParsedTx:
     """Host-parse result for one block position. `results` keeps the
-    ChaincodeAction's TxReadWriteSet bytes for the commit step."""
+    ChaincodeAction's TxReadWriteSet bytes for the commit step.
+
+    After the native block parse the rwset is built lazily: the native walk
+    already checked its structure and gave `ns_entries` and `has_md_writes`,
+    so the object tree is built only when a consumer (the state-based
+    endorsement pass, MVCC) asks for `rwset`. Should the Python parse refuse
+    bytes the native walk accepted, the tx is demoted to BAD_RWSET instead
+    of failing the block."""
 
     __slots__ = ("index", "code", "header_type", "channel_id", "tx_id", "creator",
-                 "creator_sig_job", "endorsement_jobs", "namespace", "config_data", "rwset",
-                 "results")
+                 "creator_sig_job", "endorsement_jobs", "namespace", "config_data", "results",
+                 "_rwset", "_rwset_raw", "_ns_entries", "_has_md_writes")
 
     def __init__(self, index: int):
         self.index = index
@@ -147,25 +164,52 @@ class ParsedTx:
         self.endorsement_jobs: List[SigJob] = []
         self.namespace: str = ""
         self.config_data: bytes = b""
-        self.rwset: Optional[rw.TxRwSet] = None
         self.results: Optional[bytes] = None
+        self._rwset: Optional[rw.TxRwSet] = None
+        self._rwset_raw: Optional[bytes] = None
+        # (namespace, writes_to_namespace) per ns_rw_set, in rwset order
+        self._ns_entries: Optional[List[Tuple[str, bool]]] = None
+        self._has_md_writes: Optional[bool] = None
+
+    @property
+    def rwset(self) -> Optional[rw.TxRwSet]:
+        if self._rwset is None and self._rwset_raw is not None:
+            raw, self._rwset_raw = self._rwset_raw, None
+            try:
+                self._rwset = parse_tx_rwset(raw)
+            except ValueError:
+                # the native walk and the Python parse disagree on these
+                # bytes: this tx is BAD_RWSET, the block goes on
+                logger.warning("native/Python rwset parse divergence on tx %d (len=%d): "
+                               "marking BAD_RWSET", self.index, len(raw))
+                self.code = TxValidationCode.BAD_RWSET
+        return self._rwset
+
+    @rwset.setter
+    def rwset(self, value: Optional[rw.TxRwSet]) -> None:
+        self._rwset = value
+        self._rwset_raw = None
 
     @property
     def ns_entries(self) -> Optional[List[Tuple[str, bool]]]:
         """[(namespace, writes_to_namespace)] in rwset order, or None for
         non-endorser / failed txs."""
-        if self.rwset is None:
-            return None
-        return [(ns.namespace, writes_to_namespace(ns)) for ns in self.rwset.ns_rw_sets]
+        if self._ns_entries is None and self.rwset is not None:
+            self._ns_entries = [(ns.namespace, writes_to_namespace(ns))
+                                for ns in self.rwset.ns_rw_sets]
+        return self._ns_entries
 
     @property
     def has_md_writes(self) -> bool:
         """Any public or collection-hashed metadata write: the trigger for
         the sequential SBE pass (statebased.BlockDependencies)."""
-        return self.rwset is not None and any(
-            ns.metadata_writes or any(c.metadata_writes for c in ns.coll_hashed)
-            for ns in self.rwset.ns_rw_sets
-        )
+        if self._has_md_writes is None:
+            rwset = self.rwset
+            self._has_md_writes = rwset is not None and any(
+                ns.metadata_writes or any(c.metadata_writes for c in ns.coll_hashed)
+                for ns in rwset.ns_rw_sets
+            )
+        return self._has_md_writes
 
     @property
     def structurally_valid(self) -> bool:

@@ -1,0 +1,1 @@
+"""Multi-channel validation: one block per channel, every signature in one launch."""

@@ -7,7 +7,7 @@ block (a dict in `wire.decode`'s form, `protos/fabric.BLOCK`) is validated
 in four phases:
 
 1. host parse: structural checks per tx, emitting deferred signature jobs
-   (`validation/blockparse.py`);
+   with their digests, in one native pass (`validation/blockparse.py`);
 2. device batch: every creator and endorsement signature of the block
    verified in one `provider.batch_verify_async` call (K2 through
    `CUDAProvider`); identities are deserialized and their chains and CRLs
@@ -29,10 +29,17 @@ INVALID_CHAINCODE, as in the JAX validator without a plugin registry. The
 identity cache has no lock: the port has no commit pipeline yet whose
 stages would share it.
 
-`last_ms` holds the split of the last `validate` in milliseconds: parse,
-identity (deserialize, chain, expiry, CRL), host_prep (digests and the
-provider's dispatch: DER parse, key columns, copies, launch), principals
-(principal matching while the kernel runs), verify_wait, policy, assembly.
+`last_ms` holds the split of the last `validate` in milliseconds: parse
+(the native pass), identity (deserialize, chain, expiry, CRL), host_prep
+(digests of Python-parsed jobs and the provider's dispatch: DER parse, key
+columns, copies, launch), principals (principal matching while the kernel
+runs), verify_wait, policy, assembly. `last_parser` says which parse made
+the block's jobs ("native", or "python" for a `parse_block_python` block a
+caller passed in), as `last_sig_backend` says where the signatures ran.
+
+A multi-channel scheduler (`parallel/multichannel.py`) splits phase 2:
+`collect_sig_jobs` for each channel, one launch for every channel, then
+`finish_sig_results` and `validate(block, parsed, sig_results=...)`.
 """
 
 from __future__ import annotations
@@ -117,8 +124,10 @@ class BlockValidator:
         self.channel_id = channel_id
         self.msp_manager = msp_manager
         self.provider = provider
-        # backend label of the most recent signature batch
+        # backend label of the most recent signature batch, and the parse
+        # ("native" or "python") the last validated block came from
         self.last_sig_backend: Optional[str] = None
+        self.last_parser: Optional[str] = None
         self.last_ms: Dict[str, float] = {}
         self.registry = registry
         self.tx_exists = tx_exists or (lambda txid: False)
@@ -146,18 +155,27 @@ class BlockValidator:
         return t1
 
     # ------------------------------------------------------------------
-    def validate(self, block: dict, parsed: Optional[ParsedBlock] = None) -> ValidationFlags:
+    def validate(
+        self,
+        block: dict,
+        parsed: Optional[ParsedBlock] = None,
+        sig_results: Optional[Dict[int, bool]] = None,
+    ) -> ValidationFlags:
         """Validate a block; writes TRANSACTIONS_FILTER metadata and returns
         the flags (reference Validate, v20/validator.go:180-265). `parsed`
-        lets the caller share one parse with the commit step."""
+        lets the caller share one parse with the commit step; `sig_results`
+        ({id(job): verdict}, from `finish_sig_results`) lets a multi-channel
+        scheduler verify several channels' signatures in one launch."""
         self.last_ms = {}
         t = time.perf_counter()
         data = list(block.get("data", {}).get("data", ()))
         if parsed is None:
             parsed = parse_block(data)
+        self.last_parser = "native" if parsed.native else "python"
         t = self._stamp("parse", t)
 
-        sig_results = self._batch_verify_sigs(parsed)
+        if sig_results is None:
+            sig_results = self._batch_verify_sigs(parsed)
         t = time.perf_counter()
         flags = ValidationFlags(len(data))
         txid_array: List[str] = [""] * len(data)
@@ -172,6 +190,11 @@ class BlockValidator:
         for tx in parsed:
             i = tx.index
             if flags.flag(i) == TxValidationCode.NOT_VALIDATED:
+                # building a lazy rwset in the policy phase may have demoted
+                # the tx (the native walk and the Python parse disagreed)
+                if tx.code == TxValidationCode.BAD_RWSET:
+                    flags.set_flag(i, TxValidationCode.BAD_RWSET)
+                    continue
                 flags.set_flag(i, TxValidationCode.VALID)
                 txid_array[i] = tx.tx_id
         seen: Dict[str, int] = {}
@@ -205,14 +228,16 @@ class BlockValidator:
     ) -> Tuple[List[SigJob], Dict[int, Optional[Identity]], List, List[bytes], List[bytes]]:
         """Every deferred signature job of the block, identities
         deserialized and chain/CRL validated (reference identities.go:107),
-        verifiable jobs flattened into (keys, sigs, digests) batch inputs."""
+        verifiable jobs flattened into (keys, sigs, digests) batch inputs.
+        The native parse's digests are used as they are; the jobs of a
+        Python parse are hashed here, in one provider batch."""
         t = time.perf_counter()
         jobs: List[SigJob] = []
         for tx in parsed:
             if tx.creator_sig_job is not None:
                 jobs.append(tx.creator_sig_job)
             jobs.extend(tx.endorsement_jobs)
-        keys, sigs, payloads = [], [], []
+        keys, sigs, verifiable = [], [], []
         job_identity: Dict[int, Optional[Identity]] = {}
         ident_cache = self._ident_cache
         if len(ident_cache) > 8192:
@@ -233,11 +258,31 @@ class BlockValidator:
                 continue
             keys.append(ident.public_key)
             sigs.append(job.signature)
-            payloads.append(job.data)
+            verifiable.append(job)
         t = self._stamp("identity", t)
-        digests = self.provider.batch_hash(payloads)
+        digests = [job.digest for job in verifiable]
+        raw = [k for k, d in enumerate(digests) if d is None]
+        if raw:
+            for k, d in zip(raw, self.provider.batch_hash([verifiable[k].data for k in raw])):
+                digests[k] = d
         self._stamp("host_prep", t)
         return jobs, job_identity, keys, sigs, digests
+
+    def finish_sig_results(
+        self,
+        jobs: Sequence[SigJob],
+        job_identity: Dict[int, Optional[Identity]],
+        ok_list: Sequence[bool],
+    ) -> Dict[int, bool]:
+        """Map the verdicts of the verifiable jobs, in `collect_sig_jobs`'
+        order, back to {id(job): bool}; a job whose identity failed
+        deserialization or validation is False."""
+        it = iter(ok_list)
+        self._job_identity = job_identity
+        self._sig_results = {
+            id(job): job_identity[id(job)] is not None and bool(next(it)) for job in jobs
+        }
+        return self._sig_results
 
     def _batch_verify_sigs(self, parsed: Sequence[ParsedTx]) -> Dict[int, bool]:
         """Verify every deferred signature job in one batch; {id(job): bool},
@@ -257,12 +302,7 @@ class BlockValidator:
             ok_list = self.provider.batch_verify(keys, sigs, digests)
         self._stamp("verify_wait", t)
         self.last_sig_backend = self.provider.describe_backend()
-        it = iter(ok_list)
-        self._job_identity = job_identity
-        self._sig_results = {
-            id(job): job_identity[id(job)] is not None and bool(next(it)) for job in jobs
-        }
-        return self._sig_results
+        return self.finish_sig_results(jobs, job_identity, ok_list)
 
     def _prewarm_satisfaction(
         self, parsed: Sequence[ParsedTx], job_identity: Dict[int, Optional[Identity]]
@@ -390,8 +430,9 @@ class BlockValidator:
             self._evaluate_policies_batched(groups, parsed, flags)
 
     def _any_vp_on_written_keys(self, groups: PolicyGroups, parsed: ParsedBlock) -> bool:
-        # only txs actually dispatched: invalid txs must not cost state
-        # reads or force the sequential path
+        # after the native parse, the columnar written-keys table: no rwset
+        # is built. Only txs actually dispatched: invalid txs must not cost
+        # state reads or force the sequential path
         dispatched = {i for _d, entries in groups.values() for i, _ns in entries}
         return any(
             i in dispatched and self._has_vp(ns, coll, key)

@@ -1,10 +1,11 @@
 // Stand-ins for the CUDA constructs of fabric_tpu_torch/csrc/bn256.cu,
 // p256_verify.cu, mvcc_resolve.cu and policy_eval.cu, so that g++ compiles their kernels
-// for the CPU: a block runs as std::threads, one a CUDA thread; __syncwarp
-// is a barrier over the live threads of the caller's warp and
-// __syncthreads (and its _or form) one over the block's (a thread that
-// returns drops out of both), __shfl_down_sync an exchange through a
-// shared array between two warp barriers; __shared__ variables are
+// for the CPU: a block's threads are fibers (ucontext) that take turns on
+// the calling OS thread, each running until it waits at a barrier or in
+// __nanosleep; __syncwarp is a barrier over the live threads of the
+// caller's warp and __syncthreads (and its _or form) one over the block's
+// (a thread that returns drops out of both), __shfl_down_sync an exchange
+// through a shared array between two warp barriers; __shared__ variables are
 // statics, which the blocks, run one after another, reuse, and a kernel's
 // extern __shared__ array is one its harness defines, int2 and int4 a pair
 // and a quad of ints;
@@ -13,15 +14,24 @@
 // thread's Montgomery multiplies (mod p and, in p256_verify.cu, mod n),
 // FMUL_COUNT one that a quad of threads computes, and launch() keeps each
 // thread's counts.
+//
+// One OS thread runs a whole launch, and no thread spins while it waits:
+// a waiting fiber is not resumed until its barrier opens. A host busy with
+// other work slows the emulation by its share of one core, no more (with a
+// block as std::threads, a wait cost a round of futex wake-ups across the
+// block, and the waits that spun took the cores the others needed).
 #include <algorithm>
 #include <atomic>
-#include <barrier>
+#include <cstdio>
+#include <cstdlib>
 #include <chrono>
 #include <cstdint>
 #include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
+
+#include <sys/mman.h>
+#include <ucontext.h>
 
 #define __global__
 #define __device__
@@ -49,11 +59,57 @@ inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct Dim3 {
     unsigned x = 0;
 };
-thread_local Dim3 threadIdx, blockIdx;
-static std::barrier<>* g_block_barrier;
-static std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
+// the running thread's; launch() swaps them in and out with the fiber
+static Dim3 threadIdx, blockIdx;
+static long long g_fmuls, g_nmuls;
+static unsigned g_or_calls;
+
+struct Fiber {
+    ucontext_t ctx;
+    char* stack = nullptr;
+    unsigned tid = 0;
+    long long fmuls = 0, nmuls = 0;
+    unsigned or_calls = 0;
+    bool done = false;
+    bool napping = false;  // in __nanosleep: resumed when no other thread can run
+    // while it waits at a barrier: the barrier's phase, and its value then
+    const unsigned long* wait_phase = nullptr;
+    unsigned long wait_from = 0;
+};
+static ucontext_t g_scheduler;
+static std::vector<Fiber> g_fibers;
+static size_t g_running;
+
+// Back to the scheduler; the running fiber resumes here on its next turn.
+inline void fiber_yield() { swapcontext(&g_fibers[g_running].ctx, &g_scheduler); }
+
+// std::barrier's arrive_and_wait and arrive_and_drop, for fibers.
+struct Barrier {
+    int expected;
+    int arrived = 0;
+    unsigned long phase = 0;
+    explicit Barrier(int n) : expected(n) {}
+    void open() {
+        arrived = 0;
+        ++phase;
+    }
+    void arrive_and_wait() {
+        if (++arrived == expected) {
+            open();
+            return;
+        }
+        Fiber& f = g_fibers[g_running];
+        f.wait_phase = &phase;
+        f.wait_from = phase;
+        fiber_yield();
+    }
+    void arrive_and_drop() {
+        if (--expected == arrived && arrived) open();
+    }
+};
+static std::unique_ptr<Barrier> g_block_barrier;
+static std::vector<std::unique_ptr<Barrier>> g_warp_barriers;
 static uint32_t g_exchange[1024];
-thread_local long long g_fmuls, g_nmuls;
 // [block * blockDim + thread] of the last launch
 static std::vector<long long> g_thread_fmuls, g_thread_nmuls;
 
@@ -69,7 +125,7 @@ inline long long clock64() {
         .count();
 }
 
-inline std::barrier<>& warp_barrier() { return *g_warp_barriers[threadIdx.x / 32]; }
+inline Barrier& warp_barrier() { return *g_warp_barriers[threadIdx.x / 32]; }
 
 inline void __syncwarp(unsigned) { warp_barrier().arrive_and_wait(); }
 
@@ -79,7 +135,6 @@ inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 // clears the other (no thread sets that one before the second barrier);
 // launch() clears both and each block's threads start with the first.
 static std::atomic<int> g_block_or[2];
-thread_local unsigned g_or_calls;
 inline int __syncthreads_or(int p) {
     const unsigned turn = g_or_calls++ & 1u;
     if (p) g_block_or[turn].store(1);
@@ -100,7 +155,10 @@ inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int delta, int width) {
     return r;
 }
 
-inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __nanosleep(unsigned) {
+    g_fibers[g_running].napping = true;
+    fiber_yield();
+}
 
 // atomicMin / atomicMax on int and unsigned long long, atomicMax and
 // atomicAdd on unsigned, in shared or global memory; each returns the old
@@ -124,32 +182,94 @@ inline unsigned long long atomicMax(unsigned long long* p, unsigned long long v)
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
 
-// Runs `body` for every thread of `grid` blocks of `block` threads.
+// Runs `body` for every thread of `grid` blocks of `block` threads, a block
+// at a time, its threads in turns.
+static const std::function<void()>* g_body;
+constexpr size_t FIBER_STACK = 8u << 20;  // a std::thread's default; pages touched on use
+
+static void fiber_main() {
+    (*g_body)();
+    Fiber& f = g_fibers[g_running];
+    f.done = true;
+    warp_barrier().arrive_and_drop();
+    g_block_barrier->arrive_and_drop();
+}  // returns to g_scheduler through uc_link
+
 static void launch(int grid, int block, const std::function<void()>& body) {
     g_thread_fmuls.assign((size_t)grid * block, 0);
     g_thread_nmuls.assign((size_t)grid * block, 0);
+    g_body = &body;
+    if (g_fibers.size() < (size_t)block) g_fibers.resize(block);
+    for (int t = 0; t < block; ++t) {
+        Fiber& f = g_fibers[t];
+        if (!f.stack) {
+            void* p = mmap(nullptr, FIBER_STACK, PROT_READ | PROT_WRITE,
+                           MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE | MAP_STACK, -1, 0);
+            if (p == MAP_FAILED) {
+                perror("mmap");
+                exit(5);
+            }
+            f.stack = static_cast<char*>(p);
+        }
+    }
     for (int b = 0; b < grid; ++b) {
-        std::barrier<> bar(block);
-        g_block_barrier = &bar;
+        g_block_barrier = std::make_unique<Barrier>(block);
         g_block_or[0].store(0);
         g_block_or[1].store(0);
         g_warp_barriers.clear();
         for (int w = 0; w * 32 < block; ++w)
             g_warp_barriers.push_back(
-                std::make_unique<std::barrier<>>(block - 32 * w < 32 ? block - 32 * w : 32));
-        std::vector<std::thread> threads;
-        for (int t = 0; t < block; ++t)
-            threads.emplace_back([&, t, b] {
-                threadIdx.x = t;
-                blockIdx.x = b;
-                g_or_calls = 0;
-                g_fmuls = g_nmuls = 0;
-                body();
-                g_thread_fmuls[(size_t)b * block + t] = g_fmuls;
-                g_thread_nmuls[(size_t)b * block + t] = g_nmuls;
-                warp_barrier().arrive_and_drop();
-                bar.arrive_and_drop();
-            });
-        for (auto& th : threads) th.join();
+                std::make_unique<Barrier>(block - 32 * w < 32 ? block - 32 * w : 32));
+        for (int t = 0; t < block; ++t) {
+            Fiber& f = g_fibers[t];
+            f.tid = t;
+            f.fmuls = f.nmuls = 0;
+            f.or_calls = 0;
+            f.done = false;
+            f.wait_phase = nullptr;
+            getcontext(&f.ctx);
+            f.ctx.uc_stack.ss_sp = f.stack;
+            f.ctx.uc_stack.ss_size = FIBER_STACK;
+            f.ctx.uc_link = &g_scheduler;
+            makecontext(&f.ctx, fiber_main, 0);
+        }
+        blockIdx.x = b;
+        // a round runs every thread that can run, the napping ones only
+        // in a round where no other could
+        for (int live = block, naps = 0; live;) {
+            bool ran = false;
+            for (int t = 0; t < block; ++t) {
+                Fiber& f = g_fibers[t];
+                if (f.done || (f.napping && !naps)) continue;
+                if (f.wait_phase) {
+                    if (*f.wait_phase == f.wait_from) continue;
+                    f.wait_phase = nullptr;
+                }
+                ran = true;
+                f.napping = false;
+                threadIdx.x = f.tid;
+                g_fmuls = f.fmuls;
+                g_nmuls = f.nmuls;
+                g_or_calls = f.or_calls;
+                g_running = t;
+                swapcontext(&g_scheduler, &f.ctx);
+                f.fmuls = g_fmuls;
+                f.nmuls = g_nmuls;
+                f.or_calls = g_or_calls;
+                if (f.done) {
+                    g_thread_fmuls[(size_t)b * block + t] = f.fmuls;
+                    g_thread_nmuls[(size_t)b * block + t] = f.nmuls;
+                    --live;
+                }
+            }
+            if (ran) {
+                naps = 0;
+            } else if (!naps++) {
+                continue;
+            } else {
+                fprintf(stderr, "launch: block %d deadlocked, %d threads waiting\n", b, live);
+                exit(6);
+            }
+        }
     }
 }

@@ -2,7 +2,7 @@
 plain versions.
 
 `fabric_tpu_torch/csrc/bn256.cu` is compiled with g++ under the stand-ins
-of `tests/cuda_emu/stand_in.h` (a block as 32 std::threads, `__syncwarp`
+of `tests/cuda_emu/stand_in.h` (a block as 32 fibers taking turns, `__syncwarp`
 a barrier, `__shfl_down_sync` an exchange between barriers, FMUL a
 counted Montgomery multiply), with BN256_KERNELS_ONLY, which leaves out
 its launchers, and run through `tests/cuda_emu/run_kernels.cpp` on inputs

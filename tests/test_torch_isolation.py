@@ -39,6 +39,11 @@ from fabric_tpu_torch.msp.identity import MSPManager
 from fabric_tpu_torch.policy.ast import from_dsl
 from fabric_tpu_torch.policy.evaluator import compile_batched
 from fabric_tpu_torch.validation.validator import BlockValidator, ChaincodeRegistry
+from fabric_tpu_torch.parallel.multichannel import MultiChannelValidator
+from fabric_tpu_torch.validation.blockparse import parse_block
+parse_block([b""])  # the native pass: the port's own library, built on first use
+with open("/proc/self/maps") as maps:
+    libraries = sorted({line.split()[-1] for line in maps if "fabric_native" in line})
 refused = {}
 for name, make in (("CUDAProvider", CUDAProvider),
                    ("DeviceValidator", lambda: DeviceValidator(VersionedDB())),
@@ -53,13 +58,15 @@ for name, make in (("CUDAProvider", CUDAProvider),
                        fp256bn.G2_GEN, [(fp256bn.G1_GEN, fp256bn.G1_GEN)])),
                    ("compile_batched", lambda: compile_batched(from_dsl("OR('A.member')"), 1)),
                    ("BlockValidator", lambda: BlockValidator(
-                       "ch", MSPManager([]), CUDAProvider(), ChaincodeRegistry()))):
+                       "ch", MSPManager([]), CUDAProvider(), ChaincodeRegistry())),
+                   ("MultiChannelValidator", lambda: MultiChannelValidator({}))):
     try:
         make()
         refused[name] = None
     except RuntimeError as exc:
         refused[name] = str(exc)
-print(json.dumps({"modules": names, "leaked": leaked, "refused": refused}))
+print(json.dumps({"modules": names, "leaked": leaked, "refused": refused,
+                  "libraries": libraries}))
 """
 
 
@@ -78,9 +85,15 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "protos.protoutil", "common.x509", "msp.identity", "msp.cryptogen", "msp.signer",
                  "policy.ast", "policy.proto_convert", "policy.evaluator", "ops.policy_kernel",
                  "ledger.txparse", "validation.blockparse", "validation.statebased",
-                 "validation.validator", "endorser.txbuilder"):
+                 "validation.validator", "endorser.txbuilder", "utils.native",
+                 "parallel.sharded", "parallel.multichannel"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
+    # the port's native library, never the JAX package's native/libfabric_native.so
+    assert [Path(p).parent.name for p in report["libraries"]] == ["torch_native"]
+    for path in (REPO / "fabric_tpu_torch").rglob("*"):
+        if path.suffix in (".py", ".cc", ".h", ".cu"):
+            assert "libfabric_native" not in path.read_text(), path
     if not torch.cuda.is_available():
         for name, refused in report["refused"].items():
             assert refused, f"{name}() must raise without a card"

@@ -2,7 +2,7 @@
 against their plain versions.
 
 `fabric_tpu_torch/csrc/mvcc_resolve.cu` is compiled with g++ under the
-stand-ins of `tests/cuda_emu/stand_in.h` (a block as 1,024 std::threads,
+stand-ins of `tests/cuda_emu/stand_in.h` (a block as 1,024 fibers taking turns,
 `__syncthreads` and `__syncthreads_or` barriers over them, atomicMin and
 atomicMax compare-and-swap loops, the shared route's extern `__shared__`
 array one the harness defines), with MVCC_KERNELS_ONLY, which leaves out

@@ -2,7 +2,7 @@
 against their plain versions and the oracle.
 
 `fabric_tpu_torch/csrc/p256_verify.cu` is compiled with g++ under the
-stand-ins of `tests/cuda_emu/stand_in.h` (a block as std::threads,
+stand-ins of `tests/cuda_emu/stand_in.h` (a block as fibers taking turns,
 `__syncwarp` a barrier over the caller's warp, `__syncthreads` one over the
 block, `__shfl_down_sync` an exchange between warp barriers, FMUL and NMUL
 counted Montgomery multiplies mod p and mod n), with P256_KERNELS_ONLY,

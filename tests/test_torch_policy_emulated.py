@@ -2,7 +2,7 @@
 the plain version.
 
 `fabric_tpu_torch/csrc/policy_eval.cu` is compiled with g++ under the
-stand-ins of `tests/cuda_emu/stand_in.h` (a block as std::threads, a
+stand-ins of `tests/cuda_emu/stand_in.h` (a block as fibers taking turns, a
 `__syncthreads` barrier over them, `int4` a quad of ints, the shared
 route's extern `__shared__` array one the harness defines), with
 POLICY_KERNELS_ONLY, which leaves out its launchers, and run through
