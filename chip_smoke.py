@@ -114,7 +114,33 @@ csrc/policy_eval.cu; K2 and K6 on the validator's path):
  17. validator_commit: three config #2 blocks validated and committed
      through kvledger.commit_block_state with a ResidentDeviceValidator
      (K6), commit hashes equal to the host route's on a second state DB;
- 18. the launch floor (a kernel that does nothing, timed as the kernels
+ 18. native and multichannel_config5: the native host runtime against the
+     Python routes, and bench.py's config #5 through MultiChannelValidator
+     (one K1 launch a validate);
+
+The peer's commit path (CommitPipeline, Channel, the shared VerifyBatcher,
+the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
+
+ 19. pipeline_config2: 10 linked config #2 blocks of 1,000 txs (block 5 with
+     100 of config #4's read conflicts), signed in a pool of spawned
+     processes, through Channel(BatchingProvider(CUDAProvider), device_mvcc=
+     True) and CommitPipeline(depth=2) from a deliver thread over a
+     persistent ledger under build/smoke_ledgers/; the same chain stored one
+     block at a time over CUDAProvider (K5) and over the host MVCC (the
+     reference); filters, commit hashes, .chain bytes and SQLite rows equal
+     in all three, block 5's 100 conflicts and nothing else invalid, K5 once
+     a block on its device route, K2 at least once and at most once a
+     block, the key combs once, no dispatch retry and no fail-closed
+     settlement (the port's fabobs counters), a reopen at height 10 with
+     nothing replayed; the oracle on a seeded sample of each block's
+     signature lanes; tx/s, stage_stats, the overlap share, each block's
+     commit split and the full GC collections;
+ 20. pipeline_config5: four config #5 channels (2 blocks of 2,000 txs
+     each), each with its own CommitPipeline, ledger and deliver thread,
+     sharing one BatchingProvider: each channel's filters and commit hashes
+     equal to the channel stored alone, aggregate tx/s, the batcher's
+     launches against the 8 blocks submitted;
+ 21. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -1334,26 +1360,103 @@ class Config2Net:
         registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", self.policy)])
         return BlockValidator(channel, self.managers[with_crl], provider, registry)
 
-    def envelope(self, i, cc="benchcc", client=None, endorsers=None, channel=CONFIG2_CHANNEL):
-        """bench.py make_block's tx i: one write of k{i} in benchcc."""
+    def envelope(self, i, cc="benchcc", client=None, endorsers=None, channel=CONFIG2_CHANNEL,
+                 reads=(), results=None):
+        """bench.py make_block's tx i: one write of k{i} in benchcc, after
+        `reads` ((key, Version) pairs) when given; `results` replaces the
+        whole TxReadWriteSet."""
         from fabric_tpu_torch.endorser import txbuilder as tb
         from fabric_tpu_torch.ledger import rwset as rw
         from fabric_tpu_torch.ledger.rwset_proto import serialize_tx_rwset
 
         client = client or self.client
-        results = serialize_tx_rwset(rw.TxRwSet((rw.NsRwSet(
-            "benchcc", (), (rw.KVWrite(f"k{i}", False, b"v"),)),)))
+        if results is None:
+            results = serialize_tx_rwset(rw.TxRwSet((rw.NsRwSet(
+                "benchcc", tuple(rw.KVRead(k, v) for k, v in reads),
+                (rw.KVWrite(f"k{i}", False, b"v"),)),)))
         bundle = tb.create_proposal(client, channel, cc, [b"invoke", b"%d" % i])
         responses = [tb.endorse_proposal(bundle, e, results) for e in endorsers or self.endorsers]
         return tb.create_signed_tx(bundle, client, responses)
 
     @staticmethod
-    def make_block(datas, number):
+    def make_block(datas, number, previous_hash=b"\x33" * 32):
+        """A sealed block of `datas`. The phases that do not chain keep the
+        fixed previous hash, so their blocks stay byte for byte what they
+        were; only `chain` links headers."""
         from fabric_tpu_torch.protos import protoutil
 
-        block = protoutil.new_block(number, b"\x33" * 32)
+        block = protoutil.new_block(number, previous_hash)
         block["data"]["data"] = list(datas)
         return protoutil.seal_block(block)
+
+    @staticmethod
+    def flipped(number, n_txs, channel=CONFIG2_CHANNEL, invalid=0):
+        """{tx: kind} of the `invalid` txs of block `number` of `chain` that
+        carry a flipped signature, "bad_endorsement" and "bad_creator_sig"
+        in turn: txs i with i % 10 == 3, drawn from the channel and the
+        number, so two blocks that share a launch flip different lanes and
+        no tx that the conflict pattern reads or writes is touched."""
+        import random
+
+        slots = random.Random(f"flipped {channel} {number}").sample(
+            range(n_txs // 10), min(invalid, n_txs // 10))
+        return {10 * j + 3: ("bad_endorsement", "bad_creator_sig")[k % 2]
+                for k, j in enumerate(slots)}
+
+    def chain_datas(self, number, n_txs, conflict=False, channel=CONFIG2_CHANNEL, invalid=0):
+        """The envelopes of block `number` of `chain`, as wire bytes: tx i
+        writes k{i}; with `conflict` every tx i with i % 10 == 9 also reads
+        k{i-1} at the version block number - 1 committed, which tx i-1 of
+        the same block writes first (config #4's pattern: n_txs // 10
+        MVCC_READ_CONFLICTs); the txs of `flipped` carry one flipped
+        signature each. The signers' random stream is reseeded from the
+        channel and the number first, so a block's bytes do not depend on
+        what was signed before it (and blocks can be signed in other
+        processes)."""
+        from fabric_tpu_torch.ledger.rwset import Version
+        from fabric_tpu_torch.protos import fabric, wire
+
+        self.rng.seed(f"chain {channel} {number}")
+        flipped = self.flipped(number, n_txs, channel, invalid)
+        datas = []
+        for i in range(n_txs):
+            reads = ((f"k{i - 1}", Version(number - 1, i - 1)),) if conflict and i % 10 == 9 else ()
+            env = self.envelope(i, channel=channel, reads=reads)
+            if flipped.get(i) == "bad_endorsement":
+                env = self.resigned(env, self.flip_endorsement)
+            elif flipped.get(i) == "bad_creator_sig":
+                env = self.flip_creator_sig(env)
+            datas.append(wire.encode(fabric.ENVELOPE, env))
+        return datas
+
+    def chain_codes(self, number, n_txs, conflict=False, channel=CONFIG2_CHANNEL, invalid=0):
+        """The TRANSACTIONS_FILTER block `number` of `chain` must get."""
+        codes = [MASK_CODES["valid"]] * n_txs
+        if conflict:
+            for i in range(9, n_txs, 10):
+                codes[i] = 11  # MVCC_READ_CONFLICT
+        for i, kind in self.flipped(number, n_txs, channel, invalid).items():
+            codes[i] = MASK_CODES[kind]
+        return bytes(codes)
+
+    def link(self, block_datas):
+        """Blocks 0, 1, ... of `block_datas` as wire bytes, linked: block 0
+        has an empty previous hash and each later block carries the header
+        hash of the one before it."""
+        from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+        out, prev = [], b""
+        for number, datas in enumerate(block_datas):
+            block = self.make_block(datas, number, prev)
+            prev = protoutil.block_header_hash(block["header"])
+            out.append(wire.encode(fabric.BLOCK, block))
+        return out
+
+    def chain(self, n_blocks, n_txs, conflict_block=None, channel=CONFIG2_CHANNEL, invalid=0):
+        """A linked chain of config #2 blocks as wire bytes (`chain_datas`,
+        `link`); fresh txids every block."""
+        return self.link([self.chain_datas(number, n_txs, number == conflict_block, channel,
+                                           invalid) for number in range(n_blocks)])
 
     def block(self, n_txs, number=1, channel=CONFIG2_CHANNEL):
         from fabric_tpu_torch.protos import fabric, wire
@@ -1362,24 +1465,43 @@ class Config2Net:
         return self.make_block([wire.encode(fabric.ENVELOPE, self.envelope(i, channel=channel))
                                 for i in range(n_txs)], number)
 
+    def resigned(self, env, change):
+        """`env` with its payload passed through `change` and signed anew
+        by the client."""
+        from fabric_tpu_torch.protos import fabric, wire
+
+        payload = wire.decode(fabric.PAYLOAD, env["payload"])
+        change(payload)
+        raw = wire.encode(fabric.PAYLOAD, payload)
+        return {"payload": raw, "signature": self.client.sign(raw)}
+
+    @staticmethod
+    def flip_endorsement(payload):
+        """Flip the last byte of the second endorsement's signature."""
+        from fabric_tpu_torch.protos import fabric, wire
+
+        tx = wire.decode(fabric.TRANSACTION, payload["data"])
+        cap = wire.decode(fabric.CHAINCODE_ACTION_PAYLOAD, tx["actions"][0]["payload"])
+        sig = bytearray(cap["action"]["endorsements"][1]["signature"])
+        sig[-1] ^= 0xFF
+        cap["action"]["endorsements"][1]["signature"] = bytes(sig)
+        tx["actions"][0]["payload"] = wire.encode(fabric.CHAINCODE_ACTION_PAYLOAD, cap)
+        payload["data"] = wire.encode(fabric.TRANSACTION, tx)
+
+    @staticmethod
+    def flip_creator_sig(env):
+        """`env` with the last bit of the creator's signature flipped."""
+        return {**env, "signature": env["signature"][:-1] + bytes([env["signature"][-1] ^ 0x01])}
+
     def mask_block(self):
         """validator_mask's block and the codes expected lane by lane."""
-        from fabric_tpu_torch.protos import fabric, protoutil, wire
+        datas, want = self.mask_datas()
+        return self.make_block(datas, 2), want
 
-        def resigned(env, change):
-            payload = wire.decode(fabric.PAYLOAD, env["payload"])
-            change(payload)
-            raw = wire.encode(fabric.PAYLOAD, payload)
-            return {"payload": raw, "signature": self.client.sign(raw)}
-
-        def flip_endorsement(payload):
-            tx = wire.decode(fabric.TRANSACTION, payload["data"])
-            cap = wire.decode(fabric.CHAINCODE_ACTION_PAYLOAD, tx["actions"][0]["payload"])
-            sig = bytearray(cap["action"]["endorsements"][1]["signature"])
-            sig[-1] ^= 0xFF
-            cap["action"]["endorsements"][1]["signature"] = bytes(sig)
-            tx["actions"][0]["payload"] = wire.encode(fabric.CHAINCODE_ACTION_PAYLOAD, cap)
-            payload["data"] = wire.encode(fabric.TRANSACTION, tx)
+    def mask_datas(self, n_txs=MASK_TXS):
+        """`n_txs` envelopes of the invalid kinds of MASK_KINDS in turn, and
+        the codes expected lane by lane."""
+        from fabric_tpu_torch.protos import fabric, wire
 
         def bad_txid(payload):
             chdr = wire.decode(fabric.CHANNEL_HEADER, payload["header"]["channel_header"])
@@ -1387,22 +1509,21 @@ class Config2Net:
             payload["header"]["channel_header"] = wire.encode(fabric.CHANNEL_HEADER, chdr)
 
         datas, want = [], []
-        for i in range(MASK_TXS):
+        for i in range(n_txs):
             kind = MASK_KINDS[i % len(MASK_KINDS)]
             env = None
             if kind == "valid":
                 env = self.envelope(i)
             elif kind == "bad_creator_sig":
-                env = self.envelope(i)
-                env["signature"] = env["signature"][:-1] + bytes([env["signature"][-1] ^ 0x01])
+                env = self.flip_creator_sig(self.envelope(i))
             elif kind == "bad_endorsement":
-                env = resigned(self.envelope(i), flip_endorsement)
+                env = self.resigned(self.envelope(i), self.flip_endorsement)
             elif kind == "unknown_msp":
                 env = self.envelope(i, client=self.stranger)
             elif kind == "unknown_cc":
                 env = self.envelope(i, cc="ghostcc")
             elif kind == "bad_txid":
-                env = resigned(self.envelope(i), bad_txid)
+                env = self.resigned(self.envelope(i), bad_txid)
             elif kind == "bad_payload":
                 env = {"payload": b"\x0a\x05abc", "signature": self.client.sign(b"\x0a\x05abc")}
             elif kind == "revoked_endorser":
@@ -1412,7 +1533,7 @@ class Config2Net:
             else:
                 datas.append(b"" if kind == "nil" else wire.encode(fabric.ENVELOPE, env))
             want.append(MASK_CODES[kind])
-        return self.make_block(datas, 2), want
+        return datas, want
 
 
 def oracle_provider():
@@ -1897,6 +2018,429 @@ def multichannel_phase(torch, np, dev, imad_rate, n_channels=CONFIG5_CHANNELS,
           "backend": "cuda", "k1_launches_per_validate": 1, "k1": k1,
           "seconds": time.perf_counter() - t_phase})
     return k1
+
+
+# ---------------------------------------------------------------------------
+# The peer's commit path: CommitPipeline, Channel, the shared VerifyBatcher
+# and the persistent KVLedger on config #2 chains and config #5 channels
+# ---------------------------------------------------------------------------
+
+PIPELINE_BLOCKS = 10  # config #2 blocks in the pipelined chain
+PIPELINE_CONFLICT_BLOCK = 5  # its block with config #4's read conflicts
+PIPELINE_DEPTH = 2
+PIPELINE_CONFIG5_BLOCKS = 2  # config #5 blocks a channel in the four-channel run
+PIPELINE_FLIPPED = 4  # txs a block with a flipped signature (endorsement, creator)
+ORACLE_SAMPLE = 8  # verified lanes a K2 launch the oracle checks beside its refused ones
+
+_POOL_NET = None
+
+
+def _pool_init(blob: bytes) -> None:
+    global _POOL_NET
+    import pickle
+
+    _POOL_NET = pickle.loads(blob)
+
+
+def _pool_chain_datas(args):
+    return _POOL_NET.chain_datas(*args)
+
+
+def build_chains(net, jobs: dict) -> dict:
+    """{label: (n_blocks, n_txs, conflict_block, channel, invalid)} ->
+    {label: [raw block, ...]}: every block's envelopes signed in a pool of spawned
+    processes (the signing is pure Python), each seeded by its channel and
+    number, then linked in order here. The pool's processes are joined
+    before this returns."""
+    import multiprocessing
+    import os
+    import pickle
+    from concurrent.futures import ProcessPoolExecutor
+
+    tasks = [(label, (number, n_txs, number == conflict, channel, invalid))
+             for label, (n_blocks, n_txs, conflict, channel, invalid) in jobs.items()
+             for number in range(n_blocks)]
+    with ProcessPoolExecutor(min(len(tasks), len(os.sched_getaffinity(0))),
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_pool_init, initargs=(pickle.dumps(net),)) as pool:
+        datas = list(pool.map(_pool_chain_datas, [args for _, args in tasks]))
+    out = {label: [] for label in jobs}
+    for (label, _), d in zip(tasks, datas):
+        out[label].append(d)
+    return {label: net.link(ds) for label, ds in out.items()}
+
+
+def ledger_rows(path) -> dict:
+    """Every row of a ledger's SQLite tables, sorted."""
+    import sqlite3
+
+    db = sqlite3.connect(str(path))
+    try:
+        return {t: sorted(db.execute(f"SELECT * FROM {t}").fetchall())
+                for t in ("state", "hashed", "pvt", "history", "meta", "confighistory")}
+    finally:
+        db.close()
+
+
+def recording_cuda_provider(dev):
+    """A CUDAProvider that keeps each launch's lanes, its device inputs and
+    the verdicts its resolver returned, so the lanes K2 verified on a
+    pipelined run can be held against the plain version and the oracle.
+    Behind a BatchingProvider its launches come from the batcher's one
+    dispatcher thread."""
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+
+    class RecordingCUDAProvider(CUDAProvider):
+        def __init__(self, device):
+            super().__init__(device=device)
+            self.records = []
+            self._inputs = None
+
+        def device_inputs(self, prep, limbs, size):
+            fn, args = super().device_inputs(prep, limbs, size)
+            self._inputs = (prep is not None, args)
+            return fn, args
+
+        def batch_verify_async(self, keys, signatures, digests):
+            resolve = super().batch_verify_async(keys, signatures, digests)
+            rec = {"keys": list(keys), "sigs": list(signatures), "digests": list(digests),
+                   "bytes_route": self._inputs[0], "args": self._inputs[1], "verdicts": None}
+            self.records.append(rec)
+
+            def resolved():
+                rec["verdicts"] = resolve()
+                return rec["verdicts"]
+
+            return resolved
+
+    return RecordingCUDAProvider(dev)
+
+
+def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, label: str) -> dict:
+    """K2's lanes on a pipelined run, as the recording provider kept them:
+    every launch took the bytes route and resolved; the lanes it refused
+    are exactly the run's `flipped` signatures; its largest launch equals,
+    lane by lane at its padded shape, the plain version on the same device
+    inputs; and the oracle agrees on every refused lane and on `sample`
+    verified lanes a launch. Raises on any difference; returns what was
+    held."""
+    lanes = [len(r["keys"]) for r in records]
+    if not records or any(r["verdicts"] is None or len(r["verdicts"]) != n or not r["bytes_route"]
+                          for r, n in zip(records, lanes)):
+        raise AssertionError(f"{label}: a K2 launch did not resolve on the bytes route")
+    refused = sum(r["verdicts"].count(False) for r in records)
+    if refused != flipped:
+        raise AssertionError(f"{label}: K2 refused {refused} lanes, {flipped} were flipped")
+    big = max(records, key=lambda r: len(r["keys"]))
+    t0 = time.perf_counter()
+    plain = pk.verify_batch_bytes_ref(*big["args"])
+    if plain.is_cuda:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if plain[: len(big["keys"])].tolist() != big["verdicts"] or plain[len(big["keys"]):].any():
+        raise AssertionError(f"{label}: K2's largest launch differs from its plain version")
+    held, oracle_s = 0, 0.0
+    for r in records:
+        v = r["verdicts"]
+        idx = [i for i, ok in enumerate(v) if not ok]
+        verified = [i for i, ok in enumerate(v) if ok]
+        idx += rng.sample(verified, min(sample, len(verified)))
+        t0 = time.perf_counter()
+        want = oracle.batch_verify([r["keys"][i] for i in idx], [r["sigs"][i] for i in idx],
+                                   [r["digests"][i] for i in idx])
+        oracle_s += time.perf_counter() - t0
+        if list(want) != [v[i] for i in idx]:
+            raise AssertionError(f"{label}: K2 and the oracle disagree on a lane")
+        held += len(idx)
+    return {"launch_lanes": lanes, "refused": refused, "plain_lanes": len(big["keys"]),
+            "plain_padded_lanes": int(big["args"][0].shape[0]), "plain_seconds": plain_s,
+            "oracle_lanes": held, "oracle_ms_per_signature": oracle_s / held * 1e3}
+
+
+def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
+                    conflict_block=PIPELINE_CONFLICT_BLOCK, n_channels=CONFIG5_CHANNELS,
+                    config5_txs=CONFIG5_TXS, config5_blocks=PIPELINE_CONFIG5_BLOCKS,
+                    flipped=PIPELINE_FLIPPED, oracle_sample=ORACLE_SAMPLE) -> dict:
+    """pipeline_config2 and pipeline_config5: the peer's commit path on the
+    card. Returns the launches of K2, the key-comb kernel and K5 on the
+    pipelined config #2 chain, for the kernels line."""
+    import random
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from fabric_tpu_torch.common import fabobs
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.parallel.batcher import BatchingProvider
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    t_phase = time.perf_counter()
+    net = Config2Net()
+    registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", net.policy)])
+    channels5 = [f"bench{i}" for i in range(n_channels)]
+    jobs = {CONFIG2_CHANNEL: (n_blocks, n_txs, conflict_block, CONFIG2_CHANNEL, flipped)}
+    jobs.update({ch: (config5_blocks, config5_txs, None, ch, flipped) for ch in channels5})
+    chains = build_chains(net, jobs)
+    raws = chains[CONFIG2_CHANNEL]
+    want_codes = [net.chain_codes(number, n_txs, number == conflict_block, CONFIG2_CHANNEL,
+                                  flipped) for number in range(n_blocks)]
+    want5 = {ch: [net.chain_codes(number, config5_txs, False, ch, flipped)
+                  for number in range(config5_blocks)] for ch in channels5}
+    n_flipped = sum(len(net.flipped(number, n_txs, CONFIG2_CHANNEL, flipped))
+                    for number in range(n_blocks))
+    n_flipped5 = sum(len(net.flipped(number, config5_txs, ch, flipped))
+                     for ch in channels5 for number in range(config5_blocks))
+    setup_s = time.perf_counter() - t_phase
+    oracle, rng = oracle_provider(), random.Random(CONFIG2_SEED)
+    root = Path(__file__).resolve().parent / "build" / "smoke_ledgers"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def channel(path, provider, device_mvcc, name=CONFIG2_CHANNEL):
+        return Channel(name, str(root / path), net.managers[False], registry, provider,
+                       device_mvcc=device_mvcc, device=dev)
+
+    def reset(*tables):
+        for table in tables:
+            for k in table:
+                table[k] = 0
+
+    def serial(ch, blocks):
+        """store_block one block at a time: each block's (filter, COMMIT_HASH
+        slot, MVCC route, commit split) and the wall seconds."""
+        out = []
+        t0 = time.perf_counter()
+        for raw in blocks:
+            b = wire.decode(fabric.BLOCK, raw)
+            flags = ch.store_block(b)
+            out.append((flags.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH],
+                        ch.ledger.last_mvcc_path, {**ch.last_prepare_ms, **split(ch)}))
+        return out, time.perf_counter() - t0
+
+    def split(ch):
+        """A committed block's stage-B split in ms on the host clock: the
+        channel's steps, the validator's epilogue, the ledger's commit."""
+        return {**ch.last_store_ms,
+                **{f"validator_{k}": v for k, v in ch.validator.last_ms.items()},
+                **{k: v * 1e3 for k, v in ch.ledger.last_commit_timings.items()}}
+
+    def full_gc_counter():
+        count = [0]
+
+        def on_gc(phase, info):
+            if phase == "start" and info["generation"] == 2:
+                count[0] += 1
+
+        return count, on_gc
+
+    def batcher_state(bp, obs):
+        """The shared batcher's launches, its transport mode and round-trip
+        estimate, and the obs counters of retried and fail-closed
+        dispatches."""
+        return {"launches": bp.batcher.launches, "lanes": bp.batcher.lanes,
+                "mode": bp.batcher.mode, "rtt_ema_ms": bp.batcher.rtt_ema_ms,
+                "dispatch_retries": obs.value("fabric_batcher_dispatch_retries_total"),
+                "fail_closed": obs.value("fabric_batcher_fail_closed_total")}
+
+    try:
+        # --- pipeline_config2: 10 linked blocks, two stages, K2 and K5 -------
+        with fabobs.obs_installed() as obs:
+            recorder = recording_cuda_provider(dev)
+            bp = BatchingProvider(recorder)
+            ch = channel("pipelined", bp, True)
+            committed, prepared = [], []
+            pipe = CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=lambda b, f: committed.append(
+                (f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH],
+                 ch.ledger.last_mvcc_path, split(ch))))
+            blocks = [wire.decode(fabric.BLOCK, raw) for raw in raws]
+            deliver_error = []
+
+            def deliver():
+                try:
+                    for b in blocks:
+                        pipe.submit(b)
+                        prepared.append(dict(ch.last_prepare_ms))
+                except Exception as exc:  # noqa: BLE001 - re-raised below
+                    deliver_error.append(exc)
+
+            reset(p256k.LAUNCHES, md.LAUNCHES)
+            gcs, on_gc = full_gc_counter()
+            gc.callbacks.append(on_gc)
+            try:
+                t0 = time.perf_counter()
+                deliver_thread = threading.Thread(target=deliver, name="deliver")
+                deliver_thread.start()
+                deliver_thread.join()
+                drained = pipe.drain(timeout=300)
+                wall = time.perf_counter() - t0
+            finally:
+                gc.callbacks.remove(on_gc)
+            launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                        "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                        "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                        **k5_launches(md), **k6_launches(md)}
+            stats, dead, last_error = pipe.stage_stats(), pipe.dead, pipe.last_error
+            pipe.stop()
+            bp.stop()
+            batcher = batcher_state(bp, obs)
+            ch.ledger.close()
+        if deliver_error or not drained or dead or last_error is not None:
+            raise AssertionError(f"pipeline_config2: drained {drained}, dead {dead}, last_error "
+                                 f"{last_error!r}, deliver {deliver_error!r}")
+        k2_held = hold_k2_lanes(torch, p256k, recorder.records, oracle, rng, n_flipped,
+                                oracle_sample, "pipeline_config2")
+
+        # the same chain stored one block at a time: the same provider and
+        # MVCC route without the pipeline and the batcher
+        ch_serial = channel("serial", CUDAProvider(device=dev), True)
+        serial_out, serial_wall = serial(ch_serial, raws)
+        ch_serial.ledger.close()
+        # one block at a time, MVCC on the host
+        ch_ref = channel("reference", CUDAProvider(device=dev), False)
+        ref_out, ref_wall = serial(ch_ref, raws)
+        ch_ref.ledger.close()
+
+        got = [(f, h) for f, h, _, _ in committed]
+        if ([f for f, _ in got] != want_codes or got != [(f, h) for f, h, _, _ in ref_out]
+                or got != [(f, h) for f, h, _, _ in serial_out]):
+            raise AssertionError("pipeline_config2: filters or commit hashes differ from the "
+                                 "serial runs or the expected codes")
+        chain_bytes = {run: (root / run / f"{CONFIG2_CHANNEL}.chain").read_bytes()
+                       for run in ("pipelined", "serial", "reference")}
+        rows = {run: ledger_rows(root / run / f"{CONFIG2_CHANNEL}.state.db")
+                for run in ("pipelined", "serial", "reference")}
+        if len(set(chain_bytes.values())) != 1 or not rows["pipelined"] == rows["serial"] == rows[
+                "reference"]:
+            raise AssertionError("pipeline_config2: .chain bytes or SQLite rows differ")
+        paths = [p for _, _, p, _ in committed]
+        if paths != ["device"] * n_blocks or [p for _, _, p, _ in serial_out] != paths:
+            raise AssertionError(f"pipeline_config2: MVCC routes {paths}")
+        if (launches["mvcc_resolve"] != n_blocks or launches["mvcc_resolve_global"]
+                or not 1 <= launches["p256_verify_bytes"] <= n_blocks
+                or launches["p256_verify_bytes"] != len(recorder.records)
+                or launches["p256_key_tables"] != 1 or launches["p256_verify_limbs"]
+                or any(launches[r] for r in K6_ROUTES)):
+            raise AssertionError(f"pipeline_config2 launches: {launches}")
+        if batcher["launches"] < 1 or batcher["dispatch_retries"] or batcher["fail_closed"]:
+            raise AssertionError(f"pipeline_config2: batcher {batcher}")
+        reopened = KVLedger(str(root / "pipelined"), CONFIG2_CHANNEL, device_mvcc=True, device=dev)
+        reopen = {"height": reopened.height, "replayed": reopened.recovered_blocks,
+                  "commit_hash_equal": reopened.commit_hash == wire.decode(
+                      fabric.METADATA, got[-1][1])["value"]}
+        reopened.close()
+        if reopen != {"height": n_blocks, "replayed": 0, "commit_hash_equal": True}:
+            raise AssertionError(f"pipeline_config2: reopen {reopen}")
+        stage_s = {k: v["mean_ms"] * v["n"] / 1e3 for k, v in stats.items()}
+        txs = n_blocks * n_txs
+        emit({"phase": "pipeline_config2", "blocks": n_blocks, "txs_per_block": n_txs,
+              "depth": PIPELINE_DEPTH, "setup_seconds": setup_s,
+              "pipelined": {"seconds": wall, "tx_per_s": txs / wall,
+                            "ms_per_block": wall / n_blocks * 1e3, "full_gcs": gcs[0]},
+              "serial": {"seconds": serial_wall, "tx_per_s": txs / serial_wall,
+                         "ms_per_block": serial_wall / n_blocks * 1e3},
+              "reference_host_mvcc": {"seconds": ref_wall, "tx_per_s": txs / ref_wall,
+                                      "ms_per_block": ref_wall / n_blocks * 1e3},
+              "stage_stats": stats, "stage_seconds": stage_s,
+              "overlap_share": (stage_s["prepare"] + stage_s["commit"]) / wall,
+              "prepare_split_ms": prepared,
+              "store_split_ms": [t for _, _, _, t in committed],
+              "serial_split_ms": [t for _, _, _, t in serial_out],
+              "launches": launches, "batcher": batcher,
+              "conflicts": {conflict_block: n_txs // 10}, "flipped_signatures": n_flipped,
+              "mvcc_routes": paths, "equal_to_serial_and_reference": True,
+              "k2_lanes_held": k2_held, "reopen": reopen,
+              "seconds": time.perf_counter() - t_phase})
+
+        # --- pipeline_config5: four channels, one shared BatchingProvider ----
+        t5 = time.perf_counter()
+        alone = {}
+        for name in channels5:
+            c = channel(f"alone-{name}", CUDAProvider(device=dev), False, name)
+            alone[name] = [(f, h) for f, h, _, _ in serial(c, chains[name])[0]]
+            c.ledger.close()
+        with fabobs.obs_installed() as obs:
+            recorder5 = recording_cuda_provider(dev)
+            bp = BatchingProvider(recorder5)
+            pipes, out5, splits5, errors = {}, {name: [] for name in channels5}, {}, []
+            for name in channels5:
+                c = channel(f"shared-{name}", bp, True, name)
+                splits5[name] = {"prepare": [], "store": []}
+
+                def on_commit(b, f, n=name, c=c):
+                    out5[n].append((f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+                    splits5[n]["store"].append(split(c))
+
+                pipes[name] = CommitPipeline(c, depth=PIPELINE_DEPTH, on_commit=on_commit,
+                                             on_error=lambda b, exc: errors.append(exc))
+            decoded = {name: [wire.decode(fabric.BLOCK, raw) for raw in chains[name]]
+                       for name in channels5}
+
+            def deliver5(name):
+                try:
+                    for b in decoded[name]:
+                        pipes[name].submit(b)
+                        splits5[name]["prepare"].append(dict(pipes[name].channel.last_prepare_ms))
+                except Exception as exc:  # noqa: BLE001 - re-raised below
+                    errors.append(exc)
+
+            reset(p256k.LAUNCHES, md.LAUNCHES)
+            gcs5, on_gc = full_gc_counter()
+            gc.callbacks.append(on_gc)
+            try:
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=deliver5, args=(n,), name=f"deliver-{n}")
+                           for n in channels5]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                drained = all(p.drain(timeout=300) for p in pipes.values())
+                wall5 = time.perf_counter() - t0
+            finally:
+                gc.callbacks.remove(on_gc)
+            launches5 = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                         "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                         "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                         **k5_launches(md)}
+            stats5 = {n: p.stage_stats() for n, p in pipes.items()}
+            for p in pipes.values():
+                p.stop()
+                p.channel.ledger.close()
+            bp.stop()
+            batcher5 = batcher_state(bp, obs)
+        if errors or not drained or any(out5[n] != alone[n] for n in channels5):
+            raise AssertionError(f"pipeline_config5: drained {drained}, errors {errors!r}, or a "
+                                 "channel differs from the channel alone")
+        if any([f for f, _ in out5[n]] != want5[n] for n in channels5):
+            raise AssertionError("pipeline_config5: filters differ from the expected codes")
+        blocks5 = n_channels * config5_blocks
+        if (launches5["mvcc_resolve"] != blocks5 or launches5["mvcc_resolve_global"]
+                or not 1 <= launches5["p256_verify_bytes"] < blocks5
+                or launches5["p256_verify_bytes"] != len(recorder5.records)
+                or launches5["p256_key_tables"] != 1 or launches5["p256_verify_limbs"]):
+            # fewer K2 launches than blocks: at least one launch coalesced
+            # two channels' blocks, whose verdicts the filters then hold
+            raise AssertionError(f"pipeline_config5 launches: {launches5}")
+        if batcher5["dispatch_retries"] or batcher5["fail_closed"]:
+            raise AssertionError(f"pipeline_config5: batcher {batcher5}")
+        k2_held5 = hold_k2_lanes(torch, p256k, recorder5.records, oracle, rng, n_flipped5,
+                                 oracle_sample, "pipeline_config5")
+        txs5 = blocks5 * config5_txs
+        emit({"phase": "pipeline_config5", "channels": n_channels, "blocks_per_channel":
+              config5_blocks, "txs_per_block": config5_txs, "seconds": wall5,
+              "aggregate_tx_per_s": txs5 / wall5, "blocks_submitted": blocks5,
+              "batcher": batcher5, "launches": launches5, "full_gcs": gcs5[0],
+              "stage_stats": stats5, "split_ms": splits5, "flipped_signatures": n_flipped5,
+              "equal_to_each_channel_alone": True, "k2_lanes_held": k2_held5,
+              "seconds_with_alone_runs": time.perf_counter() - t5})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2512,6 +3056,11 @@ def main() -> int:
     # --- Config #5: four channels, one K1 launch a validate ----------------
     k1_config5 = multichannel_phase(torch, np, dev, imad_rate)
     next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
+    # --- The peer's commit path: the pipelined chain, four channels --------
+    pipeline_launches = pipeline_phases(torch, np, dev)
+    for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
+        next(k for k in kernels if k["name"] == name)["pipeline_config2"] = {
+            "launches": pipeline_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -3,8 +3,8 @@
 A copy of the JAX package's in-memory `ledger/statedb`: (value, version)
 per (namespace, key) plus the hashed private-data namespaces
 (privacyenabledstate analog), a dict per namespace beside a sorted key
-list for range scans. Rich queries (`execute_query*`) and the sqlite
-store are not ported yet.
+list for range scans, and the rich queries of `ledger/queries` over a
+namespace's values. The persistent store is `ledger/persistent`.
 """
 
 from __future__ import annotations
@@ -252,3 +252,29 @@ class VersionedDB:
     ) -> Iterator[Tuple[str, str, bytes, VersionedValue]]:
         for ns, coll, kh in sorted(self._hashed):
             yield ns, coll, kh, self._hashed[(ns, coll, kh)]
+
+    # -- rich queries (statecouchdb.go:695 analog) -------------------------
+    def execute_query(self, ns: str, query):
+        """Selector query over a namespace's JSON values (see
+        ledger/queries). Not phantom-protected, like the reference's
+        CouchDB queries."""
+        from fabric_tpu_torch.ledger import queries as rich_queries
+
+        table = self._data.get(ns, {})
+        rows = (
+            (key, table[key].value) for key in self._sorted_keys.get(ns, [])
+        )
+        return rich_queries.execute(rows, query)
+
+    def execute_query_paginated(
+        self, ns: str, query, page_size: int, bookmark: str = ""
+    ):
+        """One page + next bookmark (statecouchdb.go:653
+        ExecuteQueryWithPagination)."""
+        from fabric_tpu_torch.ledger import queries as rich_queries
+
+        table = self._data.get(ns, {})
+        rows = (
+            (key, table[key].value) for key in self._sorted_keys.get(ns, [])
+        )
+        return rich_queries.execute_paginated(rows, query, page_size, bookmark)

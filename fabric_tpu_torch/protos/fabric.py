@@ -18,6 +18,7 @@ from fabric_tpu_torch.protos.wire import Field, Schema, _msg
 MESSAGE, CONFIG, CONFIG_UPDATE, ENDORSER_TRANSACTION = 0, 1, 2, 3
 # common.BlockMetadataIndex: SIGNATURES, LAST_CONFIG, TRANSACTIONS_FILTER, ORDERER, COMMIT_HASH
 TRANSACTIONS_FILTER = 2
+COMMIT_HASH = 4
 BLOCK_METADATA_SLOTS = 5
 
 # google.protobuf.Timestamp
@@ -35,6 +36,16 @@ BLOCK: Schema = {
     1: _msg("header", BLOCK_HEADER),
     2: _msg("data", BLOCK_DATA),
     3: _msg("metadata", BLOCK_METADATA),
+}
+METADATA_SIGNATURE: Schema = {
+    1: Field("signature_header", "bytes"),
+    2: Field("signature", "bytes"),
+    3: Field("identifier_header", "bytes"),
+}
+# a block metadata slot's message; the COMMIT_HASH slot holds the hash in `value`
+METADATA: Schema = {
+    1: Field("value", "bytes"),
+    2: _msg("signatures", METADATA_SIGNATURE, repeated=True),
 }
 ENVELOPE: Schema = {1: Field("payload", "bytes"), 2: Field("signature", "bytes")}
 HEADER: Schema = {1: Field("channel_header", "bytes"), 2: Field("signature_header", "bytes")}

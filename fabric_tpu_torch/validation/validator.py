@@ -25,9 +25,15 @@ Not ported yet, and refused rather than ignored: custom validation plugins
 (`plugin_registry`, with `validation/dispatcher.py` and `plugin_api.py`) and
 the legacy v1.2 write-set rule (`writeset_check`, with `legacy.py`). A
 definition naming a plugin other than the builtin one makes its txs
-INVALID_CHAINCODE, as in the JAX validator without a plugin registry. The
-identity cache has no lock: the port has no commit pipeline yet whose
-stages would share it.
+INVALID_CHAINCODE, as in the JAX validator without a plugin registry.
+
+The identity cache is the state the two stages of the commit pipeline
+(`peer/pipeline.py`) share: stage A fills it in `collect_sig_jobs` on the
+deliver thread while stage B's `validate` may clear it on the committer
+thread (a config transaction rotating MSPs or CRLs). Every access holds a
+lock, and a generation counter bumped by `invalidate_identity_caches` keeps
+a fill that began before a rotation from landing after it, as in the JAX
+validator (validator.py:155-166, :240-295).
 
 `last_ms` holds the split of the last `validate` in milliseconds: parse
 (the native pass), identity (deserialize, chain, expiry, CRL), host_prep
@@ -44,6 +50,7 @@ A multi-channel scheduler (`parallel/multichannel.py`) splits phase 2:
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -141,8 +148,13 @@ class BlockValidator:
         self._policy_fn_cache: Dict[SignaturePolicyEnvelope, Callable] = {}
         self._principals_cache: Dict[SignaturePolicyEnvelope, List[Tuple[dict, bytes]]] = {}
         # serialized identity bytes -> validated Identity, or None when
-        # deserialization or chain validation failed (msp/cache analog)
+        # deserialization or chain validation failed (msp/cache analog);
+        # shared by the pipeline's two stages, so every access holds
+        # _ident_lock, and _ident_gen (bumped on every rotation clear)
+        # drops a fill that started before the clear
         self._ident_cache: Dict[bytes, Optional[Identity]] = {}
+        self._ident_lock = threading.Lock()
+        self._ident_gen = 0
         # per-policy memo of circuit verdicts keyed by the tx's signer
         # pattern (tuple of (Identity, sig_ok)); strong refs, no aliasing
         self._pattern_memo: Dict[SignaturePolicyEnvelope, Dict[tuple, bool]] = {}
@@ -218,8 +230,14 @@ class BlockValidator:
 
     # ------------------------------------------------------------------
     def invalidate_identity_caches(self) -> None:
-        """MSPs/CRLs rotated: drop every identity-derived cache."""
-        self._ident_cache.clear()
+        """MSPs/CRLs rotated: drop every identity-derived cache. The
+        identity cache's clear and generation bump are thread-safe: a
+        stage-A fill validated against the pre-rotation CRL compares
+        generations and drops. The principal and pattern memos have one
+        reader and writer (the validate() thread)."""
+        with self._ident_lock:
+            self._ident_cache.clear()
+            self._ident_gen += 1
         self._principal_cache.clear()
         self._pattern_memo.clear()
 
@@ -240,19 +258,28 @@ class BlockValidator:
         keys, sigs, verifiable = [], [], []
         job_identity: Dict[int, Optional[Identity]] = {}
         ident_cache = self._ident_cache
-        if len(ident_cache) > 8192:
-            ident_cache.clear()
+        with self._ident_lock:
+            if len(ident_cache) > 8192:
+                ident_cache.clear()
         _MISS = object()
         for job in jobs:
             ibytes = job.identity_bytes
-            ident = ident_cache.get(ibytes, _MISS)
+            with self._ident_lock:
+                ident = ident_cache.get(ibytes, _MISS)
+                gen = self._ident_gen
             if ident is _MISS:
+                # the chain walk and CRL check run outside the lock (a
+                # racing duplicate fill is idempotent)
                 try:
                     ident, msp = self.msp_manager.deserialize_identity(ibytes)
                     msp.validate(ident)  # cert chain + CRL (identities.go:107)
                 except MSPError:
                     ident = None
-                ident_cache[ibytes] = ident
+                with self._ident_lock:
+                    # a rotation during the validation: the result reflects
+                    # the old CRL and must not enter the new cache
+                    if self._ident_gen == gen:
+                        ident_cache[ibytes] = ident
             job_identity[id(job)] = ident
             if ident is None:
                 continue

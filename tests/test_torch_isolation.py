@@ -1,7 +1,8 @@
 """The port imports neither JAX, nor the JAX package, nor protobuf, nor
 cryptography (the card's machine has neither of the last two), and its device
 entry points refuse to run without a card instead of falling back to the
-CPU."""
+CPU: a KVLedger or Channel asked for MVCC on the card without a device
+raises at construction."""
 
 import json
 import subprocess
@@ -41,6 +42,10 @@ from fabric_tpu_torch.policy.evaluator import compile_batched
 from fabric_tpu_torch.validation.validator import BlockValidator, ChaincodeRegistry
 from fabric_tpu_torch.parallel.multichannel import MultiChannelValidator
 from fabric_tpu_torch.validation.blockparse import parse_block
+import tempfile
+from fabric_tpu_torch.ledger.kvledger import KVLedger
+from fabric_tpu_torch.peer.channel import Channel
+scratch = tempfile.mkdtemp()
 parse_block([b""])  # the native pass: the port's own library, built on first use
 with open("/proc/self/maps") as maps:
     libraries = sorted({line.split()[-1] for line in maps if "fabric_native" in line})
@@ -59,7 +64,10 @@ for name, make in (("CUDAProvider", CUDAProvider),
                    ("compile_batched", lambda: compile_batched(from_dsl("OR('A.member')"), 1)),
                    ("BlockValidator", lambda: BlockValidator(
                        "ch", MSPManager([]), CUDAProvider(), ChaincodeRegistry())),
-                   ("MultiChannelValidator", lambda: MultiChannelValidator({}))):
+                   ("MultiChannelValidator", lambda: MultiChannelValidator({})),
+                   ("KVLedger", lambda: KVLedger(scratch + "/a", "ch", device_mvcc=True)),
+                   ("Channel", lambda: Channel("ch", scratch + "/b", MSPManager([]),
+                                               ChaincodeRegistry(), None, device_mvcc=True))):
     try:
         make()
         refused[name] = None
@@ -86,7 +94,11 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "policy.ast", "policy.proto_convert", "policy.evaluator", "ops.policy_kernel",
                  "ledger.txparse", "validation.blockparse", "validation.statebased",
                  "validation.validator", "endorser.txbuilder", "utils.native",
-                 "parallel.sharded", "parallel.multichannel"):
+                 "parallel.sharded", "parallel.multichannel", "parallel.batcher",
+                 "peer.channel", "peer.pipeline", "ledger.blockstore", "ledger.pvtdatastore",
+                 "ledger.persistent", "ledger.queries", "ledger.kvledger", "ledger.confighistory",
+                 "ledger.ledgermetrics", "common.faults", "common.fabobs", "common.retry",
+                 "common.flogging", "common.metrics"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
