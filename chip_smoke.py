@@ -140,7 +140,25 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      sharing one BatchingProvider: each channel's filters and commit hashes
      equal to the channel stored alone, aggregate tx/s, the batcher's
      launches against the 8 blocks submitted;
- 21. the launch floor (a kernel that does nothing, timed as the kernels
+ 21. snapshot_config2: join by snapshot. Two ledgers seeded alike before
+     block 0 with mvcc_resident_chain's state (1,000,000 public and 50,000
+     hashed keys) and benchcc's committed `_lifecycle` definition (the
+     "guard" validation plugin, coll0): A commits pipeline_config2's chain
+     pipelined (K2, K5) with a snapshot taken after block 4, A' commits
+     blocks 0-4 one at a time (host MVCC) and snapshots too; the snapshots
+     equal byte for byte. Peer J joins from A's snapshot and commits blocks
+     5-9 pipelined through BatchingProvider(CUDAProvider) (K2, the key
+     combs) and K5, its definitions read through ValidationRouter /
+     LifecycleRegistry from the state the snapshot carried and its txs
+     validated by the "guard" plugin; peer J' joins from A''s and commits
+     them one at a time (static registry, host MVCC). J's filters equal
+     J''s, A's and the expected codes; J's and J''s commit hashes, .chain
+     and SQLite rows are equal; J's frames are A's but for the COMMIT_HASH
+     slot (the hash chain restarts at a join); J's state rows equal A's;
+     the plugin saw exactly K2's refused endorsement lanes, once a tx; K2's
+     lanes held as in 19; J's history of 8 keys is A's after the join; a
+     block-2 tx resubmitted is DUPLICATE_TXID on J and J' (.pretxids);
+ 22. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -2070,14 +2088,15 @@ def build_chains(net, jobs: dict) -> dict:
     return {label: net.link(ds) for label, ds in out.items()}
 
 
-def ledger_rows(path) -> dict:
-    """Every row of a ledger's SQLite tables, sorted."""
+def ledger_rows(path, tables=("state", "hashed", "pvt", "history", "meta",
+                               "confighistory")) -> dict:
+    """Every row of a ledger's SQLite tables (all of them unless `tables`
+    names some), sorted."""
     import sqlite3
 
     db = sqlite3.connect(str(path))
     try:
-        return {t: sorted(db.execute(f"SELECT * FROM {t}").fetchall())
-                for t in ("state", "hashed", "pvt", "history", "meta", "confighistory")}
+        return {t: sorted(db.execute(f"SELECT * FROM {t}").fetchall()) for t in tables}
     finally:
         db.close()
 
@@ -2160,10 +2179,12 @@ def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, la
 def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
                     conflict_block=PIPELINE_CONFLICT_BLOCK, n_channels=CONFIG5_CHANNELS,
                     config5_txs=CONFIG5_TXS, config5_blocks=PIPELINE_CONFIG5_BLOCKS,
-                    flipped=PIPELINE_FLIPPED, oracle_sample=ORACLE_SAMPLE) -> dict:
+                    flipped=PIPELINE_FLIPPED, oracle_sample=ORACLE_SAMPLE, keep=None) -> dict:
     """pipeline_config2 and pipeline_config5: the peer's commit path on the
     card. Returns the launches of K2, the key-comb kernel and K5 on the
-    pipelined config #2 chain, for the kernels line."""
+    pipelined config #2 chain, for the kernels line; a `keep` dict receives
+    the network and the signed config #2 chain ("net", "raws") for
+    snapshot_phase."""
     import random
     import shutil
     import threading
@@ -2188,6 +2209,8 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
     jobs.update({ch: (config5_blocks, config5_txs, None, ch, flipped) for ch in channels5})
     chains = build_chains(net, jobs)
     raws = chains[CONFIG2_CHANNEL]
+    if keep is not None:
+        keep.update(net=net, raws=raws)
     want_codes = [net.chain_codes(number, n_txs, number == conflict_block, CONFIG2_CHANNEL,
                                   flipped) for number in range(n_blocks)]
     want5 = {ch: [net.chain_codes(number, config5_txs, False, ch, flipped)
@@ -2438,6 +2461,430 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
               "stage_stats": stats5, "split_ms": splits5, "flipped_signatures": n_flipped5,
               "equal_to_each_channel_alone": True, "k2_lanes_held": k2_held5,
               "seconds_with_alone_runs": time.perf_counter() - t5})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+SNAPSHOT_AT = 5  # the snapshot's ledger height: blocks 0-4 before it, 5-9 after
+SNAPSHOT_HISTORY_KEYS = 8  # benchcc keys whose history the joined peer resolves
+
+
+def seed_snapshot_ledger(path, n_keys: int, n_hashed: int, policy) -> float:
+    """A fresh ledger at `path` seeded before block 0 through
+    `state_db.apply_updates`, the call `create_from_snapshot` makes:
+    mvcc_resident_chain's state (`n_keys` public keys and `n_hashed` hashed
+    keys of coll0 under cc) and benchcc's committed `_lifecycle` definition,
+    written by the port's LifecycleResources: sequence 1, validation plugin
+    "guard", `policy` as its validation parameter, coll0 at BTL 0. Returns
+    the seconds it took."""
+    from fabric_tpu_torch.ledger import rwset as rw
+    from fabric_tpu_torch.ledger.collections import build_collection_config_package
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.ledger.statedb import HashedUpdateBatch, UpdateBatch
+    from fabric_tpu_torch.lifecycle import NAMESPACE, ChaincodeDefinition, LifecycleResources
+    from fabric_tpu_torch.policy.proto_convert import marshal_application_policy
+    from fabric_tpu_torch.protos import fabric, wire
+
+    t0 = time.perf_counter()
+    updates, hashed = UpdateBatch(), HashedUpdateBatch()
+    for i in range(n_keys):
+        updates.put("cc", ChainTraffic.key(i), b"v0", rw.Version(0, i))
+    for i in range(n_hashed):
+        kh = ChainTraffic.key_hash(i)
+        hashed.put("cc", "coll0", kh, hashlib.sha256(kh).digest(), rw.Version(0, i))
+    public, approvals = {}, {}
+    orgs = ["Org1MSP", "Org2MSP", "Org3MSP"]
+    resources = LifecycleResources(public.get, public.__setitem__,
+                                   lambda org, k: approvals.get((org, k)),
+                                   lambda org, k, v: approvals.__setitem__((org, k), v), orgs)
+    package = build_collection_config_package([{"name": "coll0", "policy": CONFIG2_POLICY,
+                                                "block_to_live": 0}])
+    definition = ChaincodeDefinition(
+        sequence=1, validation_plugin="guard",
+        validation_parameter=marshal_application_policy(policy),
+        collections=wire.encode(fabric.COLLECTION_CONFIG_PACKAGE, package))
+    for org in orgs:
+        resources.approve_chaincode_definition_for_org(org, "benchcc", definition)
+    resources.commit_chaincode_definition("benchcc", definition)
+    for key, value in sorted(public.items()):
+        updates.put(NAMESPACE, key, value, rw.Version(0, 0))
+    ledger = KVLedger(str(path), CONFIG2_CHANNEL)
+    try:
+        ledger.state_db.apply_updates(updates, hashed)
+    finally:
+        ledger.close()
+    return time.perf_counter() - t0
+
+
+def lifecycle_view(state_get):
+    """A read-only view of `_lifecycle` over `state_get(ns, key)`."""
+    from fabric_tpu_torch.lifecycle import NAMESPACE, LifecycleResources
+
+    def refuse(*_):
+        raise RuntimeError("the view is read-only")
+
+    return LifecycleResources(lambda key: state_get(NAMESPACE, key), refuse,
+                              lambda org, key: None, refuse, [])
+
+
+def guard_plugin():
+    """The `"guard"` validation plugin of the joined peer: it records each
+    context's signers' verdicts, runs the default check (the definition's
+    policy over the batch's verdicts, `_eval_policy_host` once a tx) and
+    refuses the tx when it fails; `seconds` holds its time by block."""
+    from fabric_tpu_torch.validation.plugin_api import EndorsementInvalid, ValidationPlugin
+
+    class Guard(ValidationPlugin):
+        def __init__(self):
+            self.seen = []
+            self.seconds = {}
+
+        def validate(self, ctx):
+            t0 = time.perf_counter()
+            try:
+                self.seen.append((ctx.block_num, ctx.tx_index, ctx.namespace,
+                                  tuple(s.sig_valid for s in ctx.signers)))
+                if not ctx.default_check():
+                    raise EndorsementInvalid("benchcc's endorsement policy is not met")
+            finally:
+                self.seconds[ctx.block_num] = (self.seconds.get(ctx.block_num, 0.0)
+                                               + time.perf_counter() - t0)
+
+    return Guard()
+
+
+def snapshot_phase(torch, np, dev, net, raws, n_keys=CHAIN_KEYS, n_hashed=CHAIN_HASHED_KEYS,
+                   n_txs=CONFIG2_TXS, conflict_block=PIPELINE_CONFLICT_BLOCK, at=SNAPSHOT_AT,
+                   flipped=PIPELINE_FLIPPED, oracle_sample=ORACLE_SAMPLE) -> dict:
+    """snapshot_config2: pipeline_config2's signed chain (`raws`, `net`'s)
+    committed by two source ledgers seeded alike, A pipelined (K2, K5) and
+    A' one block at a time (host MVCC), each snapshot at height `at`; a peer
+    J joins from A's snapshot and commits the rest pipelined through K2, the
+    key combs and K5, its definitions read from the `_lifecycle` state the
+    snapshot carried and its txs validated by the "guard" plugin; a peer J'
+    joins from A's twin and commits one block at a time with the static
+    registry and the host MVCC; A goes on uninterrupted. Returns the
+    launches of K2, the key combs and K5 on J, for the kernels line."""
+    import random
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ledger.blockstore import BlockStore
+    from fabric_tpu_torch.ledger.collections import CollectionStore
+    from fabric_tpu_torch.ledger.history import get_history_for_key
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.common.txflags import TxValidationCode as V
+    from fabric_tpu_torch.ledger import snapshot as snapshot_mod
+    from fabric_tpu_torch.ledger.snapshot import (
+        SnapshotRequestManager, create_from_snapshot, verify_snapshot)
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.parallel.batcher import BatchingProvider
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import fabric, protoutil, wire
+    from fabric_tpu_torch.validation.dispatcher import LifecycleRegistry, PluginRegistry
+    from fabric_tpu_torch.validation.legacy import LSCCRegistry, ValidationRouter
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    t_phase = time.perf_counter()
+    n_blocks = len(raws)
+    want_codes = [net.chain_codes(number, n_txs, number == conflict_block, CONFIG2_CHANNEL,
+                                  flipped) for number in range(n_blocks)]
+    static = ChaincodeRegistry([ChaincodeDefinition("benchcc", net.policy)])
+    root = Path(__file__).resolve().parent / "build" / "smoke_snapshots"
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = {}
+
+    def channel(path, provider, device_mvcc, registry=static, **kw):
+        """A Channel over `path` whose btl_policy reads the collections of
+        the `_lifecycle` definitions in its own ledger's state."""
+        holder = {}
+        view = lifecycle_view(lambda ns, key: holder["ledger"].get_state(ns, key))
+        store = CollectionStore(lambda ns: getattr(view.query_chaincode_definition(ns),
+                                                   "collections", b""))
+        ch = Channel(CONFIG2_CHANNEL, str(root / path), net.managers[False], registry, provider,
+                     btl_policy=store.btl_policy(), device_mvcc=device_mvcc, device=dev, **kw)
+        holder["ledger"] = ch.ledger
+        return ch, store
+
+    def serial(ch, blocks, after=None):
+        out = []
+        t0 = time.perf_counter()
+        for raw in blocks:
+            b = wire.decode(fabric.BLOCK, raw)
+            out.append((ch.store_block(b).tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+            if after is not None:
+                after()
+        return out, time.perf_counter() - t0
+
+    def pipelined(ch, blocks, on_commit=None):
+        """The blocks through CommitPipeline(depth=2) from a deliver thread:
+        each block's (filter, COMMIT_HASH slot), the wall seconds and the
+        full collections during the run."""
+        committed, errors = [], []
+
+        def record(b, f):
+            committed.append((f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+            if on_commit is not None:
+                on_commit()
+
+        pipe = CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=record,
+                              on_error=lambda b, exc: errors.append(exc))
+        decoded = [wire.decode(fabric.BLOCK, raw) for raw in blocks]
+
+        def deliver():
+            try:
+                for b in decoded:
+                    pipe.submit(b)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        full = [0]
+
+        def on_gc(phase, info):
+            if phase == "start" and info["generation"] == 2:
+                full[0] += 1
+
+        gc.callbacks.append(on_gc)
+        try:
+            t0 = time.perf_counter()
+            thread = threading.Thread(target=deliver, name="deliver")
+            thread.start()
+            thread.join()
+            drained = pipe.drain(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(on_gc)
+            pipe.stop()
+        if errors or not drained or pipe.dead or pipe.last_error is not None:
+            raise AssertionError(f"snapshot_config2: drained {drained}, errors {errors!r}, "
+                                 f"last_error {pipe.last_error!r}")
+        return committed, wall, full[0]
+
+    def snapshot_files(path):
+        """The snapshot's three data files and its signable metadata."""
+        return {name: (Path(path) / name).read_bytes() for name in (
+            snapshot_mod.PUBLIC_STATE, snapshot_mod.PVT_HASHES, snapshot_mod.TXIDS,
+            snapshot_mod.SIGNABLE_METADATA)}
+
+    try:
+        # --- two source ledgers seeded alike ---------------------------------
+        seconds["seed"] = seed_snapshot_ledger(root / "A", n_keys, n_hashed, net.policy)
+        t0 = time.perf_counter()
+        shutil.copytree(root / "A", root / "A2")
+        seconds["seed_copy"] = time.perf_counter() - t0
+
+        # A: the whole chain pipelined, its snapshot taken on the committer
+        # thread once block at-1 is in
+        bp_a = BatchingProvider(CUDAProvider(device=dev))
+        ch_a, _ = channel("A", bp_a, True)
+        mgr_a = SnapshotRequestManager(ch_a.ledger, str(root / "snapshots-A"))
+        mgr_a.submit(at - 1)
+
+        def export_a():
+            t = time.perf_counter()
+            mgr_a.on_block_committed(wait=True)  # exports once block at-1 is in
+            if ch_a.ledger.height == at:
+                seconds["export_A"] = time.perf_counter() - t
+
+        out_a, wall_a, _ = pipelined(ch_a, raws, export_a)
+        bp_a.stop()
+        ch_a.ledger.close()
+        # A': the blocks before the snapshot one at a time, host MVCC
+        ch_a2, _ = channel("A2", CUDAProvider(device=dev), False)
+        mgr_a2 = SnapshotRequestManager(ch_a2.ledger, str(root / "snapshots-A2"))
+        mgr_a2.submit(at - 1)
+
+        def export_a2():
+            t = time.perf_counter()
+            mgr_a2.on_block_committed(wait=True)
+            if ch_a2.ledger.height == at:
+                seconds["export_A2"] = time.perf_counter() - t
+
+        out_a2, _ = serial(ch_a2, raws[:at], export_a2)
+        ch_a2.ledger.close()
+        snap_a, snap_a2 = mgr_a.generated.get(at - 1), mgr_a2.generated.get(at - 1)
+        if snap_a is None or snap_a2 is None or mgr_a.pending() or mgr_a2.pending():
+            raise AssertionError("snapshot_config2: a snapshot was not taken")
+        meta = verify_snapshot(snap_a)
+        if meta != verify_snapshot(snap_a2) or snapshot_files(snap_a) != snapshot_files(snap_a2):
+            raise AssertionError("snapshot_config2: the two snapshots differ")
+        if meta["last_block_number"] != at - 1 or out_a[:at] != out_a2:
+            raise AssertionError(f"snapshot_config2: snapshot metadata {meta} or the sources' "
+                                 "filters differ")
+        snap_bytes = sum(len(v) for v in snapshot_files(snap_a).values())
+
+        # --- join: J from A's snapshot, J' from A''s ---------------------------
+        for name, snap in (("J", snap_a), ("J2", snap_a2)):
+            t = time.perf_counter()
+            create_from_snapshot(snap, str(root / name)).close()
+            seconds[f"import_{name}"] = time.perf_counter() - t
+        plugins = PluginRegistry()
+        guard = guard_plugin()
+        plugins.register("guard", guard)
+        holder = {}
+
+        def state_get(ns, key):
+            return holder["ledger"].get_state(ns, key)
+
+        lscc = LSCCRegistry(state_get)
+        router = ValidationRouter(LifecycleRegistry(state_get, legacy=lscc, plugin_registry=plugins),
+                                  lscc, lambda: ["V2_0"])
+        recorder = recording_cuda_provider(dev)
+        bp_j = BatchingProvider(recorder)
+        ch_j, store_j = channel("J", bp_j, True, registry=router, plugin_registry=plugins)
+        holder["ledger"] = ch_j.ledger
+        ch_j2, store_j2 = channel("J2", CUDAProvider(device=dev), False)
+        joined = {"heights": (ch_j.ledger.height, ch_j2.ledger.height),
+                  "replayed": (ch_j.ledger.recovered_blocks, ch_j2.ledger.recovered_blocks),
+                  "btl_coll0": (store_j.btl_policy()("benchcc", "coll0"),
+                                store_j2.btl_policy()("benchcc", "coll0")),
+                  "has_coll0": store_j.has_collection("benchcc", "coll0"),
+                  "definition_plugin": router.get("benchcc").plugin}
+        if joined != {"heights": (at, at), "replayed": (0, 0), "btl_coll0": (0, 0),
+                      "has_coll0": True, "definition_plugin": "guard"}:
+            raise AssertionError(f"snapshot_config2: joined peers {joined}")
+
+        # --- blocks at.. on J (pipelined, K2, the key combs, K5) and J' ---------
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for k in table:
+                table[k] = 0
+        out_j, wall_j, gcs_j = pipelined(ch_j, raws[at:])
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md), **k6_launches(md)}
+        out_j2, wall_j2 = serial(ch_j2, raws[at:])
+        codes = {"J": [f for f, _ in out_j], "J2": [f for f, _ in out_j2],
+                 "A": [f for f, _ in out_a[at:]], "expected": want_codes[at:]}
+        if len({tuple(v) for v in codes.values()}) != 1:
+            raise AssertionError("snapshot_config2: filters differ among J, J', A and the "
+                                 "expected codes")
+        if [h for _, h in out_j] != [h for _, h in out_j2]:
+            raise AssertionError("snapshot_config2: J's and J''s commit hashes differ")
+        if (launches["p256_verify_bytes"] < 1 or launches["p256_key_tables"] < 1
+                or launches["mvcc_resolve"] + launches["mvcc_resolve_global"] != n_blocks - at
+                or launches["p256_verify_limbs"] or any(launches[r] for r in K6_ROUTES)):
+            raise AssertionError(f"snapshot_config2 launches on J: {launches}")
+        # the state after the last block: J's rows equal A's
+        state_tables = ("state", "hashed")
+        if (ledger_rows(root / "J" / f"{CONFIG2_CHANNEL}.state.db", state_tables)
+                != ledger_rows(root / "A" / f"{CONFIG2_CHANNEL}.state.db", state_tables)):
+            raise AssertionError("snapshot_config2: J's state rows differ from A's")
+        # J's frames are A's but for the COMMIT_HASH slot
+        store_a = BlockStore(str(root / "A" / f"{CONFIG2_CHANNEL}.chain"))
+        try:
+            for number in range(at, n_blocks):
+                blocks = [store_a.get_block_by_number(number),
+                          ch_j.ledger.block_store.get_block_by_number(number)]
+                hashes = [b["metadata"]["metadata"][fabric.COMMIT_HASH] for b in blocks]
+                for b in blocks:
+                    b["metadata"]["metadata"][fabric.COMMIT_HASH] = b""
+                if wire.encode(fabric.BLOCK, blocks[0]) != wire.encode(fabric.BLOCK, blocks[1]):
+                    raise AssertionError(f"snapshot_config2: J's block {number} differs from A's")
+                if hashes[0] == hashes[1]:
+                    raise AssertionError("snapshot_config2: the commit hash did not restart")
+        finally:
+            store_a.close()
+        # history: J resolves A's entries from the blocks after the join
+        ledger_a = KVLedger(str(root / "A"), CONFIG2_CHANNEL)
+        rng = random.Random(CONFIG2_SEED + at)
+        keys = [f"k{i}" for i in sorted(rng.sample(range(n_txs), SNAPSHOT_HISTORY_KEYS - 2))]
+        # the key of the conflict block's last conflicting tx, and tx 3's (the
+        # txs i % 10 == 3 are the ones that may carry a flipped signature)
+        keys += [f"k{n_txs - 1}", "k3"]
+        try:
+            history = {}
+            for key in keys:
+                got = [(m.tx_id, (m.version.block_num, m.version.tx_num), m.value, m.is_delete)
+                       for m in get_history_for_key(ch_j.ledger, "benchcc", key)]
+                want = [(m.tx_id, (m.version.block_num, m.version.tx_num), m.value, m.is_delete)
+                        for m in get_history_for_key(ledger_a, "benchcc", key)
+                        if m.version.block_num >= at]
+                if got != want:
+                    raise AssertionError(f"snapshot_config2: history of {key} differs")
+                history[key] = len(got)
+        finally:
+            ledger_a.close()
+        if not any(history.values()):
+            raise AssertionError(f"snapshot_config2: history entries {history}")
+
+        # --- a pre-snapshot tx resubmitted: block n_blocks on J and J' ---------
+        pre = min(2, at - 1)  # a block before the snapshot
+        old = wire.decode(fabric.BLOCK, raws[pre])["data"]["data"][0]
+        txid = wire.decode(fabric.CHANNEL_HEADER, wire.decode(fabric.PAYLOAD, wire.decode(
+            fabric.ENVELOPE, old)["payload"])["header"]["channel_header"])["tx_id"]
+        dup = Config2Net.make_block([old], n_blocks, ch_j.ledger.block_store.last_block_hash)
+        dup_raw = wire.encode(fabric.BLOCK, dup)
+        pretxids = (root / "J" / f"{CONFIG2_CHANNEL}.chain.pretxids").read_text().split()
+        dup_j, _, _ = pipelined(ch_j, [dup_raw])
+        dup_j2, _ = serial(ch_j2, [dup_raw])
+        duplicate = bytes([V.DUPLICATE_TXID])
+        if (dup_j[0][0] != duplicate or dup_j2[0] != dup_j[0] or txid not in pretxids
+                or ch_j.ledger.block_store.get_block_by_number(pre) is not None):
+            raise AssertionError(f"snapshot_config2: the resubmitted tx {txid} was not "
+                                 "DUPLICATE_TXID through the .pretxids sidecar")
+        bp_j.stop()
+        ch_j.ledger.close()
+        ch_j2.ledger.close()
+        if ((root / "J" / f"{CONFIG2_CHANNEL}.chain").read_bytes()
+                != (root / "J2" / f"{CONFIG2_CHANNEL}.chain").read_bytes()
+                or ledger_rows(root / "J" / f"{CONFIG2_CHANNEL}.state.db")
+                != ledger_rows(root / "J2" / f"{CONFIG2_CHANNEL}.state.db")):
+            raise AssertionError("snapshot_config2: J's and J''s .chain or SQLite rows differ")
+
+        # --- the plugin against K2's verdicts ------------------------------------
+        k2_held = hold_k2_lanes(torch, p256k, recorder.records, oracle_provider(),
+                                random.Random(CONFIG2_SEED + 1), sum(
+                                    len(net.flipped(number, n_txs, CONFIG2_CHANNEL, flipped))
+                                    for number in range(at, n_blocks)), oracle_sample,
+                                "snapshot_config2")
+        refused_sigs = {r["sigs"][i] for r in recorder.records
+                        for i, ok in enumerate(r["verdicts"]) if not ok}
+        consulted, plugin_false, refused_lanes = [], set(), set()
+        for number, raw in enumerate(raws[at:] + [dup_raw], start=at):
+            b = wire.decode(fabric.BLOCK, raw)
+            final = out_j[number - at][0] if number < n_blocks else dup_j[0][0]
+            for i, data in enumerate(b["data"]["data"]):
+                # the txs that reach the plugin: MVCC comes after validation
+                if final[i] in (V.VALID, V.ENDORSEMENT_POLICY_FAILURE, V.MVCC_READ_CONFLICT):
+                    consulted.append((number, i))
+                env = wire.decode(fabric.ENVELOPE, data)
+                tx = wire.decode(fabric.TRANSACTION, wire.decode(fabric.PAYLOAD,
+                                                                  env["payload"])["data"])
+                cap = wire.decode(fabric.CHAINCODE_ACTION_PAYLOAD, tx["actions"][0]["payload"])
+                for j, e in enumerate(cap["action"]["endorsements"]):
+                    if e["signature"] in refused_sigs and final[i] != V.BAD_CREATOR_SIGNATURE:
+                        refused_lanes.add((number, i, j))
+        for number, i, ns, valid in guard.seen:
+            plugin_false |= {(number, i, j) for j, ok in enumerate(valid) if not ok}
+        seen_txs = [(number, i) for number, i, _, _ in guard.seen]
+        if (plugin_false != refused_lanes or not refused_lanes
+                or sorted(seen_txs) != sorted(consulted) or len(set(seen_txs)) != len(seen_txs)
+                or {ns for _, _, ns, _ in guard.seen} != {"benchcc"}):
+            raise AssertionError(
+                f"snapshot_config2: the plugin saw {len(plugin_false)} refused lanes, K2 refused "
+                f"{len(refused_lanes)} endorsement lanes of consulted txs; consulted "
+                f"{len(seen_txs)} times for {len(consulted)} txs")
+        plugin_ms = [guard.seconds.get(number, 0.0) * 1e3 for number in range(at, n_blocks)]
+        emit({"phase": "snapshot_config2", "seed_keys": n_keys, "seed_hashed_keys": n_hashed,
+              "snapshot_at_height": at, "blocks_after": n_blocks - at, "txs_per_block": n_txs,
+              "snapshot_bytes": snap_bytes, "seconds_split": seconds,
+              "J_pipelined": {"seconds": wall_j, "ms_per_block": wall_j / (n_blocks - at) * 1e3,
+                              "full_gcs": gcs_j},
+              "J2_serial": {"seconds": wall_j2, "ms_per_block": wall_j2 / (n_blocks - at) * 1e3},
+              "A_pipelined_ms_per_block": wall_a / n_blocks * 1e3,
+              "A_pipelined_ms_per_block_without_export": (
+                  wall_a - seconds["export_A"]) / n_blocks * 1e3,
+              "plugin_ms_per_block": plugin_ms, "plugin_calls": len(guard.seen),
+              "plugin_refused_lanes": len(plugin_false), "launches_on_J": launches,
+              "k2_lanes_held": k2_held, "history_entries": history, "joined": joined,
+              "duplicate_txid": txid, "equal": True,
+              "seconds": time.perf_counter() - t_phase})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -3057,10 +3504,14 @@ def main() -> int:
     k1_config5 = multichannel_phase(torch, np, dev, imad_rate)
     next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
     # --- The peer's commit path: the pipelined chain, four channels --------
-    pipeline_launches = pipeline_phases(torch, np, dev)
+    chain = {}
+    pipeline_launches = pipeline_phases(torch, np, dev, keep=chain)
+    # --- Join by snapshot: a peer joined from a 1M-key state commits the rest -
+    snapshot_launches = snapshot_phase(torch, np, dev, chain["net"], chain["raws"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
-        next(k for k in kernels if k["name"] == name)["pipeline_config2"] = {
-            "launches": pipeline_launches[name]}
+        row = next(k for k in kernels if k["name"] == name)
+        row["pipeline_config2"] = {"launches": pipeline_launches[name]}
+        row["snapshot_config2"] = {"launches": snapshot_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

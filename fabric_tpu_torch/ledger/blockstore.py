@@ -157,7 +157,6 @@ class BlockStore:
         # Snapshot bootstrap (reference bootstrapFromSnapshotInfo): a store
         # created from a snapshot starts at a nonzero height with no block
         # files for the prefix; base.meta records (base_height, last_hash).
-        # The port reads such a store; writing one comes with ledger/snapshot.
         self._base = 0
         #: bytes dropped by the last torn-tail repair (0 = clean open);
         #: crash harness introspection, reset on every _rebuild_index
@@ -188,6 +187,29 @@ class BlockStore:
                     txid = line.strip()
                     if txid:
                         self._by_txid.setdefault(txid, (-1, -1))
+
+    @classmethod
+    def bootstrap_from_snapshot(
+        cls,
+        path: str,
+        height: int,
+        last_hash: bytes,
+        pre_snapshot_txids: Optional[List[str]] = None,
+    ) -> "BlockStore":
+        """A new store at `height` with no block prefix (reference
+        bootstrapFromSnapshotInfo): the `.base` sidecar holds the height and
+        the last block's hash, the `.pretxids` sidecar the TxIDs committed
+        before the snapshot."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if os.path.exists(path):
+            raise ValueError(f"block store already exists at {path}")
+        with open(path + ".base", "wb") as f:
+            f.write(str(height).encode() + b"\n" + last_hash.hex().encode())
+        if pre_snapshot_txids:
+            with open(path + ".pretxids", "w") as f:
+                for txid in pre_snapshot_txids:
+                    f.write(txid + "\n")
+        return cls(path)
 
     # -- index ------------------------------------------------------------
     def _refuse(self, why: str) -> None:

@@ -27,8 +27,10 @@ for the same blocks.
 and validator (the resident K6 validator included), sharing the commit-hash
 code.
 
-Not ported yet, and refused rather than ignored: the public-state mirror
-(`state_mirror`, with `ledger/statecouch.py`). A ledger with `device_mvcc`
+`state_mirror` (a `ledger/statecouch.CouchStateAdapter`) receives each
+block's public updates after the embedded commit, on a best-effort basis: a
+mirror that fails is logged and never fails the commit, as in the JAX
+ledger (kvledger.py:550-560). A ledger with `device_mvcc`
 runs K5 on `device` (the card unless "cpu" is asked for), on a CUDA stream
 of its own, so a commit on one thread never waits on kernels another thread
 queued on the default stream.
@@ -282,8 +284,7 @@ class KVLedger:
         state_mirror=None,
         device=None,
     ):
-        if state_mirror is not None:
-            raise NotImplementedError("state_mirror: the CouchDB state mirror is not ported yet")
+        self.state_mirror = state_mirror
         self.channel_id = channel_id
         self.persistent = persistent
         self.device_mvcc = device_mvcc
@@ -588,6 +589,16 @@ class KVLedger:
             self.state_db.apply_updates(updates, hashed, pvt)
         # collection-config history (confighistory/mgr.go commit hook)
         self.config_history.record_from_updates(number, updates)
+        if self.state_mirror is not None and len(updates):
+            # the operational mirror (statecouch): best effort, after the
+            # commit; the embedded store is authoritative
+            try:
+                self.state_mirror.apply_updates(updates)
+            except Exception as exc:  # noqa: BLE001 - a mirror outage never fails the commit
+                logger.warning(
+                    "[%s] state mirror update failed at block %d: %s",
+                    self.channel_id, number, exc,
+                )
 
     def commit_reconciled_pvt(self, items) -> int:
         """Reconciler write-back (reference reconcile.go ->

@@ -16,10 +16,10 @@ reference:
 The provider is given, never made: the port has no default provider and no
 serve plane whose `for_channel` binding the JAX channel applies. `device`
 goes to the ledger (`ledger/kvledger.KVLedger`), which resolves it when
-`device_mvcc` asks for the card. Not ported yet, and refused rather than
-ignored: `writeset_check`, `plugin_registry` (by the validator) and
-`state_mirror` (by the ledger). `last_prepare_ms` and `last_store_ms` hold
-the host-clock split of the last stage A and stage B.
+`device_mvcc` asks for the card. `writeset_check` and `plugin_registry` go
+to the validator, `state_mirror` and `btl_policy` to the ledger.
+`last_prepare_ms` and `last_store_ms` hold the host-clock split of the last
+stage A and stage B.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Schemas of the block, transaction, MSP and policy messages for the wire codec.
 
 The port's counterpart of the JAX package's `common_pb2`, `peer_pb2`,
-`identities_pb2`, `msp_principal_pb2` and `policies_pb2`, as far as the block
-validator, the transaction builder and the policy conversion use them
-(`protos/src/{common,peer,identities,msp_principal,policies}.proto`). Messages
+`identities_pb2`, `msp_principal_pb2`, `policies_pb2`, `collection_pb2` and
+`lifecycle_pb2`, as far as the block validator, the transaction builder, the
+policy conversion, the collections, `_lifecycle` and the legacy validation
+use them (`protos/src/{common,peer,identities,msp_principal,policies,
+collection,lifecycle}.proto`). Messages
 are dicts in `wire.decode`'s form; `wire.encode` writes them byte for byte as
 protobuf's `SerializeToString` does. Map fields (`ChaincodeProposalPayload.
 TransientMap`, `ChaincodeInput.decorations`) are left out: nothing on the
@@ -143,4 +145,46 @@ SIGNATURE_POLICY_ENVELOPE: Schema = {
 APPLICATION_POLICY: Schema = {
     1: _msg("signature_policy", SIGNATURE_POLICY_ENVELOPE, oneof="Type"),
     2: Field("channel_config_policy_reference", "string", oneof="Type"),
+}
+
+# collection.proto
+COLLECTION_POLICY_CONFIG: Schema = {
+    1: _msg("signature_policy", SIGNATURE_POLICY_ENVELOPE, oneof="payload"),
+}
+STATIC_COLLECTION_CONFIG: Schema = {
+    1: Field("name", "string"),
+    2: _msg("member_orgs_policy", COLLECTION_POLICY_CONFIG),
+    3: Field("required_peer_count", "int32"),
+    4: Field("maximum_peer_count", "int32"),
+    5: Field("block_to_live", "uint64"),
+    6: Field("member_only_read", "bool"),
+    7: Field("member_only_write", "bool"),
+    8: _msg("endorsement_policy", APPLICATION_POLICY),
+}
+COLLECTION_CONFIG: Schema = {
+    1: _msg("static_collection_config", STATIC_COLLECTION_CONFIG, oneof="payload"),
+}
+COLLECTION_CONFIG_PACKAGE: Schema = {1: _msg("config", COLLECTION_CONFIG, repeated=True)}
+
+# peer.proto: LSCC's record of a chaincode (pre-2.0 lifecycle)
+CHAINCODE_DATA: Schema = {
+    1: Field("name", "string"),
+    2: Field("version", "string"),
+    3: Field("escc", "string"),
+    4: Field("vscc", "string"),
+    5: Field("policy", "bytes"),
+    6: Field("data", "bytes"),
+    7: Field("id", "bytes"),
+    8: Field("instantiation_policy", "bytes"),
+}
+
+# lifecycle.proto: the `_lifecycle` namespace's values
+STATE_METADATA: Schema = {
+    1: Field("datatype", "string"),
+    2: Field("fields", "string", repeated=True),
+}
+STATE_DATA: Schema = {
+    1: Field("Int64", "int64", oneof="Type"),
+    2: Field("Bytes", "bytes", oneof="Type"),
+    3: Field("String", "string", oneof="Type"),
 }

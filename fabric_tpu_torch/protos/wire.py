@@ -28,6 +28,12 @@ Decoding follows the protobuf runtime (upb), which the CPU tests hold it to:
   end, messages and groups nested more than 100 deep, and a string field
   that is not UTF-8 raise `WireError`.
 
+`decode(..., keep_unknown=True)` keeps what it skips, in arrival order, as
+bytes under the key `UNKNOWN` of the message's dict (and of every embedded
+message's), as protobuf keeps unknown fields; `encode` writes them after the
+known fields, where `SerializeToString` writes them, so a message that is
+parsed and serialized again comes out as protobuf's does.
+
 Encoding writes what protobuf's `SerializeToString` writes for the same
 message: fields in field-number order, proto3 defaults (0, false, empty
 string or bytes) left out of singular fields but not out of a oneof's member
@@ -44,6 +50,9 @@ from typing import Dict, List, NamedTuple, Optional
 _VARINT, _I64, _LEN, _SGROUP, _EGROUP, _I32 = 0, 1, 2, 3, 4, 5
 _MASK64 = (1 << 64) - 1
 _MASK32 = (1 << 32) - 1
+
+# the key of a decoded message's unknown fields (decode's keep_unknown)
+UNKNOWN = "__unknown__"
 
 _VARINT_KINDS = frozenset(("uint64", "uint32", "int64", "int32", "bool", "enum"))
 # protobuf's nesting limit: embedded messages and groups together
@@ -225,12 +234,16 @@ def _skip(buf: bytes, pos: int, end: int, number: int, wire_type: int, depth: in
     raise WireError(f"invalid wire type {wire_type}")
 
 
-def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, depth: int) -> None:
+def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, depth: int,
+                 keep: bool = False) -> None:
     while pos < end:
+        start = pos
         number, wire_type, pos = _tag(buf, pos, end)
         field = schema.get(number)
         if field is None or wire_type != field.wire_type:
             pos = _skip(buf, pos, end, number, wire_type, depth)
+            if keep:
+                out[UNKNOWN] = out.get(UNKNOWN, b"") + buf[start:pos]
             continue
         kind = field.kind
         if wire_type == _VARINT:
@@ -260,7 +273,7 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
                         out[field.name] = value
                 if depth >= _MAX_DEPTH:
                     raise WireError("messages nested too deep")
-                _decode_into(field.message, buf, pos, stop, value, depth + 1)
+                _decode_into(field.message, buf, pos, stop, value, depth + 1, keep)
                 pos = stop
                 if field.repeated:
                     out.setdefault(field.name, []).append(value)
@@ -282,11 +295,13 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
             out[field.name] = value
 
 
-def decode(schema: Schema, data: bytes) -> dict:
-    """Parse `data` as the message `schema` describes, or raise WireError."""
+def decode(schema: Schema, data: bytes, keep_unknown: bool = False) -> dict:
+    """Parse `data` as the message `schema` describes, or raise WireError;
+    with `keep_unknown`, each message keeps its unknown fields' bytes under
+    `UNKNOWN`."""
     buf = bytes(data)
     out: dict = {}
-    _decode_into(schema, buf, 0, len(buf), out, 0)
+    _decode_into(schema, buf, 0, len(buf), out, 0, keep_unknown)
     return out
 
 
@@ -329,6 +344,7 @@ def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
                 _put_varint(out, number << 3 | _LEN)
                 _put_varint(out, len(raw))
                 out += raw
+    out += msg.get(UNKNOWN, b"")
 
 
 def encode(schema: Schema, msg: dict) -> bytes:

@@ -21,11 +21,18 @@ in four phases:
    pass; then duplicate TxIDs, and TRANSACTIONS_FILTER written into the
    block's metadata.
 
-Not ported yet, and refused rather than ignored: custom validation plugins
-(`plugin_registry`, with `validation/dispatcher.py` and `plugin_api.py`) and
-the legacy v1.2 write-set rule (`writeset_check`, with `legacy.py`). A
-definition naming a plugin other than the builtin one makes its txs
-INVALID_CHAINCODE, as in the JAX validator without a plugin registry.
+Between the groups and the policy circuits, groups whose definition names a
+custom validation plugin go to it (`plugin_registry`, a
+`validation/dispatcher.PluginRegistry`): `plugin.validate(ctx)` once per
+(transaction, written namespace), with the signers' verdicts from the batch
+(`validation/plugin_api.py`); EndorsementInvalid codes the tx
+ENDORSEMENT_POLICY_FAILURE, any other exception halts the block with
+ValidationError, and a plugin missing from the registry makes the txs
+INVALID_CHAINCODE. `writeset_check(rwset, namespace)` (the legacy v1.2/v1.3
+rules of `validation/legacy.py`, say) codes a tx ILLEGAL_WRITESET when it
+returns an error string. Definitions are resolved once per namespace a
+block: `LifecycleRegistry.get` reads `_lifecycle` state and builds a fresh
+definition on every call.
 
 The identity cache is the state the two stages of the commit pipeline
 (`peer/pipeline.py`) share: stage A fills it in `collect_sig_jobs` on the
@@ -39,9 +46,10 @@ validator (validator.py:155-166, :240-295).
 (the native pass), identity (deserialize, chain, expiry, CRL), host_prep
 (digests of Python-parsed jobs and the provider's dispatch: DER parse, key
 columns, copies, launch), principals (principal matching while the kernel
-runs), verify_wait, policy, assembly. `last_parser` says which parse made
-the block's jobs ("native", or "python" for a `parse_block_python` block a
-caller passed in), as `last_sig_backend` says where the signatures ran.
+runs), verify_wait, policy (the custom plugins' calls included), assembly.
+`last_parser` says which parse made the block's jobs ("native", or "python"
+for a `parse_block_python` block a caller passed in), as `last_sig_backend`
+says where the signatures ran.
 
 A multi-channel scheduler (`parallel/multichannel.py`) splits phase 2:
 `collect_sig_jobs` for each channel, one launch for every channel, then
@@ -67,6 +75,11 @@ from fabric_tpu_torch.policy.evaluator import compile_batched_numpy, evaluate_ho
 from fabric_tpu_torch.policy.proto_convert import principal_for
 from fabric_tpu_torch.protos import fabric, protoutil, wire
 from fabric_tpu_torch.validation.blockparse import ParsedBlock, parse_block
+from fabric_tpu_torch.validation.plugin_api import (
+    EndorsementInvalid,
+    SignerInfo,
+    ValidationContext,
+)
 from fabric_tpu_torch.validation.statebased import (
     VALIDATION_PARAMETER,
     BlockDependencies,
@@ -124,10 +137,13 @@ class BlockValidator:
         writeset_check: Optional[Callable] = None,
         plugin_registry=None,
     ):
-        if writeset_check is not None:
-            raise NotImplementedError("writeset_check: the legacy v1.2 rules are not ported yet")
-        if plugin_registry is not None:
-            raise NotImplementedError("plugin_registry: custom validation plugins are not ported yet")
+        # an extra write-set rule, e.g. the v12 system-namespace guards on
+        # legacy channels (validation/legacy.check_v12_writeset)
+        self.writeset_check = writeset_check
+        # named custom validation plugins (dispatcher.PluginRegistry):
+        # groups whose plugin resolves to an object with a `validate`
+        # callable are dispatched there instead of the builtin path
+        self.plugin_registry = plugin_registry
         self.channel_id = channel_id
         self.msp_manager = msp_manager
         self.provider = provider
@@ -192,9 +208,9 @@ class BlockValidator:
         flags = ValidationFlags(len(data))
         txid_array: List[str] = [""] * len(data)
         groups = self._assemble_codes(parsed, sig_results, flags, txid_array)
-        groups = self._drop_unknown_plugins(groups, flags)
         t = self._stamp("assembly", t)
-        self._evaluate_policies(groups, parsed, flags)
+        groups, plugin_results = self._dispatch_custom_plugins(groups, parsed, flags, block)
+        self._evaluate_policies(groups, parsed, flags, plugin_results)
         t = self._stamp("policy", t)
 
         # duplicate TxIDs: vs ledger first (checkTxIdDupsLedger), then
@@ -365,6 +381,9 @@ class BlockValidator:
     ) -> PolicyGroups:
         """Reference-ordered early code assembly; returns the policy groups."""
         groups: PolicyGroups = {}
+        # one registry lookup a namespace a block (a LifecycleRegistry reads
+        # state and builds a fresh definition on every get)
+        definitions: Dict[str, Optional[ChaincodeDefinition]] = {}
         for tx in parsed:
             i = tx.index
             if not tx.structurally_valid:
@@ -403,9 +422,15 @@ class BlockValidator:
                 flags.set_flag(i, TxValidationCode.ILLEGAL_WRITESET)
                 continue
             wr_ns += [ns for ns, writes in entries if ns != tx.namespace and writes]
+            if self.writeset_check is not None and self.writeset_check(
+                    tx.rwset, tx.namespace) is not None:
+                flags.set_flag(i, TxValidationCode.ILLEGAL_WRITESET)
+                continue
             defs = []
             for ns in wr_ns:
-                definition = self.registry.get(ns)
+                if ns not in definitions:
+                    definitions[ns] = self.registry.get(ns)
+                definition = definitions[ns]
                 if definition is None:
                     flags.set_flag(i, TxValidationCode.INVALID_CHAINCODE)
                     break
@@ -416,18 +441,76 @@ class BlockValidator:
                     groups.setdefault(key, (definition, []))[1].append((i, ns))
         return groups
 
-    @staticmethod
-    def _drop_unknown_plugins(groups: PolicyGroups, flags: ValidationFlags) -> PolicyGroups:
-        """Groups bound to a named plugin are unusable without a plugin
-        registry (reference plugin_validator.go getOrCreatePlugin error)."""
+    def _dispatch_custom_plugins(
+        self,
+        groups: PolicyGroups,
+        parsed: Sequence[ParsedTx],
+        flags: ValidationFlags,
+        block: dict,
+    ) -> Tuple[PolicyGroups, Dict[int, Dict[str, bool]]]:
+        """Route the groups bound to a custom validation plugin (reference
+        plugindispatcher: plugin.Validate per written namespace); groups on
+        the builtin plugin pass through to the batched or SBE evaluation.
+
+        Returns (remaining groups, plugin_results), plugin_results being
+        {tx index: {namespace: ok}}: the SBE pass needs them so that a valid
+        plugin-validated tx's key-metadata writes count as applied for the
+        txs after it."""
         remaining: PolicyGroups = {}
+        plugin_results: Dict[int, Dict[str, bool]] = {}
+        datas = block.get("data", {}).get("data", ())
         for key, (definition, entries) in groups.items():
-            if definition.plugin not in ("builtin", "vscc"):
-                for i, _ns in entries:
-                    flags.set_flag(i, TxValidationCode.INVALID_CHAINCODE)
+            plugin = None
+            if self.plugin_registry is not None:
+                plugin = self.plugin_registry.get(definition.plugin)
+            if not callable(getattr(plugin, "validate", None)):
+                if definition.plugin not in ("builtin", "vscc"):
+                    # a named plugin missing from the registry: the
+                    # definition is unusable (plugin_validator.go
+                    # getOrCreatePlugin error)
+                    for i, _ns in entries:
+                        flags.set_flag(i, TxValidationCode.INVALID_CHAINCODE)
+                    continue
+                remaining[key] = (definition, entries)
                 continue
-            remaining[key] = (definition, entries)
-        return remaining
+            env = definition.endorsement_policy
+            for i, ns in entries:
+                if flags.flag(i) != TxValidationCode.NOT_VALIDATED:
+                    continue
+                tx = parsed[i]
+                signers = []
+                for job in tx.endorsement_jobs:
+                    ident = self._job_identity.get(id(job))
+                    signers.append(SignerInfo(
+                        msp_id=ident.msp_id if ident else "",
+                        identity_bytes=job.identity_bytes,
+                        sig_valid=self._sig_ok(job),
+                    ))
+                ctx = ValidationContext(
+                    channel_id=self.channel_id,
+                    block_num=block["header"].get("number", 0),
+                    tx_index=i,
+                    namespace=ns,
+                    tx_id=tx.tx_id,
+                    envelope_bytes=bytes(datas[i]),
+                    policy=env,
+                    signers=signers,
+                    default_check=lambda _tx=tx, _env=env: self._eval_policy_host(_tx, _env),
+                    get_state_metadata=self.get_state_metadata,
+                    ns_entries=tuple(tx.ns_entries or ()),
+                )
+                try:
+                    plugin.validate(ctx)
+                    plugin_results.setdefault(i, {})[ns] = True
+                except EndorsementInvalid:
+                    flags.set_flag(i, TxValidationCode.ENDORSEMENT_POLICY_FAILURE)
+                    plugin_results.setdefault(i, {})[ns] = False
+                except Exception as exc:  # noqa: BLE001 - halts the block, never marks the tx
+                    raise ValidationError(
+                        f"validation plugin {definition.plugin!r} failed "
+                        f"on tx {i} ns {ns}: {exc}"
+                    ) from exc
+        return remaining, plugin_results
 
     def _satisfies(self, ident: Identity, principal: dict, principal_bytes: bytes) -> bool:
         key = (ident.fingerprint(), principal_bytes)
@@ -445,14 +528,18 @@ class BlockValidator:
 
     # ------------------------------------------------------------------
     def _evaluate_policies(
-        self, groups: PolicyGroups, parsed: ParsedBlock, flags: ValidationFlags
+        self,
+        groups: PolicyGroups,
+        parsed: ParsedBlock,
+        flags: ValidationFlags,
+        plugin_results: Optional[Dict[int, Dict[str, bool]]] = None,
     ) -> None:
         """The common case, no key-level validation parameters in sight,
         takes the batched path; blocks touching state-based endorsement take
         the exact sequential key-level pass (validator_keylevel.go)."""
         if any(tx.has_md_writes for tx in parsed) or self._any_vp_on_written_keys(groups, parsed):
             deps = BlockDependencies([tx.rwset for tx in parsed])
-            self._evaluate_policies_sbe(groups, parsed, flags, deps)
+            self._evaluate_policies_sbe(groups, parsed, flags, deps, plugin_results or {})
         else:
             self._evaluate_policies_batched(groups, parsed, flags)
 
@@ -476,6 +563,7 @@ class BlockValidator:
         parsed: Sequence[ParsedTx],
         flags: ValidationFlags,
         deps: BlockDependencies,
+        plugin_results: Dict[int, Dict[str, bool]],
     ) -> None:
         """Sequential key-level pass in tx order over the batch-verified
         signatures."""
@@ -489,15 +577,26 @@ class BlockValidator:
             namespaces = [ns.namespace for ns in rwset.ns_rw_sets] if rwset else []
             pairs = pairs_by_tx.get(i)
             if pairs is None or rwset is None:
+                # a tx validated by custom plugins alone: a valid one's
+                # key-metadata writes count as applied for later txs
+                plug = plugin_results.get(i)
+                if plug is not None and rwset is not None:
+                    still_valid = flags.flag(i) == TxValidationCode.NOT_VALIDATED
+                    for ns in namespaces:
+                        deps.set_result(i, ns, still_valid and plug.get(ns, True))
+                    continue
                 # invalidated earlier / config tx: its metadata writes do
                 # not update validation parameters
                 for ns in namespaces:
                     deps.set_result(i, ns, False)
                 continue
             # each written namespace validates against its own policy
-            # (dispatcher.go:190); the first failure fails the rest
-            validated: Dict[str, bool] = {}
-            failed = False
+            # (dispatcher.go:190); the first failure fails the rest. A tx
+            # that spans plugin-bound and builtin namespaces carries its
+            # plugin verdicts in
+            plug = plugin_results.get(i) or {}
+            validated: Dict[str, bool] = dict(plug)
+            failed = not all(plug.values()) if plug else False
             for ns, definition in pairs:
                 if failed:
                     validated[ns] = False

@@ -2,7 +2,11 @@
 cryptography (the card's machine has neither of the last two), and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
-raises at construction."""
+raises at construction. The alias modules under the JAX package's old paths
+(`validation/{msgvalidation,txflags}`, `crypto/{der,p256,fp256bn}`) are the
+port's own modules; loading a validation plugin by module path brings in no
+JAX; and a Channel takes `writeset_check`, `plugin_registry` and
+`state_mirror`."""
 
 import json
 import subprocess
@@ -98,7 +102,11 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "peer.channel", "peer.pipeline", "ledger.blockstore", "ledger.pvtdatastore",
                  "ledger.persistent", "ledger.queries", "ledger.kvledger", "ledger.confighistory",
                  "ledger.ledgermetrics", "common.faults", "common.fabobs", "common.retry",
-                 "common.flogging", "common.metrics"):
+                 "common.flogging", "common.metrics", "ledger.history", "ledger.collections",
+                 "ledger.snapshot", "ledger.statecouch", "lifecycle", "lifecycle.lifecycle",
+                 "validation.plugin_api", "validation.dispatcher", "validation.legacy",
+                 "validation.msgvalidation", "validation.txflags", "crypto.der", "crypto.p256",
+                 "crypto.fp256bn"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -117,3 +125,66 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(cudalib.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cudalib.build("p256_verify")
+
+
+ALIASES = {
+    "fabric_tpu_torch.validation.msgvalidation": "fabric_tpu_torch.ledger.txparse",
+    "fabric_tpu_torch.validation.txflags": "fabric_tpu_torch.common.txflags",
+    "fabric_tpu_torch.crypto.der": "fabric_tpu_torch.common.der",
+    "fabric_tpu_torch.crypto.p256": "fabric_tpu_torch.common.p256",
+    "fabric_tpu_torch.crypto.fp256bn": "fabric_tpu_torch.common.fp256bn",
+}
+
+
+@pytest.mark.parametrize("alias", sorted(ALIASES))
+def test_alias_modules_are_the_port_modules(alias):
+    """Each alias under a JAX path is the port's module itself, as each JAX
+    alias is the JAX module (`fabric_tpu/crypto/p256.py:11-13`)."""
+    import importlib
+
+    target = importlib.import_module(ALIASES[alias])
+    assert importlib.import_module(alias) is target
+    assert target.__name__.startswith("fabric_tpu_torch.")
+
+
+_PLUGIN_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.validation.dispatcher import PluginRegistry
+registry = PluginRegistry()
+plugin = registry.load("guard", "fabric_tpu_torch.validation.plugin_api:ValidationPlugin")
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "fabric_tpu" or m.startswith("fabric_tpu."))
+print(json.dumps({"leaked": leaked, "plugin": type(plugin).__module__,
+                  "registered": registry.get("guard") is plugin}))
+"""
+
+
+def test_plugin_load_brings_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PLUGIN_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"leaked": [], "plugin": "fabric_tpu_torch.validation.plugin_api",
+                      "registered": True}
+
+
+def test_channel_takes_writeset_check_plugins_and_mirror(tmp_path):
+    """The three arguments that raised NotImplementedError before are taken
+    and reach the validator and the ledger."""
+    from fabric_tpu_torch.ledger.statecouch import CouchClient, CouchStateAdapter
+    from fabric_tpu_torch.msp.identity import MSPManager
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.validation.dispatcher import PluginRegistry
+    from fabric_tpu_torch.validation.legacy import check_v13_writeset
+    from fabric_tpu_torch.validation.validator import ChaincodeRegistry
+
+    plugins = PluginRegistry()
+    mirror = CouchStateAdapter(CouchClient("http://127.0.0.1:1"), "ch")
+    ch = Channel("ch", str(tmp_path), MSPManager([]), ChaincodeRegistry(), None,
+                 writeset_check=check_v13_writeset, plugin_registry=plugins, state_mirror=mirror)
+    try:
+        assert ch.validator.writeset_check is check_v13_writeset
+        assert ch.validator.plugin_registry is plugins
+        assert ch.ledger.state_mirror is mirror
+    finally:
+        ch.ledger.close()

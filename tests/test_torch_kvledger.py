@@ -465,14 +465,17 @@ def test_extract_tx_ids_and_pvt_screening_match_jax(world):
 def test_device_mvcc_ledger_needs_a_device_or_cpu(tmp_path):
     """device_mvcc without a device resolves to the card: without one it
     raises at construction, never running on the CPU; no device_mvcc needs
-    no card."""
+    no card, and neither does a state mirror (tests/test_torch_statecouch.py
+    holds what the mirror receives)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tkv.KVLedger(str(tmp_path / "a"), "benchchan", device_mvcc=True)
     tkv.KVLedger(str(tmp_path / "b"), "benchchan").close()
-    with pytest.raises(NotImplementedError, match="state_mirror"):
-        tkv.KVLedger(str(tmp_path / "c"), "benchchan", state_mirror=object())
+    mirror = object()
+    ledger = tkv.KVLedger(str(tmp_path / "c"), "benchchan", state_mirror=mirror)
+    assert ledger.state_mirror is mirror
+    ledger.close()
 
 
 def test_in_memory_ledger_matches_jax(world, tmp_path):
