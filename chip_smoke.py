@@ -158,7 +158,28 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      the plugin saw exactly K2's refused endorsement lanes, once a tx; K2's
      lanes held as in 19; J's history of 8 keys is A's after the join; a
      block-2 tx resubmitted is DUPLICATE_TXID on J and J' (.pretxids);
- 22. the launch floor (a kernel that does nothing, timed as the kernels
+ 22. config_update_config2: channel configuration on the peer. The
+     genesis block from the port's encoder (a solo orderer org, Org1-3,
+     the sample policies, the default ACLs) committed as the JAX peer's join
+     commits it; pipeline_config2's envelopes as blocks 1-4 and 6-10 (block
+     4 with 10 txs of Org4's client, refused: Org4 is unknown); block 5 a
+     CONFIG block whose update adds Org4MSP and overrides event/Block to
+     Writers, signed by Org1's and Org2's admins, in the ConfigEnvelope the
+     orderer's Validator proposes and the orderer signs; blocks 7-10 each
+     with 10 Org4 txs, VALID. The apply_config callback decodes, validates
+     (the admin signatures through the policy manager and K2) and builds
+     the new Bundle, whose MSP manager the validator takes. Pipelined
+     (BatchingProvider(CUDAProvider), K2, the key combs, K5; a drain after
+     the CONFIG block) and one block at a time: filters, commit hashes,
+     .chain and SQLite rows equal, the expected codes, bundle sequence 1.
+     Beside the path: an update signed by Org1's admin alone, one with a
+     flipped admin signature (K2 refuses that lane) and one with a stale
+     read set, each refused; 1,010 peer/Propose checks (block 4's txs) and 6
+     event/Block checks through ACLProvider before the update and after
+     block 10, Org4 denied then allowed, each verdict equal to the same
+     check over the oracle; K2's lanes held as in 19 (every admin lane),
+     the plain version only for a launch wider than 4,096 padded lanes;
+ 23. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -1457,14 +1478,14 @@ class Config2Net:
             codes[i] = MASK_CODES[kind]
         return bytes(codes)
 
-    def link(self, block_datas):
-        """Blocks 0, 1, ... of `block_datas` as wire bytes, linked: block 0
-        has an empty previous hash and each later block carries the header
-        hash of the one before it."""
+    def link(self, block_datas, first=0, previous_hash=b""):
+        """Blocks first, first + 1, ... of `block_datas` as wire bytes,
+        linked: the first carries `previous_hash` (block 0's is empty) and
+        each later block the header hash of the one before it."""
         from fabric_tpu_torch.protos import fabric, protoutil, wire
 
-        out, prev = [], b""
-        for number, datas in enumerate(block_datas):
+        out, prev = [], previous_hash
+        for number, datas in enumerate(block_datas, start=first):
             block = self.make_block(datas, number, prev)
             prev = protoutil.block_header_hash(block["header"])
             out.append(wire.encode(fabric.BLOCK, block))
@@ -1554,16 +1575,24 @@ class Config2Net:
         return datas, want
 
 
-def oracle_provider():
+def oracle_provider(memo=None):
     """The port's P-256 oracle behind the provider SPI: the reference the
-    validator's device route is held to."""
+    validator's device route is held to. With `memo` ({(point, signature,
+    digest): bool}) it reads a lane's verdict from there, and keeps there
+    each one it computes."""
     from fabric_tpu_torch.common import p256
     from fabric_tpu_torch.crypto.bccsp import Provider, parse_and_precheck
 
     class OracleProvider(Provider):
         def verify(self, key, signature, digest):
+            k = (key.point, signature, digest)
+            if memo is not None and k in memo:
+                return memo[k]
             r, s = parse_and_precheck(signature)
-            return p256.verify_digest(key.point, digest, r, s)
+            ok = p256.verify_digest(key.point, digest, r, s)
+            if memo is not None:
+                memo[k] = ok
+            return ok
 
     return OracleProvider()
 
@@ -2135,14 +2164,17 @@ def recording_cuda_provider(dev):
     return RecordingCUDAProvider(dev)
 
 
-def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, label: str) -> dict:
+def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, label: str,
+                  plain_above: int = 0, always=None) -> dict:
     """K2's lanes on a pipelined run, as the recording provider kept them:
     every launch took the bytes route and resolved; the lanes it refused
     are exactly the run's `flipped` signatures; its largest launch equals,
     lane by lane at its padded shape, the plain version on the same device
-    inputs; and the oracle agrees on every refused lane and on `sample`
-    verified lanes a launch. Raises on any difference; returns what was
-    held."""
+    inputs if it is wider than `plain_above` padded lanes (a phase whose
+    launches are no wider than one another phase holds skips the plain
+    version's 17-21 s); and the oracle agrees on every refused lane, on
+    every lane whose key `always(key)` names, and on `sample` other verified
+    lanes a launch. Raises on any difference; returns what was held."""
     lanes = [len(r["keys"]) for r in records]
     if not records or any(r["verdicts"] is None or len(r["verdicts"]) != n or not r["bytes_route"]
                           for r, n in zip(records, lanes)):
@@ -2151,18 +2183,22 @@ def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, la
     if refused != flipped:
         raise AssertionError(f"{label}: K2 refused {refused} lanes, {flipped} were flipped")
     big = max(records, key=lambda r: len(r["keys"]))
-    t0 = time.perf_counter()
-    plain = pk.verify_batch_bytes_ref(*big["args"])
-    if plain.is_cuda:
-        torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    if plain[: len(big["keys"])].tolist() != big["verdicts"] or plain[len(big["keys"]):].any():
-        raise AssertionError(f"{label}: K2's largest launch differs from its plain version")
+    plain_s = None
+    plain = int(big["args"][0].shape[0]) > plain_above
+    if plain:
+        t0 = time.perf_counter()
+        want = pk.verify_batch_bytes_ref(*big["args"])
+        if want.is_cuda:
+            torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if want[: len(big["keys"])].tolist() != big["verdicts"] or want[len(big["keys"]):].any():
+            raise AssertionError(f"{label}: K2's largest launch differs from its plain version")
     held, oracle_s = 0, 0.0
     for r in records:
         v = r["verdicts"]
-        idx = [i for i, ok in enumerate(v) if not ok]
-        verified = [i for i, ok in enumerate(v) if ok]
+        named = {i for i, k in enumerate(r["keys"]) if always is not None and always(k)}
+        idx = [i for i, ok in enumerate(v) if not ok or i in named]
+        verified = [i for i, ok in enumerate(v) if ok and i not in named]
         idx += rng.sample(verified, min(sample, len(verified)))
         t0 = time.perf_counter()
         want = oracle.batch_verify([r["keys"][i] for i in idx], [r["sigs"][i] for i in idx],
@@ -2171,8 +2207,10 @@ def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, la
         if list(want) != [v[i] for i in idx]:
             raise AssertionError(f"{label}: K2 and the oracle disagree on a lane")
         held += len(idx)
-    return {"launch_lanes": lanes, "refused": refused, "plain_lanes": len(big["keys"]),
-            "plain_padded_lanes": int(big["args"][0].shape[0]), "plain_seconds": plain_s,
+    return {"launch_lanes": lanes, "refused": refused,
+            "plain_lanes": len(big["keys"]) if plain else None,
+            "plain_padded_lanes": int(big["args"][0].shape[0]) if plain else None,
+            "plain_seconds": plain_s,
             "oracle_lanes": held, "oracle_ms_per_signature": oracle_s / held * 1e3}
 
 
@@ -2891,6 +2929,598 @@ def snapshot_phase(torch, np, dev, net, raws, n_keys=CHAIN_KEYS, n_hashed=CHAIN_
 
 
 # ---------------------------------------------------------------------------
+# config_update_config2: a config update that adds Org4, inside a config #2
+# chain (channelconfig, the policy manager and ACLs on the card)
+# ---------------------------------------------------------------------------
+
+CONFIG_SEED = CONFIG2_SEED + 12  # the orderer org's and Org4's material
+CONFIG_BLOCK = 5  # the CONFIG block: blocks 1-4 before it, 6-10 after
+CONFIG_ORG4_TXS = 10  # Org4 client txs in the block before it and in each from CONFIG_ORG4_FROM
+CONFIG_ORG4_FROM = 7  # the first block whose Org4 txs must be VALID
+CONFIG_ACL = ("event/Block", "/Channel/Application/Writers")  # the ACL the update overrides
+APPLICATION_ADMINS = "/Channel/Application/Admins"
+# the padded width of one config #2 block's K2 launch, which pipeline_config2
+# always holds against its plain version (wider when its batcher coalesces)
+K2_HELD_PADDED_LANES = 4096
+ACL_THREADS = 16  # concurrent ACL checks through the shared batcher
+
+
+class ConfigNet:
+    """The network of config_update_config2 beside `Config2Net`'s Org1-3
+    (bench.py `_Net`, 314-388): an orderer org whose orderer signs the CONFIG
+    tx, and Org4MSP with its client, both minted by the port's cryptogen from
+    CONFIG_SEED; the admins of Org1-3 sign the update. `profile` is the
+    genesis profile for an encoder module (the port's, or any with the same
+    dataclasses), `to_msp` mapping the port's MSPConfig to that module's."""
+
+    def __init__(self, net, seed=CONFIG_SEED):
+        import random
+
+        from fabric_tpu_torch.msp.cryptogen import generate_org
+        from fabric_tpu_torch.msp.signer import SigningIdentity
+
+        rng = random.Random(seed)
+        self.net = net
+        self.rng = rng
+        self.orderer_org = generate_org("orderer.bench", "OrdererMSP", rng=rng)
+        self.orderer = SigningIdentity(
+            self.orderer_org.ca.enroll("orderer0.orderer.bench", ou="orderer"), rng)
+        self.org4 = generate_org("org4.bench", "Org4MSP", rng=rng)
+        self.org4_client = SigningIdentity(self.org4.users[0], rng)
+        self.admins = [SigningIdentity(o.admin, rng) for o in net.orgs]
+        # a client of each of Org1-4, for the event/Block checks
+        self.clients = [net.client] + [SigningIdentity(o.users[0], rng) for o in net.orgs[1:]] + [
+            self.org4_client]
+
+    @staticmethod
+    def channel_acls():
+        """The default ACLs that name a channel policy, as configtxgen's
+        sample profile carries them in the Application group."""
+        from fabric_tpu_torch.peer.aclmgmt import DEFAULT_ACLS
+
+        return {k: v for k, v in DEFAULT_ACLS.items() if v.startswith("/")}
+
+    def profile(self, enc, to_msp=lambda c: c):
+        """Solo orderer with the orderer org; Application Org1-3 with anchor
+        peers, the encoder's sample policies (Readers and Writers ANY,
+        Admins and Endorsement MAJORITY), the default ACLs, V2_0."""
+        orgs = [enc.OrganizationProfile(o.msp_id, to_msp(o.msp_config()),
+                                        anchor_peers=[(f"peer0.org{i}.bench", 7051)])
+                for i, o in enumerate(self.net.orgs, start=1)]
+        orderer = enc.OrganizationProfile("OrdererMSP", to_msp(self.orderer_org.msp_config()),
+                                          orderer_endpoints=["orderer0.orderer.bench:7050"])
+        return enc.Profile(
+            application=enc.ApplicationProfile(organizations=orgs, acls=self.channel_acls()),
+            orderer=enc.OrdererProfile(orderer_type="solo",
+                                       addresses=["orderer0.orderer.bench:7050"],
+                                       organizations=[orderer]))
+
+    def genesis(self, channel):
+        """The genesis block of `profile(encoder)` (the port's encoder), with
+        one change: the Application group's mod policy is written absolute,
+        "/Channel/Application/Admins", which names the policy Fabric resolves
+        the relative "Admins" of that group to. Both packages resolve a new
+        element's inherited relative mod policy against the new element's own
+        path (channelconfig/configtx.py, `_new_item_mod_policy` and
+        `_authorize`), so under the encoder's "Admins" no update can add an
+        org: its MSP value asks for /Channel/Application/Org4MSP/Admins,
+        which does not exist (tests/test_torch_channelconfig.py pins that in
+        both)."""
+        from fabric_tpu_torch.channelconfig import encoder
+        from fabric_tpu_torch.protos import configtx as cfgpb
+        from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+        config = encoder.new_config(self.profile(encoder))
+        config["channel_group"]["groups"]["Application"]["mod_policy"] = APPLICATION_ADMINS
+        chdr = wire.encode(fabric.CHANNEL_HEADER, protoutil.make_channel_header(
+            fabric.CONFIG, channel))
+        payload = {"header": {"channel_header": chdr, "signature_header": b""},
+                   "data": wire.encode(cfgpb.CONFIG_ENVELOPE, {"config": config})}
+        block = protoutil.new_block(0, b"")
+        block["data"]["data"].append(wire.encode(fabric.ENVELOPE, {
+            "payload": wire.encode(fabric.PAYLOAD, payload)}))
+        return protoutil.seal_block(block)
+
+    def org4_profile(self, enc, to_msp=lambda c: c):
+        return enc.OrganizationProfile("Org4MSP", to_msp(self.org4.msp_config()),
+                                       anchor_peers=[("peer0.org4.bench", 7051)])
+
+    def org4_datas(self, number, n):
+        """`n` txs of block `number` by Org4's client, endorsed by Org1's
+        and Org2's peers, each writing its own key org4/{number}/{j}."""
+        from fabric_tpu_torch.ledger import rwset as rw
+        from fabric_tpu_torch.ledger.rwset_proto import serialize_tx_rwset
+        from fabric_tpu_torch.protos import fabric, wire
+
+        out = []
+        for j in range(n):
+            results = serialize_tx_rwset(rw.TxRwSet((rw.NsRwSet(
+                "benchcc", (), (rw.KVWrite(f"org4/{number}/{j}", False, b"v"),)),)))
+            out.append(wire.encode(fabric.ENVELOPE, self.net.envelope(
+                j, client=self.org4_client, results=results)))
+        return out
+
+    def config_update(self, config, channel, signers, flip=None):
+        """The CONFIG_UPDATE envelope that adds Org4MSP (with its anchor
+        peer) to the Application group of `config` and overrides the ACL
+        CONFIG_ACL, as configtxlator computes it: the read set pins the
+        Application group and every element of it at its version, the write
+        set bumps the group and the ACLs value by one and carries Org4's
+        group at version 0. Each of `signers` adds a ConfigSignature (the
+        one at index `flip` with its signature's last byte flipped); the
+        first signs the envelope."""
+        from fabric_tpu_torch.channelconfig import configtx as ctx
+        from fabric_tpu_torch.channelconfig import encoder
+        from fabric_tpu_torch.protos import configtx as cfgpb
+        from fabric_tpu_torch.protos import fabric, wire
+
+        app = config["channel_group"]["groups"]["Application"]
+        versions = {kind: {n: {"version": e.get("version", 0)} for n, e in app.get(kind, {}).items()}
+                    for kind in ("groups", "values", "policies")}
+        acls = wire.decode(cfgpb.ACLS, app["values"]["ACLs"]["value"])
+        acls["acls"][CONFIG_ACL[0]] = {"policy_ref": CONFIG_ACL[1]}
+        write = {kind: {n: dict(v) for n, v in vs.items()} for kind, vs in versions.items()}
+        write["groups"]["Org4MSP"] = encoder.new_org_group(self.org4_profile(encoder),
+                                                           with_anchors=True)
+        write["values"]["ACLs"] = {"version": versions["values"]["ACLs"]["version"] + 1,
+                                   "value": wire.encode(cfgpb.ACLS, acls), "mod_policy": "Admins"}
+        read = {"version": app.get("version", 0), **versions}
+        write.update(version=app.get("version", 0) + 1, mod_policy=app.get("mod_policy", ""))
+        update = {"channel_id": channel, "read_set": {"groups": {"Application": read}},
+                  "write_set": {"groups": {"Application": write}}}
+        cue = {"config_update": wire.encode(cfgpb.CONFIG_UPDATE, update)}
+        for signer in signers:
+            ctx.sign_config_update(cue, signer)
+        if flip is not None:
+            sig = cue["signatures"][flip]["signature"]
+            cue["signatures"][flip]["signature"] = sig[:-1] + bytes([sig[-1] ^ 0x01])
+        return self._envelope(fabric.CONFIG_UPDATE, channel, signers[0],
+                              wire.encode(cfgpb.CONFIG_UPDATE_ENVELOPE, cue))
+
+    def config_data(self, validator, update_env, channel):
+        """The CONFIG envelope an orderer cuts for `update_env`: the
+        ConfigEnvelope that `validator` (a `channelconfig.configtx.Validator`
+        on the channel's config) proposes, signed by the orderer."""
+        from fabric_tpu_torch.protos import configtx as cfgpb
+        from fabric_tpu_torch.protos import fabric, wire
+
+        cenv = validator.propose_config_update(update_env)
+        return wire.encode(fabric.ENVELOPE, self._envelope(
+            fabric.CONFIG, channel, self.orderer, wire.encode(cfgpb.CONFIG_ENVELOPE, cenv)))
+
+    @staticmethod
+    def _envelope(header_type, channel, signer, data):
+        from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+        nonce = signer.new_nonce()
+        creator = signer.serialize()
+        chdr = protoutil.make_channel_header(header_type, channel,
+                                             protoutil.compute_tx_id(nonce, creator))
+        raw = wire.encode(fabric.PAYLOAD, {"header": {
+            "channel_header": wire.encode(fabric.CHANNEL_HEADER, chdr),
+            "signature_header": wire.encode(fabric.SIGNATURE_HEADER,
+                                            protoutil.make_signature_header(creator, nonce))},
+            "data": data})
+        return {"payload": raw, "signature": signer.sign(raw)}
+
+    def chain(self, genesis, plain, config_data, config_block, org4_txs, org4_from):
+        """Blocks 1, 2, ... after `genesis` as wire bytes, linked, and the
+        filter each must get: `plain` gives (datas, codes) of every block
+        but the CONFIG block, in order; block `config_block` holds
+        `config_data` alone; `org4_txs` txs of Org4's client join the block
+        before it (BAD_CREATOR_SIGNATURE: Org4 is unknown) and every block
+        from `org4_from` on (VALID)."""
+        from fabric_tpu_torch.common.txflags import TxValidationCode as V
+        from fabric_tpu_torch.protos import protoutil
+
+        plain = list(plain)
+        datas, want = [], []
+        for number in range(1, len(plain) + 2):
+            if number == config_block:
+                datas.append([config_data])
+                want.append(bytes([V.VALID]))
+                continue
+            d, codes = plain[number - 1 if number < config_block else number - 2]
+            d, codes = list(d), bytes(codes)
+            if number == config_block - 1 or number >= org4_from:
+                d += self.org4_datas(number, org4_txs)
+                codes += bytes([V.VALID if number >= org4_from else V.BAD_CREATOR_SIGNATURE
+                                ]) * org4_txs
+            datas.append(d)
+            want.append(codes)
+        raws = self.net.link(datas, first=1, previous_hash=protoutil.block_header_hash(
+            genesis["header"]))
+        return raws, want
+
+    @staticmethod
+    def signed_data(data: bytes):
+        """A transaction envelope's (payload, creator, signature): the
+        SignedData of a peer/Propose check, since the port's txbuilder keeps
+        no signed proposal."""
+        from fabric_tpu_torch.policy.manager import SignedData
+        from fabric_tpu_torch.protos import fabric, wire
+
+        env = wire.decode(fabric.ENVELOPE, data)
+        payload = wire.decode(fabric.PAYLOAD, env["payload"])
+        creator = wire.decode(fabric.SIGNATURE_HEADER,
+                              payload["header"]["signature_header"]).get("creator", b"")
+        return SignedData(env["payload"], creator, env.get("signature", b""))
+
+    def event_checks(self):
+        """The event/Block SignedData: a client of each of Org1-4, Org9's
+        user (`Config2Net.stranger`), and Org1's client with a flipped
+        signature; the verdicts before the update and after it."""
+        from fabric_tpu_torch.policy.manager import SignedData
+
+        out = []
+        for signer in self.clients + [self.net.stranger]:
+            msg = b"seek newest " + signer.msp_id.encode()
+            out.append(SignedData(msg, signer.serialize(), signer.sign(msg)))
+        sig = out[0].signature
+        out.append(SignedData(out[0].data, out[0].identity, sig[:-1] + bytes([sig[-1] ^ 0x01])))
+        return out, [True, True, True, False, False, False], [True, True, True, True, False, False]
+
+
+class ConfigApplier:
+    """The apply_config callback of a Channel, composed as the JAX package
+    composes it (the orderer's hot swap, fabric_tpu/orderer/multichannel.py:
+    264-280): decode the ConfigEnvelope, `Validator.validate` it against the
+    current config and policy tree (the admin signatures through the
+    provider), build the new Bundle, and hand its MSP manager to the block
+    validator (`block_validator`, set once the Channel exists), which then
+    drops its identity caches. Each apply's decode, validate and bundle ms
+    go to `ms`."""
+
+    def __init__(self, bundle, provider):
+        from fabric_tpu_torch.channelconfig.configtx import Validator
+
+        self.bundle = bundle
+        self.provider = provider
+        self.configtx = Validator(bundle.channel_id, bundle.config, bundle.policy_manager)
+        self.block_validator = None
+        self.ms = []
+
+    def __call__(self, config_data: bytes) -> None:
+        from fabric_tpu_torch.channelconfig.bundle import Bundle
+        from fabric_tpu_torch.channelconfig.configtx import Validator
+        from fabric_tpu_torch.protos import configtx as cfgpb
+        from fabric_tpu_torch.protos import wire
+
+        t0 = time.perf_counter()
+        cenv = wire.decode(cfgpb.CONFIG_ENVELOPE, config_data)
+        t1 = time.perf_counter()
+        self.configtx.validate(cenv)
+        t2 = time.perf_counter()
+        bundle = Bundle(self.bundle.channel_id, cenv["config"], self.provider)
+        self.bundle = bundle
+        self.configtx = Validator(bundle.channel_id, bundle.config, bundle.policy_manager)
+        self.block_validator.msp_manager = bundle.msp_manager
+        t3 = time.perf_counter()
+        self.ms.append({"decode": (t1 - t0) * 1e3, "validate": (t2 - t1) * 1e3,
+                        "bundle": (t3 - t2) * 1e3})
+
+
+def _pool_oracle(lanes):
+    from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey
+
+    return oracle_provider().batch_verify([ECDSAPublicKey(*point) for point, _, _ in lanes],
+                                          [s for _, s, _ in lanes], [d for _, _, d in lanes])
+
+
+def oracle_fill(memo: dict, records, workers=None) -> int:
+    """The oracle's verdict of every distinct lane of `records` (a
+    recording provider's launches) not yet in `memo`, computed in a pool of
+    spawned processes; returns the number computed."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    lanes = list({(k.point, s, d) for r in records
+                  for k, s, d in zip(r["keys"], r["sigs"], r["digests"])} - set(memo))
+    if not lanes:
+        return 0
+    workers = workers or min(len(os.sched_getaffinity(0)), 8)
+    chunks = [lanes[i::workers] for i in range(workers)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for chunk, verdicts in zip(chunks, pool.map(_pool_oracle, chunks)):
+            memo.update(zip(chunk, verdicts))
+    return len(lanes)
+
+
+def config_phase(torch, np, dev, net, raws, n_txs=CONFIG2_TXS,
+                 conflict_block=PIPELINE_CONFLICT_BLOCK, flipped=PIPELINE_FLIPPED,
+                 oracle_sample=ORACLE_SAMPLE, config_block=CONFIG_BLOCK,
+                 org4_txs=CONFIG_ORG4_TXS, org4_from=CONFIG_ORG4_FROM,
+                 acl_threads=ACL_THREADS) -> dict:
+    """config_update_config2: a channel whose configuration changes,
+    committed on the card. The genesis block from the port's encoder (solo
+    orderer org, Org1-3, the sample policies, the default ACLs;
+    `ConfigNet.genesis`) is committed
+    as the JAX peer's join commits it; then pipeline_config2's signed
+    envelopes (`raws`, `net`'s) as blocks 1 to config_block - 1 and, after
+    the CONFIG block, as the blocks after it (their flipped signatures and
+    conflicts included), with `org4_txs` txs of Org4's client in the block
+    before the CONFIG block (refused: Org4 is unknown) and in every block
+    from `org4_from` on (VALID). The CONFIG block carries the update that
+    adds Org4 and overrides event/Block to Writers, signed by Org1's and
+    Org2's admins (MAJORITY of Admins), in the ConfigEnvelope the orderer's
+    Validator proposes. The chain commits pipelined (CommitPipeline,
+    BatchingProvider over K2, K5) and one block at a time (CUDAProvider,
+    K5); filters, commit hashes, .chain and SQLite rows are equal. Beside
+    the path: three refused updates, and ACL checks before and after the
+    update against the same checks over the oracle. Returns the launches of
+    K2, the key combs and K5 on the pipelined chain, for the kernels line."""
+    import random
+    import shutil
+    import threading
+    from concurrent.futures import ThreadPoolExecutor as Threads
+    from pathlib import Path
+
+    from fabric_tpu_torch.channelconfig.bundle import Bundle, bundle_from_genesis_block
+    from fabric_tpu_torch.channelconfig.configtx import ConfigTxError, Validator
+    from fabric_tpu_torch.common.txflags import TxValidationCode as V
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.parallel.batcher import BatchingProvider
+    from fabric_tpu_torch.peer.aclmgmt import PEER_PROPOSE, ACLError, ACLProvider
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import configtx as cfgpb
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    t_phase = time.perf_counter()
+    channel_id = CONFIG2_CHANNEL
+    cn = ConfigNet(net)
+    registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", net.policy)])
+    genesis = cn.genesis(channel_id)
+    genesis_raw = wire.encode(fabric.BLOCK, genesis)
+    # the orderer: its own Validator over the genesis config proposes the
+    # ConfigEnvelope of the update
+    orderer_bundle = bundle_from_genesis_block(genesis, CUDAProvider(device=dev))
+    update_env = cn.config_update(orderer_bundle.config, channel_id, cn.admins[:2])
+    config_data = cn.config_data(Validator(channel_id, orderer_bundle.config,
+                                           orderer_bundle.policy_manager), update_env, channel_id)
+    # the chain: pipeline_config2's block p as block p before the CONFIG
+    # block and as block p + 1 after it
+    plain = []
+    for p, raw in enumerate(raws[1:], start=1):
+        d = wire.decode(fabric.BLOCK, raw)["data"]["data"]
+        plain.append((d, net.chain_codes(p, len(d), p == conflict_block, channel_id, flipped)))
+    blocks_raw, want = cn.chain(genesis, plain, config_data, config_block, org4_txs, org4_from)
+    n_blocks = len(blocks_raw)
+    n_flipped = sum(len(net.flipped(number, n_txs, channel_id, flipped))
+                    for number in range(1, len(raws)))
+    setup_s = time.perf_counter() - t_phase
+    root = Path(__file__).resolve().parent / "build" / "smoke_config"
+    shutil.rmtree(root, ignore_errors=True)
+    acl_probe = [cn.signed_data(d) for d in wire.decode(
+        fabric.BLOCK, blocks_raw[config_block - 2])["data"]["data"]]
+    events, events_before, events_after = cn.event_checks()
+
+    def join(path, provider):
+        """A Channel over the genesis bundle with the ConfigApplier, the
+        genesis block committed into its ledger."""
+        bundle = bundle_from_genesis_block(wire.decode(fabric.BLOCK, genesis_raw), provider)
+        if "OrdererMSP" not in {m.msp_id for m in bundle.msp_manager.msps()}:
+            raise AssertionError("config_update_config2: the orderer org's MSP is not in the "
+                                 "bundle's manager")
+        applier = ConfigApplier(bundle, provider)
+        ch = Channel(channel_id, str(root / path), bundle.msp_manager, registry, provider,
+                     apply_config=applier, device_mvcc=True, device=dev)
+        applier.block_validator = ch.validator
+        ch.ledger.commit(wire.decode(fabric.BLOCK, genesis_raw))
+        return ch, applier
+
+    def acl_checks(applier):
+        """peer/Propose on every tx of the block before the CONFIG block and
+        event/Block on `events`, through ACLProvider over the applier's
+        current bundle, `acl_threads` at a time: the verdicts, the ms, the
+        K2 launches, the policy event/Block maps to."""
+        acl = ACLProvider(lambda cid: applier.bundle.policy_manager,
+                          lambda cid: applier.bundle.application.acls)
+
+        def check(job):
+            resource, sd = job
+            try:
+                acl.check_acl(resource, channel_id, [sd])
+                return True
+            except ACLError:
+                return False
+
+        jobs = [(PEER_PROPOSE, sd) for sd in acl_probe] + [(CONFIG_ACL[0], sd) for sd in events]
+        before = p256k.LAUNCHES["p256_verify_bytes"]
+        t0 = time.perf_counter()
+        with Threads(acl_threads) as pool:
+            verdicts = list(pool.map(check, jobs))
+        return {"verdicts": verdicts, "ms": (time.perf_counter() - t0) * 1e3,
+                "k2_launches": p256k.LAUNCHES["p256_verify_bytes"] - before,
+                "event_block_policy": acl.policy_for(CONFIG_ACL[0], channel_id)}
+
+    def oracle_acl(config, memo):
+        """The same checks on a bundle of `config` over the oracle."""
+        bundle = Bundle(channel_id, config, oracle_provider(memo))
+        acl = ACLProvider(lambda cid: bundle.policy_manager, lambda cid: bundle.application.acls)
+        out = []
+        for resource, sd in [(PEER_PROPOSE, sd) for sd in acl_probe] + [
+                (CONFIG_ACL[0], sd) for sd in events]:
+            try:
+                acl.check_acl(resource, channel_id, [sd])
+                out.append(True)
+            except ACLError:
+                out.append(False)
+        return out
+
+    try:
+        # --- pipelined: the deliver thread, BatchingProvider, K2 and K5 -------
+        recorder = recording_cuda_provider(dev)
+        bp = BatchingProvider(recorder)
+        ch, applier = join("pipelined", bp)
+        n0 = len(recorder.records)
+        acl_before = acl_checks(applier)
+        n1 = len(recorder.records)
+        committed, errors = [], []
+        pipe = CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=lambda b, f: committed.append(
+            (f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH])),
+            on_error=lambda b, exc: errors.append(exc))
+        decoded = [wire.decode(fabric.BLOCK, raw) for raw in blocks_raw]
+
+        def deliver():
+            """Every block into the pipeline; after the CONFIG block, a drain:
+            without it, stage A of the next blocks deserializes their
+            identities against the MSP manager before the update
+            (tests/test_torch_config_chain.py pins that in both packages)."""
+            try:
+                for number, b in enumerate(decoded, start=1):
+                    pipe.submit(b)
+                    if number == config_block and not pipe.drain(timeout=300):
+                        raise AssertionError("the CONFIG block did not commit")
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for k in table:
+                table[k] = 0
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=deliver, name="deliver")
+        thread.start()
+        thread.join()
+        drained = pipe.drain(timeout=300)
+        wall = time.perf_counter() - t0
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md)}
+        n2 = len(recorder.records)
+        stats, dead = pipe.stage_stats(), pipe.dead
+        pipe.stop()
+        if errors or not drained or dead:
+            raise AssertionError(f"config_update_config2: drained {drained}, dead {dead}, "
+                                 f"errors {errors!r}")
+        acl_after = acl_checks(applier)
+        bp.stop()
+        sequence = applier.bundle.sequence
+        ch.ledger.close()
+
+        # --- one block at a time over CUDAProvider (K2, K5) ---------------------
+        ch_s, applier_s = join("serial", CUDAProvider(device=dev))
+        serial_out = []
+        t0 = time.perf_counter()
+        for raw in blocks_raw:
+            b = wire.decode(fabric.BLOCK, raw)
+            serial_out.append((ch_s.store_block(b).tobytes(),
+                               b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+        serial_wall = time.perf_counter() - t0
+        ch_s.ledger.close()
+
+        if [f for f, _ in committed] != want or committed != serial_out:
+            raise AssertionError("config_update_config2: filters or commit hashes differ from the "
+                                 "serial run or the expected codes")
+        if sequence != 1 or applier_s.bundle.sequence != 1 or len(applier.ms) != 1:
+            raise AssertionError(f"config_update_config2: bundle sequence {sequence}")
+        if {o.msp_id for o in applier.bundle.application.orgs} != {
+                "Org1MSP", "Org2MSP", "Org3MSP", "Org4MSP"}:
+            raise AssertionError("config_update_config2: Org4 is not in the new bundle")
+        chain_bytes = {run: (root / run / f"{channel_id}.chain").read_bytes()
+                       for run in ("pipelined", "serial")}
+        rows = {run: ledger_rows(root / run / f"{channel_id}.state.db")
+                for run in ("pipelined", "serial")}
+        if chain_bytes["pipelined"] != chain_bytes["serial"] or rows["pipelined"] != rows["serial"]:
+            raise AssertionError("config_update_config2: .chain bytes or SQLite rows differ")
+        if (launches["mvcc_resolve"] < n_blocks - 1 or launches["mvcc_resolve_global"]
+                or launches["p256_verify_bytes"] < 1 or launches["p256_key_tables"] < 1
+                or launches["p256_verify_limbs"]
+                or launches["p256_verify_bytes"] != n2 - n1):
+            raise AssertionError(f"config_update_config2 launches: {launches}")
+
+        # --- refused updates, their lanes through K2 ----------------------------
+        refuse_rec = recording_cuda_provider(dev)
+        refuse_bundle = bundle_from_genesis_block(wire.decode(fabric.BLOCK, genesis_raw),
+                                                  refuse_rec)
+        refuse_v = Validator(channel_id, refuse_bundle.config, refuse_bundle.policy_manager)
+        flipped_env = cn.config_update(refuse_bundle.config, channel_id, cn.admins[:2], flip=1)
+        cases = {"org1_admin_alone": (refuse_v, cn.config_update(
+                     refuse_bundle.config, channel_id, cn.admins[:1])),
+                 "flipped_admin_signature": (refuse_v, flipped_env),
+                 "stale_read_set": (Validator(channel_id, applier.bundle.config,
+                                              Bundle(channel_id, applier.bundle.config,
+                                                     refuse_rec).policy_manager), update_env)}
+        refused = {}
+        for name, (v, env) in cases.items():
+            try:
+                v.propose_config_update(env)
+                refused[name] = None
+            except ConfigTxError as exc:
+                refused[name] = str(exc)
+        if not all(refused.values()) or "readset expected" not in refused["stale_read_set"]:
+            raise AssertionError(f"config_update_config2: refused updates {refused}")
+        bad_sig = wire.decode(cfgpb.CONFIG_UPDATE_ENVELOPE, wire.decode(
+            fabric.PAYLOAD, flipped_env["payload"])["data"])["signatures"][1]["signature"]
+        bad_lanes = [v for r in refuse_rec.records for s, v in zip(r["sigs"], r["verdicts"])
+                     if s == bad_sig]
+        if not bad_lanes or any(bad_lanes):
+            raise AssertionError("config_update_config2: K2 did not refuse the flipped admin "
+                                 "signature")
+
+        # --- the oracle: ACL verdicts, the update's and the checks' lanes -------
+        t0 = time.perf_counter()
+        memo = {}
+        acl_records = recorder.records[n0:n1] + recorder.records[n2:]
+        oracle_lanes = oracle_fill(memo, acl_records + refuse_rec.records)
+        for r in acl_records + refuse_rec.records:
+            if [memo[(k.point, s, d)] for k, s, d in zip(r["keys"], r["sigs"], r["digests"])] != \
+                    r["verdicts"]:
+                raise AssertionError("config_update_config2: K2 and the oracle disagree on an "
+                                     "ACL or refused-update lane")
+        oracle_before = oracle_acl(orderer_bundle.config, memo)
+        oracle_after = oracle_acl(applier.bundle.config, memo)
+        probe_codes = want[config_block - 2]
+        org4_first = len(acl_probe) - org4_txs
+        propose_before = [c != V.BAD_CREATOR_SIGNATURE for c in probe_codes]
+        propose_after = [c != V.BAD_CREATOR_SIGNATURE or i >= org4_first
+                         for i, c in enumerate(probe_codes)]
+        if (acl_before["verdicts"] != oracle_before or acl_after["verdicts"] != oracle_after
+                or acl_before["verdicts"] != propose_before + events_before
+                or acl_after["verdicts"] != propose_after + events_after
+                or acl_before["event_block_policy"] != "/Channel/Application/Readers"
+                or acl_after["event_block_policy"] != CONFIG_ACL[1]):
+            raise AssertionError("config_update_config2: ACL verdicts differ from the oracle's or "
+                                 "the expected flip")
+        admin_points = {applier.bundle.msp_manager.deserialize_identity(
+            a.serialize())[0].public_key.point for a in cn.admins}
+        if not any(k.point in admin_points for r in recorder.records[n1:n2] for k in r["keys"]):
+            raise AssertionError("config_update_config2: no admin lane reached K2")
+        k2_held = hold_k2_lanes(torch, p256k, recorder.records[n1:n2], oracle_provider(memo),
+                                random.Random(CONFIG_SEED), n_flipped, oracle_sample,
+                                "config_update_config2", plain_above=K2_HELD_PADDED_LANES,
+                                always=lambda key: key.point in admin_points)
+        oracle_s = time.perf_counter() - t0
+        emit({"phase": "config_update_config2", "blocks": n_blocks, "config_block": config_block,
+              "txs_per_block": n_txs, "org4_txs": org4_txs, "org4_valid_from": org4_from,
+              "setup_seconds": setup_s,
+              "pipelined": {"seconds": wall, "ms_per_block": wall / n_blocks * 1e3},
+              "serial": {"seconds": serial_wall, "ms_per_block": serial_wall / n_blocks * 1e3},
+              "stage_stats": stats,
+              "apply_config_ms": {"pipelined": applier.ms, "serial": applier_s.ms},
+              "bundle_sequence": sequence,
+              "acl": {"signed_data": "envelope payload, creator and signature",
+                      "checks": len(acl_probe) + len(events),
+                      "before": {k: v for k, v in acl_before.items() if k != "verdicts"},
+                      "after": {k: v for k, v in acl_after.items() if k != "verdicts"},
+                      "allowed_before": sum(acl_before["verdicts"]),
+                      "allowed_after": sum(acl_after["verdicts"]), "equal_to_oracle": True},
+              "refused_updates": refused, "launches": launches,
+              "k2_lanes_held": k2_held, "oracle_lanes": oracle_lanes,
+              "oracle_seconds": oracle_s, "flipped_signatures": n_flipped,
+              "equal_pipelined_and_serial": True,
+              "seconds": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # P-256 (K1, K2): the edge lanes of the kernel-vs-plain phase
 # ---------------------------------------------------------------------------
 
@@ -3508,10 +4138,13 @@ def main() -> int:
     pipeline_launches = pipeline_phases(torch, np, dev, keep=chain)
     # --- Join by snapshot: a peer joined from a 1M-key state commits the rest -
     snapshot_launches = snapshot_phase(torch, np, dev, chain["net"], chain["raws"])
+    # --- Channel configuration: a config update that adds Org4 -------------
+    config_launches = config_phase(torch, np, dev, chain["net"], chain["raws"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["pipeline_config2"] = {"launches": pipeline_launches[name]}
         row["snapshot_config2"] = {"launches": snapshot_launches[name]}
+        row["config_update_config2"] = {"launches": config_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

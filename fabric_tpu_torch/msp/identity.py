@@ -242,3 +242,6 @@ class MSPManager:
         sid = protoutil.unmarshal(fabric.SERIALIZED_IDENTITY, serialized)
         msp = self.get_msp(sid.get("mspid", ""))
         return msp.deserialize_identity(serialized), msp
+
+    def msps(self) -> List[MSP]:
+        return list(self._by_id.values())

@@ -111,6 +111,10 @@ def serialize_identity(mspid: str, cert_pem: bytes) -> bytes:
     return wire.encode(fabric.SERIALIZED_IDENTITY, {"mspid": mspid, "id_bytes": cert_pem})
 
 
+def get_envelope_from_block_data(data: bytes) -> dict:
+    return wire.decode(fabric.ENVELOPE, data)
+
+
 def unmarshal(schema: wire.Schema, raw: bytes) -> dict:
     """Parse or raise `wire.WireError`, a ValueError (the Go-style
     unmarshal-with-error wrapper)."""

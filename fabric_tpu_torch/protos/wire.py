@@ -34,10 +34,20 @@ message's), as protobuf keeps unknown fields; `encode` writes them after the
 known fields, where `SerializeToString` writes them, so a message that is
 parsed and serialized again comes out as protobuf's does.
 
-Encoding writes what protobuf's `SerializeToString` writes for the same
-message: fields in field-number order, proto3 defaults (0, false, empty
-string or bytes) left out of singular fields but not out of a oneof's member
-that is present, a negative int32 or int64 as
+A `map<K, V>` field (`_map`) is a repeated entry message with the key as
+field 1 and the value as field 2. It decodes to a dict {key: value}; a key
+that arrives twice keeps its last value, as upb keeps it (a message value is
+replaced, not merged), and an entry that lacks its key or value takes the
+default (0, empty string or bytes, an empty message).
+
+Encoding writes what protobuf's `SerializeToString(deterministic=True)`
+writes for the same message: fields in field-number order, a map's entries
+in upb's order of their keys (`_map_key_order`: a string key by its UTF-8
+bytes, a key that is a prefix of another after it), each entry with its key
+and its value written even where they are the default, as upb writes them
+(an empty string key as `0a 00`, an empty message value as `12 00`), proto3
+defaults (0, false, empty string or bytes) left out of singular fields but
+not out of a oneof's member that is present, a negative int32 or int64 as
 the 10-byte varint of its two's complement, embedded messages whenever
 present (an empty dict writes an empty but present message), every element
 of a repeated field.
@@ -65,7 +75,7 @@ class WireError(ValueError):
 
 class Field(NamedTuple):
     name: str
-    kind: str  # uint64, uint32, int64, int32, bool, enum, string, bytes or message
+    kind: str  # uint64, uint32, int64, int32, bool, enum, string, bytes, message or map
     repeated: bool = False
     message: Optional[Dict[int, "Field"]] = None
     oneof: Optional[str] = None
@@ -80,6 +90,21 @@ Schema = Dict[int, Field]
 
 def _msg(name: str, schema: Schema, repeated: bool = False, oneof: Optional[str] = None) -> Field:
     return Field(name, "message", repeated, schema, oneof)
+
+
+def _map(name: str, key_kind: str, value: Field) -> Field:
+    """A `map<key_kind, value>` field; `value` is the entry's field 2 (its
+    name is not used), a scalar kind or a message."""
+    return Field(name, "map", False, {1: Field("key", key_kind), 2: value._replace(name="value")})
+
+
+_DEFAULTS = {"string": "", "bytes": b"", "bool": False}
+
+
+def _default(field: Field):
+    if field.kind == "message":
+        return {}
+    return _DEFAULTS.get(field.kind, 0)
 
 
 # kvrwset (kv_rwset.proto)
@@ -259,6 +284,16 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
                 value &= _MASK32
         else:
             stop, pos = _length(buf, pos, end)
+            if kind == "map":
+                if depth >= _MAX_DEPTH:
+                    raise WireError("messages nested too deep")
+                entry: dict = {}
+                _decode_into(field.message, buf, pos, stop, entry, depth + 1, keep)
+                pos = stop
+                key_f, value_f = field.message[1], field.message[2]
+                key = entry.get("key", _default(key_f))
+                out.setdefault(field.name, {})[key] = entry.get("value", _default(value_f))
+                continue
             if kind == "message":
                 if field.repeated:
                     value = {}
@@ -318,32 +353,56 @@ def _put_varint(out: bytearray, n: int) -> None:
     out.append(n)
 
 
+def _put_field(out: bytearray, number: int, field: Field, v) -> None:
+    """One occurrence of `field`, written even where `v` is the default."""
+    if field.kind == "message":
+        body = bytearray()
+        _encode_into(field.message, v, body)
+        _put_varint(out, number << 3 | _LEN)
+        _put_varint(out, len(body))
+        out += body
+    elif field.wire_type == _VARINT:
+        _put_varint(out, number << 3 | _VARINT)
+        _put_varint(out, int(v))
+    else:
+        raw = v.encode("utf-8") if field.kind == "string" else bytes(v)
+        _put_varint(out, number << 3 | _LEN)
+        _put_varint(out, len(raw))
+        out += raw
+
+
+def _map_key_order(item):
+    """upb's order of map keys: a string key by its UTF-8 bytes, except that
+    a key that is a prefix of another comes after it (upb compares the
+    common prefix, then puts the longer key first: "ab", "a", then "")."""
+    key = item[0]
+    if isinstance(key, str):
+        return (*key.encode("utf-8"), 256)
+    return key
+
+
 def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
     for number in sorted(schema):
         field = schema[number]
         value = msg.get(field.name)
         if value is None:
             continue
-        values: List = value if field.repeated else [value]
-        for v in values:
-            if field.kind == "message":
+        if field.kind == "map":
+            key_f, value_f = field.message[1], field.message[2]
+            for key, v in sorted(value.items(), key=_map_key_order):
                 body = bytearray()
-                _encode_into(field.message, v, body)
+                _put_field(body, 1, key_f, key)
+                _put_field(body, 2, value_f, v)
                 _put_varint(out, number << 3 | _LEN)
                 _put_varint(out, len(body))
                 out += body
-            elif field.wire_type == _VARINT:
-                if not v and not field.repeated and field.oneof is None:
-                    continue
-                _put_varint(out, number << 3 | _VARINT)
-                _put_varint(out, int(v))
-            else:
-                raw = v.encode("utf-8") if field.kind == "string" else bytes(v)
-                if not raw and not field.repeated and field.oneof is None:
-                    continue
-                _put_varint(out, number << 3 | _LEN)
-                _put_varint(out, len(raw))
-                out += raw
+            continue
+        values: List = value if field.repeated else [value]
+        for v in values:
+            if (field.kind != "message" and not v and not field.repeated
+                    and field.oneof is None):
+                continue  # a proto3 default of a singular scalar field
+            _put_field(out, number, field, v)
     out += msg.get(UNKNOWN, b"")
 
 

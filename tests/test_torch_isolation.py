@@ -1,5 +1,6 @@
 """The port imports neither JAX, nor the JAX package, nor protobuf, nor
-cryptography (the card's machine has neither of the last two), and its device
+cryptography (the card's machine has neither of the last two), nor yaml
+(not known to be on the card's machine), and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
 raises at construction. The alias modules under the JAX package's old paths
@@ -32,6 +33,7 @@ leaked = sorted(
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
     or m == "google.protobuf" or m.startswith("google.protobuf.")
     or m == "cryptography" or m.startswith("cryptography.")
+    or m == "yaml" or m.startswith("yaml.")
 )
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
 from fabric_tpu_torch.ledger.mvcc_device import DeviceValidator, ResidentDeviceValidator
@@ -106,7 +108,9 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "ledger.snapshot", "ledger.statecouch", "lifecycle", "lifecycle.lifecycle",
                  "validation.plugin_api", "validation.dispatcher", "validation.legacy",
                  "validation.msgvalidation", "validation.txflags", "crypto.der", "crypto.p256",
-                 "crypto.fp256bn"):
+                 "crypto.fp256bn", "protos.configtx", "policy.manager", "channelconfig",
+                 "channelconfig.capabilities", "channelconfig.bundle", "channelconfig.configtx",
+                 "channelconfig.encoder", "peer.aclmgmt"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
