@@ -179,7 +179,23 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      block 10, Org4 denied then allowed, each verdict equal to the same
      check over the oracle; K2's lanes held as in 19 (every admin lane),
      the plain version only for a launch wider than 4,096 padded lanes;
- 23. the launch floor (a kernel that does nothing, timed as the kernels
+ 23. factory_config2: the peer's BCCSP built by crypto/factory from the
+     config block (Default CUDA, SW ECBackend auto and IdemixBackend
+     hostbn): a CUDAProvider on the card, with
+     Default SW a SoftwareProvider on hostec_np; a pinned fastec and a
+     PKCS#11 library that does not exist are FactoryErrors. Config #2's
+     block and the mask block through BlockValidator over each (warm-up and
+     timed run), the filters equal and equal to the expected codes; the
+     hostec_np pool's workers import no torch. Every lane K2 verified or
+     refused on pipeline_config2 and pipeline_config5 held against
+     SoftwareProvider(hostec_np), lane by lane through a memo; 31 lanes
+     through CUDAProvider.batch_verify one K2 launch, equal to the oracle,
+     2 and 31 lanes timed over K2 and over SoftwareProvider in turns (3 runs
+     each); verify() one K2 launch, on bad DER and high-S a VerifyError with no
+     launch; config #3's 256 signatures and the mixed batch through the
+     device route (K4, K3) and the hostbn rung, masks equal, ms a signature
+     for each; no host pool degraded, the pools shut down;
+ 24. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -1125,8 +1141,10 @@ def idemix_world(random):
     return ipk, uniq, sign
 
 
-def idemix_phases(torch, np, dev, imad_rate):
-    """The Idemix phases; returns the K3 and K4 entries of the kernels line."""
+def idemix_phases(torch, np, dev, imad_rate, keep=None):
+    """The Idemix phases; returns the K3 and K4 entries of the kernels line.
+    A `keep` dict receives the arguments of config #3's largest batch and of
+    the mixed batch ("idemix_sets") for factory_phase."""
     import copy
     import random
 
@@ -1294,6 +1312,9 @@ def idemix_phases(torch, np, dev, imad_rate):
     expected = [True, True] + [False] * 7 + [True]
     if got != want or want != expected:
         raise AssertionError(f"idemix_mask: device {got}, oracle {want}, expected {expected}")
+    if keep is not None:
+        keep["idemix_sets"] = {f"config3_{IDEMIX_SIZES[-1]}": batch_args(IDEMIX_SIZES[-1]),
+                               f"mixed_{len(lanes)}": args}
     emit({"phase": "idemix_mask", "lanes": cols[0], "mask": got, "mask_equal_oracle": True,
           "seconds": time.perf_counter() - t_phase})
 
@@ -2164,6 +2185,12 @@ def recording_cuda_provider(dev):
     return RecordingCUDAProvider(dev)
 
 
+def lane_records(recorder) -> list:
+    """A recording provider's launches without their device inputs: each
+    launch's keys, signatures, digests and K2's verdicts."""
+    return [{k: r[k] for k in ("keys", "sigs", "digests", "verdicts")} for r in recorder.records]
+
+
 def hold_k2_lanes(torch, pk, records, oracle, rng, flipped: int, sample: int, label: str,
                   plain_above: int = 0, always=None) -> dict:
     """K2's lanes on a pipelined run, as the recording provider kept them:
@@ -2222,7 +2249,8 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
     card. Returns the launches of K2, the key-comb kernel and K5 on the
     pipelined config #2 chain, for the kernels line; a `keep` dict receives
     the network and the signed config #2 chain ("net", "raws") for
-    snapshot_phase."""
+    snapshot_phase, and each chain's K2 launches as recorded (their lanes and
+    verdicts, "k2_records") for factory_phase."""
     import random
     import shutil
     import threading
@@ -2355,6 +2383,8 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
                                  f"{last_error!r}, deliver {deliver_error!r}")
         k2_held = hold_k2_lanes(torch, p256k, recorder.records, oracle, rng, n_flipped,
                                 oracle_sample, "pipeline_config2")
+        if keep is not None:
+            keep.setdefault("k2_records", {})["pipeline_config2"] = lane_records(recorder)
 
         # the same chain stored one block at a time: the same provider and
         # MVCC route without the pipeline and the batcher
@@ -2491,6 +2521,8 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
             raise AssertionError(f"pipeline_config5: batcher {batcher5}")
         k2_held5 = hold_k2_lanes(torch, p256k, recorder5.records, oracle, rng, n_flipped5,
                                  oracle_sample, "pipeline_config5")
+        if keep is not None:
+            keep.setdefault("k2_records", {})["pipeline_config5"] = lane_records(recorder5)
         txs5 = blocks5 * config5_txs
         emit({"phase": "pipeline_config5", "channels": n_channels, "blocks_per_channel":
               config5_blocks, "txs_per_block": config5_txs, "seconds": wall5,
@@ -3521,6 +3553,245 @@ def config_phase(torch, np, dev, net, raws, n_txs=CONFIG2_TXS,
 
 
 # ---------------------------------------------------------------------------
+# The BCCSP factory and the host ladder: factory_config2
+# ---------------------------------------------------------------------------
+
+# the peer's BCCSP block (sampleconfig/core.yaml's shape); the JAX package's
+# TPU slot is the port's CUDA slot
+FACTORY_CONFIG = {"Default": "CUDA",
+                  "SW": {"Hash": "SHA2", "Security": 256, "ECBackend": "auto",
+                         "IdemixBackend": "hostbn"}}
+K2_HOLD_CHUNK = 16384  # lanes a host batch of the every-lane hold (one shared-memory block)
+DEGRADE_SEAMS = ("hostec.pool", "hostec_np.pool", "hostbn.pool")
+SMALL_BATCH_LANES = (2, 31)  # direct batches timed over K2 and over SoftwareProvider
+SMALL_BATCH_RUNS = 3
+
+
+def factory_phase(torch, np, dev, net, k2_records: dict, idemix_sets: dict,
+                  n_txs=CONFIG2_TXS, slot_device=None) -> dict:
+    """factory_config2: the peer's BCCSP built by the factory from the config
+    block, as the JAX peer builds it (`FACTORY_CONFIG`): a CUDAProvider for
+    the CUDA slot, a SoftwareProvider on the auto walk's tier (hostec_np)
+    for SW, a FactoryError for a pinned fastec and for a PKCS#11 library
+    that does not exist. Config #2's block and the mask block through
+    BlockValidator over each, the filters equal and timed. Every lane K2
+    verified or refused on pipeline_config2 and pipeline_config5
+    (`k2_records`) held against SoftwareProvider(hostec_np), through a memo
+    keyed by lane. A direct batch_verify of 31 lanes is one K2 launch (no
+    host route); 2 and 31 lanes timed over K2 and over SoftwareProvider in
+    turns; verify() one launch, and its VerifyError comes with no launch.
+    Config #3's signatures and the mixed batch (`idemix_sets`) through the
+    device route (K4, K3) and the hostbn rung the factory pinned, masks
+    equal. No host pool degraded, the pools shut down. Returns the
+    phase's launches of K2, the key combs, K3 and K4. `slot_device` places
+    the CUDA slot's provider (the card unless a CPU rehearsal passes
+    "cpu")."""
+    from pathlib import Path
+
+    from fabric_tpu_torch.common import der, fabobs, p256
+    from fabric_tpu_torch.crypto import bccsp, factory, hostec, hostec_np
+    from fabric_tpu_torch.idemix import batch as ib
+    from fabric_tpu_torch.ops import bn256_kernel as bk
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+    from fabric_tpu_torch.protos import fabric, wire
+
+    t_phase = time.perf_counter()
+    for table in (p256k.LAUNCHES, bk.LAUNCHES, pkn.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    try:
+        with fabobs.obs_installed() as obs:
+            # --- the BCCSP from the config block --------------------------------
+            cuda = factory.provider_from_config(FACTORY_CONFIG, device=slot_device)
+            sw = factory.provider_from_config({**FACTORY_CONFIG, "Default": "SW"})
+            built = {"CUDA": [type(cuda).__name__, str(cuda.device), cuda.describe_backend()],
+                     "SW": [type(sw).__name__, sw.describe_backend()],
+                     "ec_tier": bccsp.ec_backend_name(),
+                     "idemix_tier": bccsp.idemix_backend_name()}
+            slot = ["cuda", "cuda"] if slot_device is None else [str(slot_device), "cpu-reference"]
+            if built != {"CUDA": ["CUDAProvider", *slot],
+                         "SW": ["SoftwareProvider", "sw:hostec_np"], "ec_tier": "hostec_np",
+                         "idemix_tier": "hostbn"}:
+                raise AssertionError(f"factory_config2: the factory built {built}")
+            refused = {}
+            no_library = Path(__file__).resolve().parent / "build" / "no-such-libsofthsm2.so"
+            for name, cfg in (
+                    ("fastec", {**FACTORY_CONFIG, "Default": "SW",
+                                "SW": {**FACTORY_CONFIG["SW"], "ECBackend": "fastec"}}),
+                    ("pkcs11_missing_library", {"Default": "PKCS11",
+                                                "PKCS11": {"Library": str(no_library)}})):
+                try:
+                    factory.provider_from_config(cfg)
+                    refused[name] = None
+                except factory.FactoryError as exc:
+                    refused[name] = f"{type(exc).__name__}: {exc}"
+            if not all(refused.values()) or bccsp.ec_backend_name() != "hostec_np":
+                raise AssertionError(f"factory_config2: refused configs {refused}")
+
+            # --- config #2's block and the mask block over each provider ---------
+            raw_block = wire.encode(fabric.BLOCK, net.block(n_txs, number=1))
+            mask_block, mask_codes = net.mask_block()
+            raw_mask = wire.encode(fabric.BLOCK, mask_block)
+            blocks = {}
+            for label, prov in (("cuda", cuda), ("sw", sw)):
+                for name, raw, crl, want in (("config2", raw_block, False, bytes(n_txs)),
+                                             ("mask", raw_mask, True, bytes(mask_codes))):
+                    ms = []
+                    for _ in range(2):  # the first run warms the provider (combs, pool)
+                        v = net.validator(prov, with_crl=crl)
+                        b = wire.decode(fabric.BLOCK, raw)
+                        t0 = time.perf_counter()
+                        flags = v.validate(b)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        if flags.tobytes() != want or v.last_sig_backend != prov.describe_backend():
+                            raise AssertionError(
+                                f"factory_config2: {name} over {v.last_sig_backend}: "
+                                f"{list(flags.tobytes())[:20]}")
+                    blocks.setdefault(name, {})[label] = {"ms": ms, "split_ms": dict(v.last_ms),
+                                                          "backend": v.last_sig_backend}
+            pool = hostec_np._pool()
+            pool_workers = hostec_np._POOL_PROCS
+            worker_torch = (pool.submit(eval, "'torch' in __import__('sys').modules").result()
+                            if pool else None)
+            if pool is None or worker_torch is not False:
+                raise AssertionError(f"factory_config2: hostec_np pool {pool}, a worker imported "
+                                     f"torch: {worker_torch}")
+
+            # --- every K2 lane of the pipelined chains against hostec_np ---------
+            memo, held = {}, {}
+            t0 = time.perf_counter()
+            for label, records in k2_records.items():
+                todo = {}
+                for r in records:
+                    for k, sig, d in zip(r["keys"], r["sigs"], r["digests"]):
+                        key = (k.point, sig, d)
+                        if key not in memo:
+                            todo[key] = (k, sig, d)
+                todo = list(todo.items())
+                t1 = time.perf_counter()
+                for off in range(0, len(todo), K2_HOLD_CHUNK):
+                    chunk = todo[off: off + K2_HOLD_CHUNK]
+                    verdicts = sw.batch_verify([k for _, (k, _, _) in chunk],
+                                               [s for _, (_, s, _) in chunk],
+                                               [d for _, (_, _, d) in chunk])
+                    memo.update(zip((key for key, _ in chunk), verdicts))
+                verify_s = time.perf_counter() - t1
+                lanes = refused_lanes = 0
+                for r in records:
+                    want = [memo[(k.point, sig, d)]
+                            for k, sig, d in zip(r["keys"], r["sigs"], r["digests"])]
+                    if want != r["verdicts"]:
+                        raise AssertionError(f"factory_config2: K2 and hostec_np disagree on a "
+                                             f"lane of {label}")
+                    lanes += len(want)
+                    refused_lanes += want.count(False)
+                held[label] = {"k2_launches": len(records), "lanes": lanes,
+                               "refused": refused_lanes, "verified_on_host": len(todo),
+                               "host_seconds": verify_s,
+                               "host_lanes_per_s": len(todo) / verify_s if verify_s else None}
+            hold_s = time.perf_counter() - t0
+            held_lanes = sum(h["lanes"] for h in held.values())
+
+            # --- a small direct batch and verify(): K2, no host route ----------
+            rec = k2_records["pipeline_config2"][0]
+            order = [i for i, ok in enumerate(rec["verdicts"]) if not ok][:4]
+            order += [i for i, ok in enumerate(rec["verdicts"]) if ok][: 31 - len(order)]
+            keys = [rec["keys"][i] for i in order]
+            sigs = [rec["sigs"][i] for i in order]
+            digests = [rec["digests"][i] for i in order]
+            want31 = oracle_provider().batch_verify(keys, sigs, digests)
+            k2_before = p256k.LAUNCHES["p256_verify_bytes"]
+            got31 = cuda.batch_verify(keys, sigs, digests)
+            k2_31 = p256k.LAUNCHES["p256_verify_bytes"] - k2_before
+            if k2_31 != 1 or got31 != want31:
+                raise AssertionError(f"factory_config2: 31 lanes {k2_31} K2 launches; mask "
+                                     f"{got31 == want31}")
+            # a small batch's round trip over K2 against SoftwareProvider.batch_verify
+            # (2 lanes: a config update's authorization), in turns
+            small_ms = {}
+            for n in SMALL_BATCH_LANES:
+                runs = {"cuda": [], "sw": []}
+                for _ in range(SMALL_BATCH_RUNS):
+                    for label, prov in (("cuda", cuda), ("sw", sw)):
+                        t0 = time.perf_counter()
+                        got = prov.batch_verify(keys[:n], sigs[:n], digests[:n])
+                        runs[label].append((time.perf_counter() - t0) * 1e3)
+                        if got != want31[:n]:
+                            raise AssertionError(f"factory_config2: {n} lanes over {label}")
+                small_ms[str(n)] = runs
+            valid = order[len(order) - 1]
+            r_, s_ = der.unmarshal_signature(rec["sigs"][valid])
+            single = {}
+            for name, sig in (("bad_der", b"\x30\x03\x02\x01\x01"),
+                              ("high_s", der.marshal_signature(r_, p256.N - s_))):
+                k2_before = p256k.LAUNCHES["p256_verify_bytes"]
+                try:
+                    cuda.verify(rec["keys"][valid], sig, rec["digests"][valid])
+                    single[name] = None
+                except bccsp.VerifyError as exc:
+                    single[name] = str(exc)
+                if p256k.LAUNCHES["p256_verify_bytes"] != k2_before:
+                    raise AssertionError(f"factory_config2: verify() launched K2 on {name}")
+            k2_before = p256k.LAUNCHES["p256_verify_bytes"]
+            good = cuda.verify(rec["keys"][valid], rec["sigs"][valid], rec["digests"][valid])
+            k2_verify = p256k.LAUNCHES["p256_verify_bytes"] - k2_before
+            if not all(single.values()) or not good or k2_verify != 1:
+                raise AssertionError(f"factory_config2: verify() {single}, {good}, "
+                                     f"{k2_verify} K2 launches")
+
+            # --- Idemix: the device route and the factory's host rung -----------
+            idemix = {}
+            rung = bccsp.idemix_backend_name()
+            for name, args in idemix_sets.items():
+                runs = {"device": [], rung: []}
+                masks = {}
+                for route in ("device", rung, rung, "device"):
+                    t0 = time.perf_counter()
+                    if route == "device":
+                        masks[route] = ib.verify_signatures_batch(*args, device=dev)
+                    else:
+                        masks[route] = ib.verify_signatures_batch(*args, backend=route)
+                    runs[route].append((time.perf_counter() - t0) * 1e3 / len(args[0]))
+                if masks["device"] != masks[rung]:
+                    raise AssertionError(f"factory_config2: {name} device {masks['device']}, "
+                                         f"{rung} {masks[rung]}")
+                idemix[name] = {"signatures": len(args[0]), "valid": sum(masks[rung]),
+                                "mask_equal": True, "ms_per_signature": runs}
+            hostbn_workers = ib._POOL_PROCS if ib._POOL else None
+
+            degrade_counts = {seam: obs.value("fabric_degrade_total", seam=seam)
+                              for seam in DEGRADE_SEAMS}
+            if any(degrade_counts.values()):
+                raise AssertionError(f"factory_config2: degraded {degrade_counts}")
+    finally:
+        hostec_np.shutdown_pool()
+        hostec.shutdown_pool()
+        ib.shutdown_pool()
+    launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                "bn256_msm": bk.LAUNCHES["bn256_msm"], "ate2_unity": pkn.LAUNCHES["ate2_unity"]}
+    if (not launches["p256_verify_bytes"] or not launches["bn256_msm"]
+            or not launches["ate2_unity"] or launches["p256_verify_limbs"]):
+        raise AssertionError(f"factory_config2 launches: {launches}")
+    emit({"phase": "factory_config2", "config": FACTORY_CONFIG, "built": built,
+          "refused_configs": refused, "blocks": blocks,
+          "filters_equal": {"config2": "all VALID over both", "mask": mask_codes},
+          "hostec_np_pool": {"workers": pool_workers, "start_method": hostec.start_method(),
+                             "worker_imports_torch": worker_torch},
+          "k2_every_lane": {"lanes": held_lanes, "seconds": hold_s, "by_phase": held},
+          "direct_batch": {"lanes": len(got31), "k2_launches": k2_31,
+                           "refused_lanes": want31.count(False), "equal_oracle": True,
+                           "ms_by_lanes": small_ms},
+          "verify": {"k2_launches": k2_verify, "errors": single}, "idemix": idemix,
+          "hostbn_pool_workers": hostbn_workers, "degrade_total": degrade_counts,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # P-256 (K1, K2): the edge lanes of the kernel-vs-plain phase
 # ---------------------------------------------------------------------------
 
@@ -4124,7 +4395,8 @@ def main() -> int:
     # --- MVCC: kernel vs plain, config #4, the resident chain --------------
     kernels += mvcc_phases(torch, np, dev)
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
-    kernels += idemix_phases(torch, np, dev, imad_rate)
+    chain = {}
+    kernels += idemix_phases(torch, np, dev, imad_rate, keep=chain)
     # --- Block validation of config #2, K7 ----------------------------------
     blocks, k7 = validator_phases(torch, np, dev, k2_block)
     kernels += k7
@@ -4134,17 +4406,22 @@ def main() -> int:
     k1_config5 = multichannel_phase(torch, np, dev, imad_rate)
     next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
     # --- The peer's commit path: the pipelined chain, four channels --------
-    chain = {}
     pipeline_launches = pipeline_phases(torch, np, dev, keep=chain)
     # --- Join by snapshot: a peer joined from a 1M-key state commits the rest -
     snapshot_launches = snapshot_phase(torch, np, dev, chain["net"], chain["raws"])
     # --- Channel configuration: a config update that adds Org4 -------------
     config_launches = config_phase(torch, np, dev, chain["net"], chain["raws"])
+    # --- The BCCSP factory and the host ladder ------------------------------
+    factory_launches = factory_phase(torch, np, dev, chain["net"], chain["k2_records"],
+                                     chain["idemix_sets"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["pipeline_config2"] = {"launches": pipeline_launches[name]}
         row["snapshot_config2"] = {"launches": snapshot_launches[name]}
         row["config_update_config2"] = {"launches": config_launches[name]}
+    for name in ("p256_verify_bytes", "p256_key_tables", "bn256_msm", "ate2_unity"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["factory_config2"] = {"launches": factory_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -11,7 +11,7 @@ metric families of `CANONICAL_METRICS` (counters, gauges and histograms of
 ring, read through `ObsRegistry.trace_events`.
 
 Left out: the metric families of the paths the port does not have (the
-serve plane, the host EC pools, gossip, Idemix rungs), the operations
+serve plane, gossip), the operations
 server's text exposition (`render`) and metric snapshot, the flight
 ring's Chrome-trace dump to disk (so `obs_trigger` records its event and
 writes no file), installation from the environment (``FABRIC_TPU_OBS``),
@@ -98,6 +98,34 @@ CANONICAL_METRICS: Tuple[MetricSpec, ...] = (
         "fabric_batcher_fail_closed_total", "counter", (),
         "requests settled all-False by a stopping/hung batcher",
         "parallel/batcher.py stop",
+    ),
+    # -- backend ladder rungs (crypto/, idemix/batch.py) ---------------
+    MetricSpec(
+        "fabric_verify_lanes_total", "counter", ("rung",),
+        "signature lanes verified per ladder rung "
+        "(hostec_np|hostec|p256|device|hostbn|scheme)",
+        "crypto/bccsp.py, idemix/batch.py",
+    ),
+    MetricSpec(
+        "fabric_verify_seconds", "histogram", ("rung",),
+        "batch verify wall time per ladder rung",
+        "crypto/bccsp.py, idemix/batch.py",
+        LATENCY_BUCKETS,
+    ),
+    MetricSpec(
+        "fabric_degrade_total", "counter", ("seam",),
+        "degrade transitions (pool->inline)",
+        "crypto/hostec*.py, idemix/batch.py",
+    ),
+    MetricSpec(
+        "fabric_pool_rebuilds_total", "counter", ("pool",),
+        "process-pool constructions (hostec|hostec_np|hostbn)",
+        "crypto/hostec.py, crypto/hostec_np.py, idemix/batch.py",
+    ),
+    MetricSpec(
+        "fabric_pool_cooldowns_total", "counter", ("pool",),
+        "broken-pool teardowns arming the rebuild cooldown",
+        "crypto/hostec.py, crypto/hostec_np.py, idemix/batch.py",
     ),
     MetricSpec(
         "fabric_pipeline_stage_seconds", "histogram", ("stage",),

@@ -12,6 +12,16 @@ site                               seam
 ``batcher.dispatch``               VerifyBatcher dispatcher, per launch attempt
 ``pipeline.commit``                CommitPipeline._commit_loop, before
                                    store_block
+``bccsp.dispatch``                 SoftwareProvider batch dispatch (EC ladder)
+``bccsp.verdict``                  SoftwareProvider verdict mask (corrupt
+                                   action)
+``hostec.pool.submit``             hostec shard submission to the process pool
+``hostec.pool.resolve``            hostec shard result join
+``hostec_np.pool.submit``          hostec_np shm shard submission
+``hostec_np.pool.resolve``         hostec_np shm shard result join
+``hostbn.pool.submit``             hostbn idemix shard submission
+``hostbn.pool.resolve``            hostbn idemix shard result join
+``idemix.verdict``                 idemix/batch verdict mask (corrupt action)
 ``blockstore.append.pre_fsync``    BlockStore.add_block, frame written but not
                                    yet fsynced (kill window)
 ``blockstore.append.post_fsync``   BlockStore.add_block, frame fsynced,
@@ -374,6 +384,18 @@ def fault_point(
         # does not.
         os._exit(KILL_EXIT_CODE)
     return spec
+
+
+def corrupt_verdicts(verdicts: Sequence[bool], spec: FaultSpec) -> List[bool]:
+    """Flip the first ``spec.lanes`` verdicts (all lanes when 0) — the
+    ``corrupt`` action's standard interpretation at mask-producing
+    sites.  Exists so a bit-exact mask assertion can be shown to CATCH a
+    verdict-corrupting bug; never reachable without an installed plan."""
+    out = list(verdicts)
+    n = len(out) if spec.lanes <= 0 else min(spec.lanes, len(out))
+    for i in range(n):
+        out[i] = not out[i]
+    return out
 
 
 def crash_specs_from_text(text: str) -> List[FaultSpec]:

@@ -69,10 +69,13 @@ class CUDAProvider(Provider):
 
     1. No retries, no software fallback and no `degraded` flag: a failed
        build, launch or copy raises.
-    2. No host route for small batches (`MIN_DEVICE_BATCH`): there is no
-       fast host EC tier in the port, so every batch goes to the device.
-       Single `verify()` runs `parse_and_precheck` (keeping the
-       VerifyError semantics) and then a one-lane launch.
+    2. No host route for small batches (`MIN_DEVICE_BATCH`): every batch
+       goes to the device. On an H100 a K2 round trip beat
+       `SoftwareProvider.batch_verify` at 2 and at 31 lanes
+       (`chip_smoke.py`, factory_config2's `direct_batch`), so there is
+       no measured size below which the host wins. Single `verify()` runs
+       `parse_and_precheck` (keeping the VerifyError semantics) and then
+       a one-lane launch.
     3. `describe_backend()` is "cuda", or "cpu-reference" when the provider
        was made with `device="cpu"` and runs the kernels' plain versions.
     """

@@ -12,25 +12,42 @@ batch splits Signature.Ver into:
   three MSM lanes a signature, padded to the largest job with identity
   bases and zero scalars.
 
-Routes (`backend`): "device" (the default: K4 then K3) and "scheme" (the
-per-signature oracle loop of `idemix/scheme.py`). The device route runs on
-the card unless the caller passes `device="cpu"`, where the kernel wrappers
-run their plain versions; without a card it raises. A lane that fails to
-parse or fails the pairing is False, as in `verify_signature`; a device
-error is never turned into a verdict.
+Routes (`backend`): "device" (the default: K4 then K3), "hostbn" (the
+numpy limb-matrix rung of `crypto/hostbn`, the whole batch's pairings and
+MSMs as lanes, signature chunks sharded over a process pool past
+`MIN_POOL_SIGS`) and "scheme" (the per-signature oracle loop of
+`idemix/scheme.py`). `bccsp.idemix_backend_name()` names the host rung the
+factory's BCCSP.SW.IdemixBackend pinned, for a caller that asks for the
+host. The device route runs on the card unless the caller passes
+`device="cpu"`, where the kernel wrappers run their plain versions;
+without a card it raises. A lane that fails to parse or fails the pairing
+is False, as in `verify_signature`; a device error is never turned into a
+verdict. Every route counts its lanes in ``fabric_verify_lanes_total`` by
+rung, and the ``idemix.verdict`` corrupt seam fires once a batch in the
+coordinating process, never in a pool worker.
 
-Departures from the JAX package: no hostbn rung and no process pool, no
-`idemix.verdict` fault seam and no fabobs counters, and neither the
-`device_pairing` flag nor the "msm" route (the host oracle's pairing, about
-a second a signature, with K3): the device route always runs K4.
+This module imports no torch at import time (the kernels' modules load
+when the device route runs), so the hostbn pool's workers start light.
+
+Departures from the JAX package: the default route is the device, not the
+process-wide host ladder, and neither the `device_pairing` flag nor the
+"msm" route (the host oracle's pairing, about a second a signature, with
+K3) is ported: the device route always runs K4.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from fabric_tpu_torch.common import fabobs
 from fabric_tpu_torch.common import fp256bn as bn
+from fabric_tpu_torch.common.faults import corrupt_verdicts, fault_point
+from fabric_tpu_torch.common.flogging import must_get_logger
+from fabric_tpu_torch.common.retry import CooldownGate
+from fabric_tpu_torch.crypto import hostec
 from fabric_tpu_torch.idemix.scheme import (
     ALG_NO_REVOCATION,
     IdemixError,
@@ -41,7 +58,10 @@ from fabric_tpu_torch.idemix.scheme import (
     ecp_from_proto,
     verify_signature,
 )
-from fabric_tpu_torch.ops import bn256_kernel, cudalib, pairing_kernel
+
+logger = must_get_logger("idemix.batch")
+
+BACKENDS = ("device", "hostbn", "scheme")
 
 class _Parsed:
     """Host-parsed signature with its three MSM jobs."""
@@ -134,25 +154,52 @@ def verify_signatures_batch(
     backend: Optional[str] = None,
     device=None,
     split_ms: Optional[Dict[str, float]] = None,
+    _pool_ok: bool = True,
 ) -> List[bool]:
     """Batch Signature.Ver: the per-signature validity mask, equal to
     `verify_signature`'s verdicts lane by lane on every route.
 
-    `backend` is "device" (the default) or "scheme"; `device` is where the
-    device route runs (the card unless "cpu"). The device route fills
-    `split_ms`, when given, with its host-clock milliseconds: parse,
+    `backend` is "device" (the default), "hostbn" or "scheme"; `device` is
+    where the device route runs (the card unless "cpu"). The device route
+    fills `split_ms`, when given, with its host-clock milliseconds: parse,
     pairing (K4 launch and wait), msm (the K3 step) and challenge, and the
     K3 step's msm_pack, msm_kernel and msm_unpack (`msm_host_batch`)."""
     backend = backend or "device"
-    if backend == "scheme":
-        return _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index)
-    if backend != "device":
+    if backend not in BACKENDS:
         raise ValueError(f"unknown idemix batch backend {backend!r}")
-    dev = cudalib.resolve_device(device, "Idemix")
+    if backend == "device":
+        from fabric_tpu_torch.ops import cudalib
+
+        dev = cudalib.resolve_device(device, "Idemix")
     if not signatures:
         return []
-    return _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
-                          device=dev, split_ms={} if split_ms is None else split_ms)
+    t0 = time.perf_counter()
+    if backend == "hostbn":
+        out = _verify_hostbn(signatures, disclosures, ipk, msgs, attribute_values_list,
+                             rh_index, pool_ok=_pool_ok)
+    elif backend == "scheme":
+        out = _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index)
+    else:
+        out = _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
+                             device=dev, split_ms={} if split_ms is None else split_ms)
+    if not _pool_ok:
+        # a pool worker's chunk: the coordinating process counts and
+        # corrupts the whole batch once (two flips would cancel)
+        return out
+    fabobs.obs_count("fabric_verify_lanes_total", len(signatures), rung=backend)
+    fabobs.obs_observe("fabric_verify_seconds", time.perf_counter() - t0, rung=backend)
+    return _chaos_verdicts(out)
+
+
+def _chaos_verdicts(out: List[bool]) -> List[bool]:
+    """``idemix.verdict`` corrupt seam (the batch analog of
+    ``bccsp.verdict``): only an installed fault plan reaches the flip — it
+    exists so a bit-exact mask assertion can be shown to CATCH a
+    corrupted verdict."""
+    spec = fault_point("idemix.verdict", interprets=("corrupt",))
+    if spec is not None and spec.action == "corrupt":
+        return corrupt_verdicts(out, spec)
+    return out
 
 
 def _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list,
@@ -168,10 +215,186 @@ def _verify_scheme(signatures, disclosures, ipk, msgs, attribute_values_list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# hostbn rung: numpy limb-matrix lanes (+ process-pool sharding)
+# ---------------------------------------------------------------------------
+
+MIN_POOL_SIGS = 64  # below this a pool round-trip costs more than it buys
+MIN_SHARD_SIGS = 16  # never split shards smaller than this
+
+
+def _lane_jobs(parsed, pairing_ok):
+    """The t1/t2/t3 MSM jobs of every lane that parsed and passed the
+    pairing, and each job's lane."""
+    jobs: List[Tuple[list, list]] = []
+    owners: List[int] = []
+    for i, p in enumerate(parsed):
+        if p is None or not pairing_ok[i]:
+            continue
+        for job in (p.t1_job, p.t2_job, p.t3_job):
+            jobs.append(job)
+            owners.append(i)
+    return jobs, owners
+
+
+def _verify_hostbn(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
+                   pool_ok: bool = True) -> List[bool]:
+    from fabric_tpu_torch.crypto import hostbn
+
+    n = len(signatures)
+    if pool_ok and n >= MIN_POOL_SIGS:
+        out = _verify_hostbn_pooled(signatures, disclosures, ipk, msgs,
+                                    attribute_values_list, rh_index)
+        if out is not None:
+            return out
+    parsed = _parse_lanes(signatures, disclosures, ipk, attribute_values_list, rh_index)
+    w = ecp2_from_proto(ipk.get("w"))
+    pairing_ok = hostbn.pairing_check_batch(
+        w, [(p.a_prime, p.a_bar) if p is not None else None for p in parsed])
+    jobs, owners = _lane_jobs(parsed, pairing_ok)
+    t_points: Dict[int, list] = {}
+    if jobs:
+        for owner, pt in zip(owners, hostbn.msm_batch(jobs)):
+            t_points.setdefault(owner, []).append(pt)
+    return _challenge_results(parsed, ipk, msgs, t_points)
+
+
+# shared-nothing pool: shards are chunks of SIGNATURES (the decoded
+# message dicts pickle as they are), workers run the inline hostbn path
+# and the parent concatenates in order
+_POOL = None
+_POOL_PROCS = 1
+_POOL_LOCK = threading.Lock()
+_POOL_GATE = CooldownGate()
+
+
+def pool_procs() -> int:
+    """Worker count (1 = pool disabled); FABRIC_TPU_HOSTBN_PROCS
+    overrides, falling back to hostec's discipline (malformed values
+    degrade to the default, never raise)."""
+    procs = os.environ.get("FABRIC_TPU_HOSTBN_PROCS", "")
+    if procs:
+        try:
+            return max(int(procs), 1)
+        except ValueError:
+            pass
+    return hostec.pool_procs()
+
+
+def _pool():
+    """Lazy shared ProcessPoolExecutor, started by `hostec.start_method()`
+    (never a fork).  Broken or
+    unavailable pools degrade to inline compute, never die."""
+    global _POOL, _POOL_PROCS
+    with _POOL_LOCK:
+        if _POOL is None:
+            if not _POOL_GATE.ready():
+                return None
+            procs = pool_procs()
+            _POOL_PROCS = procs
+            if procs <= 1:
+                _POOL = False
+                return None
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            try:
+                _POOL = ProcessPoolExecutor(
+                    max_workers=procs,
+                    mp_context=multiprocessing.get_context(hostec.start_method()),
+                )
+                fabobs.obs_count("fabric_pool_rebuilds_total", pool="hostbn")
+            except Exception as exc:  # pragma: no cover - restricted environments
+                logger.warning("idemix pool unavailable (%s); verifying inline", exc)
+                _POOL = False
+    return _POOL or None
+
+
+def reset_pool_cooldown() -> None:
+    """Close the rebuild cooldown and reset its ramp (a test exercises
+    the ``hostbn.pool.submit`` and ``hostbn.pool.resolve`` faults
+    back-to-back without waiting out the cooldown a broken-pool teardown
+    arms)."""
+    _POOL_GATE.record_success()
+
+
+def shutdown_pool(broken: bool = False) -> None:
+    """Tear the pool down; ``broken=True`` arms the rebuild cooldown
+    (degrade paths only — clean teardowns leave the gate closed)."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL:
+            _POOL.shutdown(wait=False, cancel_futures=True)
+        _POOL = None
+        if broken:
+            _POOL_GATE.record_failure()
+    if broken:
+        fabobs.obs_count("fabric_pool_cooldowns_total", pool="hostbn")
+        fabobs.obs_count("fabric_degrade_total", seam="hostbn.pool")
+        fabobs.obs_trigger("hostbn.pool_broken")
+
+
+def _pool_worker(ipk, signatures, disclosures, msgs, values, rh_index) -> List[bool]:
+    """Runs in a pool worker: verify the chunk inline on the hostbn rung
+    (per-worker issuer schedules are cached across batches by
+    crypto/hostbn)."""
+    return verify_signatures_batch(signatures, disclosures, ipk, msgs, values, rh_index,
+                                   backend="hostbn", _pool_ok=False)
+
+
+def _verify_hostbn_pooled(signatures, disclosures, ipk, msgs, attribute_values_list,
+                          rh_index) -> Optional[List[bool]]:
+    """Shard the batch across the process pool; None = caller verifies
+    inline (no pool, submit failure, worker death — degrade, never
+    die)."""
+    pool = _pool()
+    if pool is None:
+        return None
+    n = len(signatures)
+    nshards = min(_POOL_PROCS,
+                  max(n // MIN_SHARD_SIGS, 1))
+    if nshards <= 1:
+        return None
+    step = (n + nshards - 1) // nshards
+    try:
+        fault_point("hostbn.pool.submit")
+        futures = [
+            pool.submit(_pool_worker, ipk, list(signatures[lo: lo + step]),
+                        list(disclosures[lo: lo + step]), list(msgs[lo: lo + step]),
+                        list(attribute_values_list[lo: lo + step]), rh_index)
+            for lo in range(0, n, step)
+        ]
+    except Exception as exc:  # BrokenProcessPool / shutdown race
+        logger.warning("idemix pool submit failed (%s); verifying inline", exc)
+        shutdown_pool(broken=True)
+        return None
+    try:
+        fault_point("hostbn.pool.resolve")
+        out: List[bool] = []
+        for f in futures:
+            out.extend(f.result())
+        with _POOL_LOCK:
+            # a batch that made it THROUGH the pool resets the rebuild
+            # cooldown ramp (construction alone proves nothing)
+            _POOL_GATE.record_success()
+        return out
+    except Exception as exc:  # worker died mid-run: inline fallback
+        logger.warning("idemix pool worker died mid-batch (%s); verifying inline", exc)
+        shutdown_pool(broken=True)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# device route: K4, then K3
+# ---------------------------------------------------------------------------
+
+
 def _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh_index,
                    device, split_ms: Dict[str, float]) -> List[bool]:
     """K4 over every lane, then one K3 batch of three MSM lanes for each
     signature that passed it."""
+    from fabric_tpu_torch.ops import bn256_kernel, pairing_kernel
+
     t0 = time.perf_counter()
     parsed = _parse_lanes(signatures, disclosures, ipk, attribute_values_list, rh_index)
     w = ecp2_from_proto(ipk.get("w"))
@@ -181,14 +404,7 @@ def _verify_device(signatures, disclosures, ipk, msgs, attribute_values_list, rh
     pairing_ok = kernel.check([(p.a_prime, p.a_bar) if p is not None else None for p in parsed])
     t2 = time.perf_counter()
 
-    jobs: List[Tuple[list, list]] = []
-    owners: List[int] = []
-    for i, p in enumerate(parsed):
-        if p is None or not pairing_ok[i]:
-            continue
-        for job in (p.t1_job, p.t2_job, p.t3_job):
-            jobs.append(job)
-            owners.append(i)
+    jobs, owners = _lane_jobs(parsed, pairing_ok)
     t_points: Dict[int, list] = {}
     if jobs:
         k_max = max(len(b) for b, _ in jobs)

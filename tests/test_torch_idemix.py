@@ -11,7 +11,7 @@ ALG_NO_REVOCATION CRI on both sides, as bench.py's config #3 uses). (c)
 versions of K4 and K3, gives the JAX package's `scheme` and `hostbn` masks
 lane by lane on the vectors of `tests/test_idemix_batch.py` plus a doubled
 ABar, an identity ABar, an identity A' and a wrong count of s-values; so
-do the port's `scheme` and `msm` routes. Five signatures are issued, once
+do the port's `scheme` and `hostbn` routes. Five signatures are issued, once
 per module on each side.
 """
 
@@ -274,6 +274,7 @@ def masks(worlds):
         "port-device": verify_signatures_batch(psigs, *args, device="cpu", split_ms=split),
         "port-split": split,
         "port-scheme": verify_signatures_batch(psigs, *args, backend="scheme"),
+        "port-hostbn": verify_signatures_batch(psigs, *args, backend="hostbn"),
         "jax-scheme": jax_batch(jsigs, *jargs, backend="scheme"),
         "jax-hostbn": jax_batch(jsigs, *jargs, backend="hostbn"),
     }
@@ -282,8 +283,8 @@ def masks(worlds):
 @pytest.mark.parametrize("lane", LANES)
 def test_batch_mask_matches_jax(masks, lane):
     i = LANES.index(lane)
-    assert (masks["port-device"][i] == masks["port-scheme"][i] == masks["jax-scheme"][i]
-            == masks["jax-hostbn"][i] == EXPECTED[i])
+    assert (masks["port-device"][i] == masks["port-scheme"][i] == masks["port-hostbn"][i]
+            == masks["jax-scheme"][i] == masks["jax-hostbn"][i] == EXPECTED[i])
 
 
 def test_device_route_reports_its_split(masks):
@@ -296,12 +297,17 @@ def test_device_route_reports_its_split(masks):
 
 @pytest.mark.parametrize("backend", ["hostbn", "msm"])
 def test_batch_rejects_unknown_backend_and_empty(worlds, backend):
-    """The port has the device and scheme routes only: the JAX package's
-    hostbn rung and its host-pairing "msm" route are not ported."""
+    """The port has the device, hostbn and scheme routes: the JAX
+    package's host-pairing "msm" route is not ported and raises; the
+    hostbn rung (tests/test_torch_hostbn.py) takes the empty batch."""
     port = worlds[1]
-    with pytest.raises(ValueError):
-        verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, backend=backend,
-                                device="cpu")
+    if backend == "msm":
+        with pytest.raises(ValueError):
+            verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, backend=backend,
+                                    device="cpu")
+    else:
+        assert verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX,
+                                       backend=backend) == []
     assert verify_signatures_batch([], [], port["ipk"], [], [], RH_INDEX, device="cpu") == []
 
 

@@ -110,7 +110,8 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "validation.msgvalidation", "validation.txflags", "crypto.der", "crypto.p256",
                  "crypto.fp256bn", "protos.configtx", "policy.manager", "channelconfig",
                  "channelconfig.capabilities", "channelconfig.bundle", "channelconfig.configtx",
-                 "channelconfig.encoder", "peer.aclmgmt"):
+                 "channelconfig.encoder", "peer.aclmgmt", "crypto.hostec", "crypto.hostec_np",
+                 "crypto.hostbn", "crypto.factory", "crypto.pkcs11"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -192,3 +193,20 @@ def test_channel_takes_writeset_check_plugins_and_mirror(tmp_path):
         assert ch.ledger.state_mirror is mirror
     finally:
         ch.ledger.close()
+
+
+_HOST_TIER_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.crypto import hostbn, hostec, hostec_np
+from fabric_tpu_torch.idemix import batch
+print(json.dumps({"torch": "torch" in sys.modules, "numpy": "numpy" in sys.modules}))
+"""
+
+
+def test_host_tiers_import_no_torch():
+    """The host tiers and the Idemix batch module (what the pools' workers
+    import) load numpy and never torch, so the workers start light."""
+    out = subprocess.run([sys.executable, "-c", _HOST_TIER_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"torch": False, "numpy": True}

@@ -1,7 +1,8 @@
 """CUDAProvider's own behaviour, with device="cpu" (the kernels' plain
 versions): the key bucket's route choice, off-curve keys, resolvers in any
 order, VerifyError on single verify, the empty batch, the key combs kept
-by SKI.
+by SKI; every batch and single verify one K2 call, whatever its size (no
+host route), and a failed launch or resolve raising (no software degrade).
 
 Its masks are held to TPUProvider's in tests/test_torch_p256.py, which
 holds the JAX verify programs TPUProvider runs (one test worker compiles
@@ -146,3 +147,66 @@ def test_key_tables_kept_by_ski_across_a_cache_clear(one_thread):
                           np.concatenate([ky[:, [0, 2]], pad], axis=1))
     assert torch.equal(got, want[[0, 2, 0]])
     assert set(prov._key_table_cache) == {keys[2].ski()}
+
+
+@pytest.fixture
+def k2_calls(monkeypatch, one_thread):
+    """Count the bytes-route wrapper's calls (on the CPU the plain version
+    runs and `LAUNCHES` does not move)."""
+    calls = []
+    orig = pk.verify_batch_bytes
+
+    def counted(*args, **kwargs):
+        calls.append(int(args[0].shape[0]))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pk, "verify_batch_bytes", counted)
+    return calls
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 32])
+def test_every_batch_is_one_k2_call(k2_calls, lanes):
+    """No host route for small batches: batch_verify calls K2 once, at any
+    size."""
+    prov = CUDAProvider(device="cpu")
+    cases = signature_cases(lanes, 3)
+    assert prov.batch_verify(*columns(cases)) == oracle(cases)
+    assert len(k2_calls) == 1
+
+
+def test_single_verify_is_one_k2_call(k2_calls):
+    """verify() is a one-lane K2 call; bad DER and high-S raise VerifyError
+    before any call."""
+    prov = CUDAProvider(device="cpu")
+    cases = signature_cases(4, 1)
+    for bad in (cases[2], cases[3]):  # bad DER, high-S
+        with pytest.raises(VerifyError):
+            prov.verify(*bad)
+    assert k2_calls == []
+    assert prov.verify(*cases[0]) is True
+    assert len(k2_calls) == 1
+
+
+def _failing(stage):
+    def boom(*args, **kwargs):
+        raise RuntimeError(f"injected {stage} failure")
+    return boom
+
+
+@pytest.mark.parametrize("stage", ["launch", "resolve"])
+def test_dispatch_failure_raises(monkeypatch, stage):
+    """Fail closed: a failed launch or resolve raises, and nothing serves
+    the batch from software (retries stay in VerifyBatcher)."""
+    prov = CUDAProvider(device="cpu")
+    cases = signature_cases(40, 3)
+    if stage == "launch":
+        monkeypatch.setattr(pk, "verify_batch_bytes", _failing(stage))
+        with pytest.raises(RuntimeError, match="injected"):
+            prov.batch_verify(*columns(cases))
+    else:
+        monkeypatch.setattr(prov, "_launch", lambda prep, limbs, size: None)
+        monkeypatch.setattr(prov, "_resolver", lambda out, n: _failing(stage))
+        resolve = prov.batch_verify_async(*columns(cases))
+        with pytest.raises(RuntimeError, match="injected"):
+            resolve()
+    assert prov.describe_backend() == "cpu-reference"
