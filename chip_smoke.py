@@ -195,7 +195,30 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      launch; config #3's 256 signatures and the mixed batch through the
      device route (K4, K3) and the hostbn rung, masks equal, ms a signature
      for each; no host pool degraded, the pools shut down;
- 24. the launch floor (a kernel that does nothing, timed as the kernels
+ 24. serve_config2: config #2 verified through the serve sidecar
+     (fabric_tpu_torch.serve). An in-process SidecarServer on the card's
+     CUDAProvider warmed on the `verify` ladder (K1 at each of 128-16,384
+     lanes; a 32,768-lane request's bucket never warmed, the registry
+     raising on it), reached through the factory's SERVE rung: config #2's
+     block and the mask block through BlockValidator, filters equal to the
+     in-process CUDAProvider's and the expected codes, the server's K2
+     counter moving and this process's not; pipeline_config2's chain
+     through Channel/CommitPipeline over the sidecar (K5 in process),
+     filters and commit hashes equal to pipeline_config2's; 2, 31, 4,096 and
+     32,768 lanes 20 times each through the sidecar and in process, in
+     turns; four clients (high, normal, two bulk) pipelining 25 requests of
+     256-4,096 lanes each against a 16,384-lane budget (busy rejects by
+     class, K2 launches against requests, the server's latencies); a
+     3,000-lane request with 10 NO_KEY lanes and 5 under undecodable keys,
+     those False; a daemon (`python -m fabric_tpu_torch.serve`, exec'd)
+     answering its first PING (seconds from start, its build-cache loads),
+     SIGKILLed with 32,768 lanes in flight, the batch rescued on this
+     process's CUDAProvider (its K2 moving, the client alone degraded,
+     fabric_degrade_total{seam="serve.client"} 1); two sidecars behind a
+     SidecarRouter, one drained and restarted at its address under 40
+     requests, no rescue, both serving. Every mask against factory_config2's
+     hostec_np memo;
+ 25. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -2249,8 +2272,10 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
     card. Returns the launches of K2, the key-comb kernel and K5 on the
     pipelined config #2 chain, for the kernels line; a `keep` dict receives
     the network and the signed config #2 chain ("net", "raws") for
-    snapshot_phase, and each chain's K2 launches as recorded (their lanes and
-    verdicts, "k2_records") for factory_phase."""
+    snapshot_phase, each chain's K2 launches as recorded (their lanes and
+    verdicts, "k2_records") for factory_phase, and the pipelined chain's
+    filters, commit hashes and ms a block ("pipeline_config2") for
+    serve_phase."""
     import random
     import shutil
     import threading
@@ -2428,6 +2453,8 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
             raise AssertionError(f"pipeline_config2: reopen {reopen}")
         stage_s = {k: v["mean_ms"] * v["n"] / 1e3 for k, v in stats.items()}
         txs = n_blocks * n_txs
+        if keep is not None:
+            keep["pipeline_config2"] = {"committed": got, "ms_per_block": wall / n_blocks * 1e3}
         emit({"phase": "pipeline_config2", "blocks": n_blocks, "txs_per_block": n_txs,
               "depth": PIPELINE_DEPTH, "setup_seconds": setup_s,
               "pipelined": {"seconds": wall, "tx_per_s": txs / wall,
@@ -3568,7 +3595,7 @@ SMALL_BATCH_RUNS = 3
 
 
 def factory_phase(torch, np, dev, net, k2_records: dict, idemix_sets: dict,
-                  n_txs=CONFIG2_TXS, slot_device=None) -> dict:
+                  n_txs=CONFIG2_TXS, slot_device=None, keep=None) -> dict:
     """factory_config2: the peer's BCCSP built by the factory from the config
     block, as the JAX peer builds it (`FACTORY_CONFIG`): a CUDAProvider for
     the CUDA slot, a SoftwareProvider on the auto walk's tier (hostec_np)
@@ -3583,9 +3610,10 @@ def factory_phase(torch, np, dev, net, k2_records: dict, idemix_sets: dict,
     Config #3's signatures and the mixed batch (`idemix_sets`) through the
     device route (K4, K3) and the hostbn rung the factory pinned, masks
     equal. No host pool degraded, the pools shut down. Returns the
-    phase's launches of K2, the key combs, K3 and K4. `slot_device` places
-    the CUDA slot's provider (the card unless a CPU rehearsal passes
-    "cpu")."""
+    phase's launches of K2, the key combs, K3 and K4; a `keep` dict receives
+    the lane memo ("memo": (point, signature, digest) -> hostec_np's
+    verdict) for serve_phase. `slot_device` places the CUDA slot's provider
+    (the card unless a CPU rehearsal passes "cpu")."""
     from pathlib import Path
 
     from fabric_tpu_torch.common import der, fabobs, p256
@@ -3692,6 +3720,8 @@ def factory_phase(torch, np, dev, net, k2_records: dict, idemix_sets: dict,
                                "host_lanes_per_s": len(todo) / verify_s if verify_s else None}
             hold_s = time.perf_counter() - t0
             held_lanes = sum(h["lanes"] for h in held.values())
+            if keep is not None:
+                keep["memo"] = memo
 
             # --- a small direct batch and verify(): K2, no host route ----------
             rec = k2_records["pipeline_config2"][0]
@@ -3788,6 +3818,430 @@ def factory_phase(torch, np, dev, net, k2_records: dict, idemix_sets: dict,
           "hostbn_pool_workers": hostbn_workers, "degrade_total": degrade_counts,
           "launches": launches,
           "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+SERVE_MAX_PENDING = 16384  # the sidecar's lane budget: four clients' bursts exceed it
+SERVE_RT_LANES = (2, 31, 4096, 32768)  # round trips timed through the sidecar and in-process
+SERVE_RT_RUNS = 20
+SERVE_CLIENTS = (("high", 0), ("normal", 1), ("bulk", 2), ("bulk", 2))  # QoS class a client
+SERVE_REQUESTS = 25  # requests a client
+SERVE_REQUEST_LANES = (256, 4096)
+SERVE_NO_KEY = (3000, 10, 5)  # lanes, NO_KEY lanes, lanes under an undecodable key
+SERVE_KILL_LANES = 32768
+SERVE_RESTART_REQUESTS = 40
+SERVE_RESTART_LANES = (100, 700, 3000, 9000, 20000)  # a request's lanes behind the router
+SERVE_DAEMON_WAIT_S = 120.0
+
+
+def serve_phase(torch, np, dev, net, raws, memo: dict, pipeline_ref: dict,
+                n_txs=CONFIG2_TXS, rt_lanes=SERVE_RT_LANES, rt_runs=SERVE_RT_RUNS,
+                requests=SERVE_REQUESTS, request_lanes=SERVE_REQUEST_LANES,
+                no_key=SERVE_NO_KEY, kill_lanes=SERVE_KILL_LANES,
+                restart_requests=SERVE_RESTART_REQUESTS, restart_lanes=SERVE_RESTART_LANES,
+                daemon_warm="verify", slot_device=None) -> dict:
+    """serve_config2: config #2 verified through the serve sidecar
+    (`fabric_tpu_torch.serve`): an in-process SidecarServer on the card's
+    CUDAProvider (warmed on the `verify` ladder: K1 at every bucket) behind
+    the factory's SERVE rung. Config #2's block and the mask block through
+    BlockValidator, filters equal to the in-process CUDAProvider's; the
+    pipelined chain through Channel/CommitPipeline, filters and commit
+    hashes equal to pipeline_config2's; round trips against the in-process
+    provider; four clients of three QoS classes against a 16,384-lane
+    budget; NO_KEY and undecodable-key lanes; a daemon started with
+    `python -m fabric_tpu_torch.serve`, SIGKILLed mid-batch, the batch
+    rescued on this process's CUDAProvider; a rolling restart of one of two
+    sidecars behind a SidecarRouter. Every mask against `memo`, factory_
+    config2's hostec_np verdicts. Returns the launches of K1, K2 and the key
+    combs by the sidecars and by the rescue, and K5's, for the kernels line.
+    `slot_device` places the providers (the card unless a CPU rehearsal
+    passes "cpu")."""
+    import os
+    import random
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from fabric_tpu_torch.common import fabobs
+    from fabric_tpu_torch.common.retry import RetryPolicy
+    from fabric_tpu_torch.crypto import factory
+    from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.serve import protocol as proto
+    from fabric_tpu_torch.serve.client import (
+        SidecarClient,
+        SidecarProvider,
+        SidecarUnavailable,
+        encode_lanes,
+    )
+    from fabric_tpu_torch.serve.router import SidecarRouter
+    from fabric_tpu_torch.serve.server import SidecarServer
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    t_phase = time.perf_counter()
+    rng = random.Random(CONFIG2_SEED + 14)
+    keys_by_point = {}
+    lanes = []
+    for (point, sig, digest), ok in memo.items():
+        key = keys_by_point.setdefault(point, ECDSAPublicKey(*point))
+        lanes.append((key, sig, digest, ok))
+
+    def draw(n):
+        """n memo lanes (tiled past the memo) and their hostec_np verdicts."""
+        picked = [lanes[i % len(lanes)] for i in rng.sample(range(len(lanes)), min(n, len(lanes)))]
+        picked += [lanes[rng.randrange(len(lanes))] for _ in range(n - len(picked))]
+        return ([k for k, _, _, _ in picked], [s for _, s, _, _ in picked],
+                [d for _, _, d, _ in picked], [ok for _, _, _, ok in picked])
+
+    def device_provider():
+        return factory.provider_from_config({"Default": "CUDA"}, device=slot_device)
+
+    def launches_of(provider):
+        return dict(provider.launches)
+
+    def moved(after, before):
+        return {k: after[k] - before[k] for k in after}
+
+    def spread(ms):
+        q = statistics.quantiles(ms, n=4) if len(ms) > 1 else [ms[0]] * 3
+        return {"median": statistics.median(ms), "q1": q[0], "q3": q[2], "min": min(ms),
+                "max": max(ms)}
+
+    root = Path(tempfile.mkdtemp(prefix="fts"))  # AF_UNIX paths stay short
+    ledgers = Path(__file__).resolve().parent / "build" / "smoke_ledgers"
+    shutil.rmtree(ledgers, ignore_errors=True)
+    servers, clients, daemon = [], [], None
+    for table in (p256k.LAUNCHES, md.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    local = device_provider()  # this process's own provider: comparisons and the rescue
+    try:
+        with fabobs.obs_installed() as obs:
+            # --- 1. an in-process sidecar, warmed on the verify ladder -----------
+            t0 = time.perf_counter()
+            server = SidecarServer(str(root / "a.sock"), engine="device", device=slot_device,
+                                   warm_ladder="verify", max_pending_lanes=SERVE_MAX_PENDING)
+            servers.append(server)
+            warm = server.warm()
+            server.start()
+            start_s = time.perf_counter() - t0
+            unwarmed = server.registry.bucket_for(kill_lanes)
+            try:
+                server.registry.program_for(kill_lanes)
+                raise AssertionError(f"serve_config2: bucket {unwarmed} was never warmed, yet "
+                                     "the registry returned a program")
+            except KeyError:
+                pass
+            cfg = {"Default": "SERVE", "SERVE": {"Address": server.address}}
+            serve = factory.provider_from_config(cfg)
+            clients.append(serve)
+
+            # --- 2. config #2's block and the mask block over the SERVE rung -----
+            raw_block = wire.encode(fabric.BLOCK, net.block(n_txs, number=1))
+            mask_block, mask_codes = net.mask_block()
+            raw_mask = wire.encode(fabric.BLOCK, mask_block)
+            blocks = {}
+            for name, raw, crl, want in (("config2", raw_block, False, bytes(n_txs)),
+                                         ("mask", raw_mask, True, bytes(mask_codes))):
+                flags = {}
+                for label, prov in (("cuda", local), ("serve", serve)):
+                    ms = []
+                    before_local, before_server = launches_of(local), launches_of(server.provider)
+                    for _ in range(2):  # the first run warms the identities and combs
+                        v = net.validator(prov, with_crl=crl)
+                        b = wire.decode(fabric.BLOCK, raw)
+                        t1 = time.perf_counter()
+                        flags[label] = v.validate(b).tobytes()
+                        ms.append((time.perf_counter() - t1) * 1e3)
+                        if flags[label] != want or v.last_sig_backend != prov.describe_backend():
+                            raise AssertionError(f"serve_config2: {name} over {label}: "
+                                                 f"{list(flags[label])[:20]}")
+                    blocks.setdefault(name, {})[label] = {
+                        "ms": ms, "split_ms": dict(v.last_ms),
+                        "local_launches": moved(launches_of(local), before_local),
+                        "server_launches": moved(launches_of(server.provider), before_server)}
+                k2 = "p256_verify_bytes"
+                if (blocks[name]["serve"]["local_launches"][k2]
+                        or not blocks[name]["serve"]["server_launches"][k2]
+                        or blocks[name]["cuda"]["server_launches"][k2]):
+                    raise AssertionError(f"serve_config2: {name} launches {blocks[name]}")
+
+            # --- 3. the pipelined chain over the SERVE rung ----------------------
+            registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", net.policy)])
+            ch = Channel(CONFIG2_CHANNEL, str(ledgers / "serve"), net.managers[False], registry,
+                         serve, device_mvcc=True, device=dev)
+            committed = []
+            pipe = CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=lambda b, f: committed.append(
+                (f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH])))
+            k5_before = md.LAUNCHES["mvcc_resolve"]
+            t1 = time.perf_counter()
+            for raw in raws:
+                pipe.submit(wire.decode(fabric.BLOCK, raw))
+            drained = pipe.drain(timeout=300)
+            chain_s = time.perf_counter() - t1
+            dead, last_error = pipe.dead, pipe.last_error
+            pipe.stop()
+            ch.ledger.close()
+            k5 = md.LAUNCHES["mvcc_resolve"] - k5_before
+            if not drained or dead or last_error is not None or committed != pipeline_ref["committed"]:
+                raise AssertionError(f"serve_config2: the chain over the sidecar: drained {drained}, "
+                                     f"dead {dead}, {last_error!r}, filters and hashes equal "
+                                     f"{committed == pipeline_ref['committed']}")
+            chain = {"blocks": len(raws), "ms_per_block": chain_s / len(raws) * 1e3,
+                     "pipeline_config2_ms_per_block": pipeline_ref["ms_per_block"],
+                     "k5_launches": k5, "equal_to_pipeline_config2": True}
+
+            # --- 4. round trips: the sidecar against the in-process provider ------
+            rt = {}
+            for n in rt_lanes:
+                k, s, d, want = draw(n)
+                runs = {"serve": [], "cuda": []}
+                for _ in range(rt_runs):
+                    for label, prov in (("serve", serve), ("cuda", local)):
+                        t1 = time.perf_counter()
+                        got = prov.batch_verify(k, s, d)
+                        runs[label].append((time.perf_counter() - t1) * 1e3)
+                        if got != want:
+                            raise AssertionError(f"serve_config2: {n} lanes over {label}")
+                rt[str(n)] = {label: spread(v) for label, v in runs.items()}
+                rt[str(n)]["added_ms"] = rt[str(n)]["serve"]["median"] - rt[str(n)]["cuda"]["median"]
+
+            # --- 5. four clients, three classes, one lane budget -------------------
+            patient = RetryPolicy(base_s=0.005, multiplier=2.0, cap_s=0.1, deadline_s=120.0,
+                                  max_attempts=2000)
+            load = [SidecarProvider(server.address, qos_class=cls, channel=f"{name}{i}",
+                                    busy_policy=patient, fallback=local)
+                    for i, (name, cls) in enumerate(SERVE_CLIENTS)]
+            clients.extend(load)
+            work = [[draw(rng.randint(*request_lanes)) for _ in range(requests)] for _ in load]
+            before_server, served_before = launches_of(server.provider), server.stats.summary()
+            errors = []
+
+            def drive(client, batches):
+                try:
+                    resolvers = [client.batch_verify_async(k, s, d) for k, s, d, _ in batches]
+                    for r, (_, _, _, want) in zip(resolvers, batches):
+                        if r() != want:
+                            errors.append(f"a {client.channel} mask differs from the memo")
+                except Exception as exc:  # noqa: BLE001 - re-raised below
+                    errors.append(repr(exc))
+
+            threads = [threading.Thread(target=drive, args=(c, w), name=f"load-{c.channel}")
+                       for c, w in zip(load, work)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            load_s = time.perf_counter() - t1
+            if errors or any(t.is_alive() for t in threads) or any(c.degraded for c in load):
+                raise AssertionError(f"serve_config2: the four clients: {errors[:3]}, degraded "
+                                     f"{[c.degraded for c in load]}")
+            summary = server.stats.summary()
+            n_requests = len(load) * requests
+            coalescing = {
+                "requests": n_requests,
+                "lanes": sum(len(b[0]) for w in work for b in w),
+                "k2_launches": moved(launches_of(server.provider), before_server)["p256_verify_bytes"],
+                "batcher_launches": server.batcher.launches,
+                "requests_per_s": n_requests / load_s, "seconds": load_s,
+                "client_busy_rejects": {c.channel: c.busy_rejects for c in load},
+                "busy_by_class": {cls: v["busy"] for cls, v in summary["per_class"].items()},
+                "served_by_class": {cls: v["served"] - served_before["per_class"].get(
+                    cls, {}).get("served", 0) for cls, v in summary["per_class"].items()},
+                "latency": summary["request_latency"],
+                "latency_by_class": {cls: v["latency"] for cls, v in summary["per_class"].items()},
+                "qos_balance": server.qos.balance()}
+            if coalescing["qos_balance"]["leaked"]:
+                raise AssertionError(f"serve_config2: QoS lanes leaked {coalescing['qos_balance']}")
+
+            # --- 6. lanes with no usable key --------------------------------------
+            n_lanes, n_none, n_bad = no_key
+            k, s, d, want = draw(n_lanes)
+            payload = encode_lanes(k, s, d, deadline_ms=0)
+            table, wire_lanes, _, _, _ = proto.decode_verify_request(payload, proto.PROTOCOL_VERSION)
+            table += [b"\x04" + b"\x01" * 64, b"\x02" + b"\x07" * 32]  # off the curve, compressed
+            for j, i in enumerate(rng.sample(range(n_lanes), n_none + n_bad)):
+                _, sig, digest = wire_lanes[i]
+                wire_lanes[i] = (proto.NO_KEY if j < n_none else len(table) - 1 - j % 2, sig, digest)
+                want[i] = False
+            raw_client = SidecarClient(server.address)
+            try:
+                status, _, got, message = proto.decode_verify_response(raw_client.request(
+                    proto.OP_VERIFY, proto.encode_verify_request(
+                        table, wire_lanes, qos_class=proto.DEFAULT_QOS, channel="", deadline_ms=0),
+                    timeout_s=120.0))
+            finally:
+                raw_client.close()
+            if status != proto.ST_OK or got != want:
+                raise AssertionError(f"serve_config2: the NO_KEY request: {status} {message}")
+
+            # --- 7. a daemon killed mid-batch, the batch rescued here -------------
+            repo = Path(__file__).resolve().parent
+            daemon_sock = str(root / "daemon.sock")
+            cmd = [sys.executable, "-m", "fabric_tpu_torch.serve", "--address", daemon_sock,
+                   "--engine", "device", "--warm", daemon_warm]
+            if slot_device is not None:
+                cmd += ["--device", str(slot_device)]
+            env = dict(os.environ, PYTHONPATH=str(repo) + os.pathsep + os.environ.get(
+                "PYTHONPATH", ""))
+            log_path = root / "daemon.log"
+            ready_lines = []
+            with open(log_path, "w") as log:
+                t1 = time.perf_counter()
+                daemon = subprocess.Popen(cmd, cwd=str(repo), env=env, stdout=subprocess.PIPE,
+                                          stderr=log, text=True)
+
+                def read_ready():
+                    for line in daemon.stdout:
+                        if line.startswith("SERVE_READY "):
+                            ready_lines.append(line)
+                            return
+
+                reader = threading.Thread(target=read_ready, daemon=True)
+                reader.start()
+                first_ping_s = None
+                while time.perf_counter() - t1 < SERVE_DAEMON_WAIT_S and daemon.poll() is None:
+                    pinger = SidecarClient(daemon_sock, connect_timeout_s=2.0)  # a fresh dial
+                    try:
+                        if pinger.ping(timeout_s=2.0):
+                            first_ping_s = time.perf_counter() - t1
+                            break
+                    except SidecarUnavailable:  # not listening yet
+                        time.sleep(0.1)
+                    finally:
+                        pinger.close()
+                reader.join(timeout=10)
+            if first_ping_s is None or not ready_lines:
+                raise AssertionError(f"serve_config2: the daemon did not answer a PING in "
+                                     f"{SERVE_DAEMON_WAIT_S} s: {log_path.read_text()[-2000:]}")
+            daemon_warm_report = json.loads(ready_lines[0].split(" ", 1)[1])["warm"]
+            victim = SidecarProvider(daemon_sock, fallback=local)
+            clients.append(victim)
+            k, s, d, want = draw(kill_lanes)
+            before_local = launches_of(local)
+            degrade_before = obs.value("fabric_degrade_total", seam="serve.client")
+            resolver = victim.batch_verify_async(k, s, d)
+            daemon.send_signal(signal.SIGKILL)
+            daemon.wait(timeout=60)
+            got = resolver()
+            rescue = moved(launches_of(local), before_local)
+            degrade = obs.value("fabric_degrade_total", seam="serve.client") - degrade_before
+            if (got != want or not victim.degraded or victim.rescues != 1 or degrade != 1
+                    or not rescue["p256_verify_bytes"]):
+                raise AssertionError(f"serve_config2: the kill's rescue: mask {got == want}, "
+                                     f"degraded {victim.degraded}, rescues {victim.rescues}, "
+                                     f"degrade_total {degrade}, launches {rescue}")
+            kill = {"lanes": kill_lanes, "seconds_to_first_ping": first_ping_s,
+                    "daemon_warm": daemon_warm_report, "daemon_exit": daemon.returncode,
+                    "rescue_launches": rescue, "degrade_total": degrade}
+
+            # --- 8. a rolling restart behind the router ---------------------------
+            fleet = [SidecarServer(str(root / f"r{i}.sock"), engine="device", device=slot_device,
+                                   max_pending_lanes=SERVE_MAX_PENDING) for i in range(2)]
+            for srv in fleet:
+                srv.warm()
+                srv.start()
+            servers.extend(fleet)
+            router = SidecarRouter([srv.address for srv in fleet], fallback=local)
+            clients.append(router)
+            work = [draw(rng.choice(restart_lanes)) for _ in range(restart_requests)]
+            # the restarted sidecar is the one the first request prefers, so
+            # it serves before its drain; the other serves while it is down
+            old = next(srv for srv in fleet
+                       if srv.address == router._order(len(work[0][0]))[0].address)
+            other = next(srv for srv in fleet if srv is not old)
+            done, errors = [], []
+
+            def run_fleet():
+                try:
+                    for i, (k, s, d, want) in enumerate(work):
+                        if router.batch_verify(k, s, d) != want:
+                            errors.append(f"request {i}'s mask differs from the memo")
+                        done.append(i)
+                except Exception as exc:  # noqa: BLE001 - re-raised below
+                    errors.append(repr(exc))
+
+            def wait_done(n):
+                deadline = time.perf_counter() + 300
+                while len(done) < n and worker.is_alive() and time.perf_counter() < deadline:
+                    time.sleep(0.005)
+
+            before_local = launches_of(local)
+            worker = threading.Thread(target=run_fleet, name="fleet")
+            worker.start()
+            wait_done(restart_requests // 4)
+            drained = old.drain()
+            old.stop()
+            wait_done(len(done) + 1)  # a request served while the address is dark
+            new = SidecarServer(old.address, engine="device", device=slot_device,
+                                max_pending_lanes=SERVE_MAX_PENDING)
+            new.warm()
+            new.start()
+            servers.append(new)
+            worker.join(timeout=300)
+            served = {"drained": old.stats.summary()["requests"],
+                      "restarted": new.stats.summary()["requests"],
+                      "other": other.stats.summary()["requests"]}
+            if (errors or worker.is_alive() or len(done) != restart_requests or router.degraded
+                    or router.rescues or moved(launches_of(local), before_local)["p256_verify_bytes"]
+                    or not served["other"] or not served["drained"]):
+                raise AssertionError(f"serve_config2: the rolling restart: {errors[:3]}, done "
+                                     f"{len(done)}, rescues {router.rescues}, served {served}")
+            restart = {"requests": restart_requests, "drained_in_time": drained,
+                       "served": served, "hedges": router.hedges, "hedge_wins": router.hedge_wins,
+                       "slow_evictions": router.slow_evictions,
+                       "busy_rejects": router.busy_rejects,
+                       "endpoints": router.describe()["endpoints"]}
+            degraded = [type(c).__name__ for c in clients if c is not victim and c.degraded]
+            if degraded:
+                raise AssertionError(f"serve_config2: degraded clients {degraded}")
+            server_launches = {}
+            for srv in servers:
+                for name, n in launches_of(srv.provider).items():
+                    server_launches[name] = server_launches.get(name, 0) + n
+            totals = dict(p256k.LAUNCHES)
+    finally:
+        for c in clients:
+            c.stop()
+        for srv in servers:
+            srv.stop()
+        if daemon is not None:
+            if daemon.poll() is None:
+                daemon.kill()
+                daemon.wait(timeout=60)
+            daemon.stdout.close()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ledgers, ignore_errors=True)
+    # the sidecars' K1 are the registry's warm launches: K1 is called
+    # directly there, never through a provider
+    server_launches["p256_verify_limbs"] = (totals["p256_verify_limbs"]
+                                            - launches_of(local)["p256_verify_limbs"])
+    launches = {"server": server_launches, "rescue": kill["rescue_launches"],
+                "in_process": launches_of(local), "mvcc_resolve": k5}
+    # the sidecars' K1 is the warm ladder alone: requests share their keys'
+    # objects, so a coalesced launch keeps the bytes route
+    if (not server_launches["p256_verify_bytes"] or not server_launches["p256_key_tables"]
+            or server_launches["p256_verify_limbs"] != len(warm.get("per_bucket", {}))
+            or totals["p256_verify_bytes"] != server_launches["p256_verify_bytes"]
+            + launches["in_process"]["p256_verify_bytes"] or not k5):
+        raise AssertionError(f"serve_config2 launches: {launches}, totals {totals}")
+    emit({"phase": "serve_config2", "warm": warm, "start_seconds": start_s,
+          "unwarmed_bucket": unwarmed, "blocks": blocks,
+          "filters_equal": {"config2": "all VALID over both", "mask": mask_codes},
+          "chain": chain, "round_trip_ms": rt, "coalescing": coalescing,
+          "no_key": {"lanes": n_lanes, "no_key": n_none, "undecodable": n_bad,
+                     "mask_equal": True},
+          "kill": kill, "rolling_restart": restart, "launches": launches,
+          "launch_totals": totals, "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -4413,7 +4867,10 @@ def main() -> int:
     config_launches = config_phase(torch, np, dev, chain["net"], chain["raws"])
     # --- The BCCSP factory and the host ladder ------------------------------
     factory_launches = factory_phase(torch, np, dev, chain["net"], chain["k2_records"],
-                                     chain["idemix_sets"])
+                                     chain["idemix_sets"], keep=chain)
+    # --- The serve sidecar: config #2 verified through sidecars -------------
+    serve_launches = serve_phase(torch, np, dev, chain["net"], chain["raws"], chain["memo"],
+                                 chain["pipeline_config2"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["pipeline_config2"] = {"launches": pipeline_launches[name]}
@@ -4422,6 +4879,12 @@ def main() -> int:
     for name in ("p256_verify_bytes", "p256_key_tables", "bn256_msm", "ate2_unity"):
         row = next(k for k in kernels if k["name"] == name)
         row["factory_config2"] = {"launches": factory_launches[name]}
+    for name in ("p256_verify_bytes", "p256_key_tables", "p256_verify_limbs"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["serve_config2"] = {"launches": {who: serve_launches[who][name]
+                                             for who in ("server", "rescue", "in_process")}}
+    next(k for k in kernels if k["name"] == "mvcc_resolve")["serve_config2"] = {
+        "launches": serve_launches["mvcc_resolve"]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

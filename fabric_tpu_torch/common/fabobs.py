@@ -10,8 +10,8 @@ metric families of `CANONICAL_METRICS` (counters, gauges and histograms of
 `ObsRegistry.value`) and records spans and events into a bounded flight
 ring, read through `ObsRegistry.trace_events`.
 
-Left out: the metric families of the paths the port does not have (the
-serve plane, gossip), the operations
+Left out: the metric families of the paths the port does not have
+(gossip, the operations server), the operations
 server's text exposition (`render`) and metric snapshot, the flight
 ring's Chrome-trace dump to disk (so `obs_trigger` records its event and
 writes no file), installation from the environment (``FABRIC_TPU_OBS``),
@@ -90,6 +90,11 @@ CANONICAL_METRICS: Tuple[MetricSpec, ...] = (
         "parallel/batcher.py _run",
     ),
     MetricSpec(
+        "fabric_batcher_busy_rejects_total", "counter", (),
+        "try_submit admissions rejected (ST_BUSY backpressure)",
+        "parallel/batcher.py _admit",
+    ),
+    MetricSpec(
         "fabric_batcher_dispatch_retries_total", "counter", (),
         "transient launch failures retried by the dispatch policy",
         "parallel/batcher.py _launch",
@@ -114,8 +119,10 @@ CANONICAL_METRICS: Tuple[MetricSpec, ...] = (
     ),
     MetricSpec(
         "fabric_degrade_total", "counter", ("seam",),
-        "degrade transitions (pool->inline)",
-        "crypto/hostec*.py, idemix/batch.py",
+        "degrade transitions (pool->inline; a serve client or router "
+        "to its rescue provider)",
+        "crypto/hostec*.py, idemix/batch.py, serve/client.py, "
+        "serve/router.py",
     ),
     MetricSpec(
         "fabric_pool_rebuilds_total", "counter", ("pool",),
@@ -126,6 +133,86 @@ CANONICAL_METRICS: Tuple[MetricSpec, ...] = (
         "fabric_pool_cooldowns_total", "counter", ("pool",),
         "broken-pool teardowns arming the rebuild cooldown",
         "crypto/hostec.py, crypto/hostec_np.py, idemix/batch.py",
+    ),
+    # -- the serve sidecar (serve/server.py, client.py, router.py) -------
+    MetricSpec(
+        "fabric_serve_requests_total", "counter", ("status",),
+        "verify requests by reply status (ok|busy|error|stopping|"
+        "deadline_shed)",
+        "serve/server.py ServeStats",
+    ),
+    MetricSpec(
+        "fabric_serve_lanes_total", "counter", (),
+        "lanes served OK by the sidecar",
+        "serve/server.py ServeStats",
+    ),
+    MetricSpec(
+        "fabric_serve_request_seconds", "histogram", (),
+        "decode -> reply latency of served verify requests",
+        "serve/server.py ServeStats", LATENCY_BUCKETS,
+    ),
+    MetricSpec(
+        "fabric_serve_bucket_requests_total", "counter", ("bucket",),
+        "served requests per registry lane bucket",
+        "serve/server.py ServeStats",
+    ),
+    MetricSpec(
+        "fabric_serve_connections_total", "counter", ("event",),
+        "client connection churn (open|close)",
+        "serve/server.py _accept_loop/_serve_conn",
+    ),
+    MetricSpec(
+        "fabric_serve_class_lanes_total", "counter", ("cls",),
+        "lanes served OK per admission class (high|normal|bulk)",
+        "serve/server.py ServeStats",
+    ),
+    MetricSpec(
+        "fabric_serve_class_busy_total", "counter", ("cls",),
+        "ST_BUSY sheds per admission class — every rejection is a "
+        "protocol-level reply, never a silent drop",
+        "serve/server.py ServeStats",
+    ),
+    MetricSpec(
+        "fabric_serve_endpoint_healthy", "gauge", ("endpoint",),
+        "router endpoint health (1 = in rotation, 0 = evicted/cooling)",
+        "serve/router.py _Endpoint",
+    ),
+    MetricSpec(
+        "fabric_serve_hedges_total", "counter", (),
+        "hedged requests fired at a second endpoint after the primary "
+        "stayed silent past its learned hedge delay",
+        "serve/router.py _await_hedged",
+    ),
+    MetricSpec(
+        "fabric_serve_hedge_wins_total", "counter", (),
+        "hedges whose verdict arrived before the primary's (the loser "
+        "is cancelled best-effort via OP_CANCEL)",
+        "serve/router.py _await_hedged",
+    ),
+    MetricSpec(
+        "fabric_serve_deadline_expired_total", "counter", ("seam",),
+        "wire-deadline budgets that ran out (serve.server = provably-"
+        "unfinishable work shed ST_BUSY; serve.client / serve.router = "
+        "batches handed to the rescue provider)",
+        "serve/server.py ServeStats, serve/client.py, serve/router.py",
+    ),
+    MetricSpec(
+        "fabric_serve_slow_evictions_total", "counter", ("endpoint",),
+        "gray-failure evictions: endpoints alive but latency outliers "
+        "(EWMA far above the fleet best, or consecutive lost hedges) "
+        "pulled from rotation through the cooldown ladder",
+        "serve/router.py _evict_slow",
+    ),
+    MetricSpec(
+        "fabric_serve_bucket_warm_ms", "gauge", ("bucket",),
+        "per-bucket warm wall ms (registry warm report)",
+        "serve/server.py warm",
+    ),
+    MetricSpec(
+        "fabric_serve_bucket_builds", "gauge", ("bucket",),
+        "nvcc builds the bucket warm paid (0 = the build cache held the "
+        "kernel library)",
+        "serve/server.py warm",
     ),
     MetricSpec(
         "fabric_pipeline_stage_seconds", "histogram", ("stage",),

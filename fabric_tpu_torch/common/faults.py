@@ -22,6 +22,11 @@ site                               seam
 ``hostbn.pool.submit``             hostbn idemix shard submission
 ``hostbn.pool.resolve``            hostbn idemix shard result join
 ``idemix.verdict``                 idemix/batch verdict mask (corrupt action)
+``serve.dispatch``                 SidecarServer, one verify request before
+                                   admission (keyed by the server's
+                                   ``chaos_key`` when it has one)
+``serve.route``                    SidecarRouter, one dispatch attempt at one
+                                   endpoint (keyed (address, attempt))
 ``blockstore.append.pre_fsync``    BlockStore.add_block, frame written but not
                                    yet fsynced (kill window)
 ``blockstore.append.post_fsync``   BlockStore.add_block, frame fsynced,

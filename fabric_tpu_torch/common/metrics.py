@@ -3,7 +3,8 @@
 The part of the JAX package's `common/metrics` that the port's commit path
 uses: the histogram state that `peer/pipeline.CommitPipeline` keeps per
 stage (`new_histogram_state`, `observe_into`,
-`summary_from_histogram_state`), the counter, gauge and histogram
+`summary_from_histogram_state`), `latency_summary` over raw samples (the
+serve sidecar's `ServeStats`), the counter, gauge and histogram
 instruments with their options, and `PrometheusProvider`, the in-process
 registry behind `common/fabobs` and `ledger/ledgermetrics.CommitterMetrics`.
 Its series are read in process (`fabobs.snapshot`); the text exposition,
@@ -22,6 +23,26 @@ from typing import Dict, List, Sequence, Tuple
 DEFAULT_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
+
+
+def latency_summary(samples_s: Sequence[float]) -> Dict[str, float]:
+    """``{n, p50_ms, p99_ms, max_ms}`` over seconds-valued latency
+    samples (``{"n": 0}`` when empty) — the one quantile-index
+    definition shared by the serve sidecar's ServeStats and the serve
+    clients' summaries, so the surfaces can never silently diverge."""
+    if not samples_s:
+        return {"n": 0}
+    s = sorted(samples_s)
+
+    def pct(q: float) -> float:
+        return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+    return {
+        "n": len(s),
+        "p50_ms": round(pct(0.50) * 1e3, 3),
+        "p99_ms": round(pct(0.99) * 1e3, 3),
+        "max_ms": round(s[-1] * 1e3, 3),
+    }
 
 
 def summary_from_histogram_state(

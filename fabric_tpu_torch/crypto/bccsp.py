@@ -24,7 +24,8 @@ same names:
   the ``bccsp.dispatch`` fault point and the ``bccsp.verdict`` corrupt
   seam; `PurePythonProvider`, the oracle behind the same SPI.
 - `CUDAProvider` (`crypto/cuda_provider`): the same decision function,
-  the curve math in the hand-written kernels.
+  the curve math in the hand-written kernels; `probe_provider` builds it
+  for the serve sidecar and its clients' rescue.
 """
 
 from __future__ import annotations
@@ -462,3 +463,18 @@ def default_provider() -> Provider:
 
             _default = provider_from_config(None)
         return _default
+
+
+def probe_provider(device=None) -> Provider:
+    """The device provider, independent of any sidecar routing: a
+    `CUDAProvider` on the card (or on ``device``; ``"cpu"`` for the
+    kernels' plain versions).  The serve sidecar's ``auto`` and
+    ``device`` engines and its clients' rescue are built here.
+
+    Departure from the JAX probe (`fabric_tpu/crypto/bccsp.py:551-573`),
+    which lands on `SoftwareProvider` when no device answers: with no
+    card this raises `FactoryError`, so no serve path lands on the CPU
+    because the card is missing."""
+    from fabric_tpu_torch.crypto.factory import _accelerator
+
+    return _accelerator(device)

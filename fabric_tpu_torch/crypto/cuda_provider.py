@@ -8,11 +8,18 @@ bucket with the limb route past it). The curve math runs in the
 hand-written kernels of `ops/p256_kernel`; on the card the provider also
 keeps each key's comb (the fixed-base table K2 reads, built by
 `p256_key_tables`) by SKI, so a key's table is built once.
+
+Each provider counts the kernels it launches on the card (`launches`,
+beside the process-wide `p256_kernel.LAUNCHES`), so with two providers in
+one process (two sidecars, or a sidecar and a client's rescue) each one's
+launches are told apart. Its caches and counts take a lock: a sidecar's
+dispatcher thread and a rescue may use one provider at once.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -95,6 +102,14 @@ class CUDAProvider(Provider):
             raise ValueError(f"CUDAProvider: unsupported device {self.device}")
         self._key_limb_cache: Dict[bytes, Tuple[np.ndarray, np.ndarray, bool]] = {}
         self._key_table_cache: Dict[bytes, torch.Tensor] = {}
+        self._lock = threading.Lock()
+        # the kernels this provider launched on the card, by wrapper name
+        self.launches: Dict[str, int] = dict.fromkeys(pk.LAUNCHES, 0)
+
+    def _count(self, name: str) -> None:
+        if self.device.type == "cuda":
+            with self._lock:
+                self.launches[name] += 1
 
     def describe_backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "cpu-reference"
@@ -106,28 +121,29 @@ class CUDAProvider(Provider):
         The on-curve gate matters: the complete formulas are only defined
         for curve points, so off-curve keys fail in the host mask."""
         skis = [key.ski() for key in distinct]
-        missing = [i for i, ski in enumerate(skis) if ski not in self._key_limb_cache]
-        if missing:
-            xb = np.frombuffer(
-                b"".join(distinct[i].x.to_bytes(32, "big") for i in missing),
-                dtype=np.uint8,
-            ).reshape(len(missing), 32)
-            yb = np.frombuffer(
-                b"".join(distinct[i].y.to_bytes(32, "big") for i in missing),
-                dtype=np.uint8,
-            ).reshape(len(missing), 32)
-            xl = be_bytes_to_limbs(xb)
-            yl = be_bytes_to_limbs(yb)
-            if len(self._key_limb_cache) > 65536:
-                self._key_limb_cache.clear()
-            for j, i in enumerate(missing):
-                key = distinct[i]
-                self._key_limb_cache[skis[i]] = (
-                    np.ascontiguousarray(xl[:, j]),
-                    np.ascontiguousarray(yl[:, j]),
-                    p256.is_on_curve((key.x, key.y)),
-                )
-        return [self._key_limb_cache[ski] for ski in skis]
+        with self._lock:
+            missing = [i for i, ski in enumerate(skis) if ski not in self._key_limb_cache]
+            if missing:
+                xb = np.frombuffer(
+                    b"".join(distinct[i].x.to_bytes(32, "big") for i in missing),
+                    dtype=np.uint8,
+                ).reshape(len(missing), 32)
+                yb = np.frombuffer(
+                    b"".join(distinct[i].y.to_bytes(32, "big") for i in missing),
+                    dtype=np.uint8,
+                ).reshape(len(missing), 32)
+                xl = be_bytes_to_limbs(xb)
+                yl = be_bytes_to_limbs(yb)
+                if len(self._key_limb_cache) > 65536:
+                    self._key_limb_cache.clear()
+                for j, i in enumerate(missing):
+                    key = distinct[i]
+                    self._key_limb_cache[skis[i]] = (
+                        np.ascontiguousarray(xl[:, j]),
+                        np.ascontiguousarray(yl[:, j]),
+                        p256.is_on_curve((key.x, key.y)),
+                    )
+            return [self._key_limb_cache[ski] for ski in skis]
 
     def _dedup_key_columns(self, keys: Sequence[ECDSAPublicKey]):
         """One limb conversion and curve check per distinct key object,
@@ -226,14 +242,18 @@ class CUDAProvider(Provider):
         16, 3, 8) on the card: the keys not yet cached are built by one
         `p256_key_tables` launch and kept by SKI; the padding columns repeat
         the first key's (no live lane reads them)."""
-        have = {ski: self._key_table_cache[ski] for ski in skis if ski in self._key_table_cache}
-        missing = [i for i, ski in enumerate(skis) if ski not in have]
-        if missing:
-            built = pk.key_tables(self._tensor(kx[:, missing]), self._tensor(ky[:, missing]))
-            if len(self._key_table_cache) + len(missing) > self.KEY_TABLE_CACHE:
-                self._key_table_cache.clear()
-            for j, i in enumerate(missing):
-                have[skis[i]] = self._key_table_cache[skis[i]] = built[j]
+        with self._lock:
+            have = {ski: self._key_table_cache[ski] for ski in skis
+                    if ski in self._key_table_cache}
+            missing = [i for i, ski in enumerate(skis) if ski not in have]
+            if missing:
+                built = pk.key_tables(self._tensor(kx[:, missing]),
+                                      self._tensor(ky[:, missing]))
+                self.launches["p256_key_tables"] += 1  # device_inputs: the card only
+                if len(self._key_table_cache) + len(missing) > self.KEY_TABLE_CACHE:
+                    self._key_table_cache.clear()
+                for j, i in enumerate(missing):
+                    have[skis[i]] = self._key_table_cache[skis[i]] = built[j]
         cols = [have[ski] for ski in skis]
         return torch.stack(cols + cols[:1] * (kx.shape[1] - len(cols)))
 
@@ -263,7 +283,9 @@ class CUDAProvider(Provider):
 
     def _launch(self, prep, limbs, size: int) -> torch.Tensor:
         fn, args = self.device_inputs(prep, limbs, size)
-        return fn(*args)
+        out = fn(*args)
+        self._count("p256_verify_bytes" if prep is not None else "p256_verify_limbs")
+        return out
 
     def _resolver(self, out: torch.Tensor, n: int):
         """Copy the mask to pinned host memory behind the launch and return

@@ -6,7 +6,7 @@ The port's counterpart of the JAX package's `crypto/factory.py`; it reads
 the same config shape (the core.yaml BCCSP block, as a dict):
 
   BCCSP:
-    Default: CUDA         # CUDA | SW | PKCS11 | a registered rung
+    Default: CUDA         # CUDA | SW | PKCS11 | SERVE | a registered rung
                           #  TPU, the JAX package's name and default, is
                           #  read as the same accelerator slot, so a
                           #  core.yaml written for the JAX package builds
@@ -24,6 +24,14 @@ the same config shape (the core.yaml BCCSP block, as a dict):
       Library: /usr/lib/softhsm/libsofthsm2.so
       Pin: "98765432"
       Slot: 0             # optional; first token slot when omitted
+    SERVE:                # the serve sidecar rung (serve/client.py)
+      Address: /path/to/serve.sock    # or host:port; or instead
+      Endpoints: [a.sock, b.sock]     #  a fleet behind SidecarRouter
+      QoS: high           # a class, or a map "paychan=high;*=normal"
+      Channel: ""
+      DeadlineMs: 0       # per-batch wire budget, 0 = none
+      HedgeFraction: 0.05 # the router's hedge budget
+      HedgeMinMs: 20
 
 PKCS11 errors HARD on a missing library (an operator who configured an
 HSM must not silently run on software keys), like Fabric's
@@ -66,11 +74,10 @@ class TokenUnavailable(FactoryError, PKCS11Error):
 # -- pluggable provider rungs (dependency inversion) ------------------------
 # Higher-layer packages register their provider builders here instead of
 # being imported upward.  _LAZY_PROVIDER_MODULES maps a config Default to
-# the module whose import performs that registration; it stays empty
-# until the port has a serve sidecar.
+# the module whose import performs that registration.
 
 _PROVIDER_FACTORIES: Dict[str, Callable[[dict], Provider]] = {}
-_LAZY_PROVIDER_MODULES: Dict[str, str] = {}
+_LAZY_PROVIDER_MODULES: Dict[str, str] = {"SERVE": "fabric_tpu_torch.serve.client"}
 
 # the accelerator slot's names: the port's, then the JAX package's
 ACCELERATOR_SLOTS = ("CUDA", "TPU")

@@ -37,6 +37,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
+# what the first load of each library in this process found: "builds"
+# ran nvcc, "cache_hits" found the content-addressed library already
+# built (a warm start). The serve registry reports both per bucket.
+LOAD_EVENTS: Dict[str, int] = {"builds": 0, "cache_hits": 0}
 
 
 def find_nvcc() -> str:
@@ -81,7 +85,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         entry = _loaded.get(name)
         if entry is None:
+            built = _library_path(name)[1].exists()
             lib = build(name)
+            LOAD_EVENTS["cache_hits" if built else "builds"] += 1
             entry = (ctypes.CDLL(str(lib)), str(lib))
             _loaded[name] = entry
         return entry[0]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -53,6 +54,9 @@ fe_sub = FIELD.sub
 # launch (never for the plain versions).
 LAUNCHES: Dict[str, int] = {"p256_verify_bytes": 0, "p256_verify_limbs": 0,
                             "p256_key_tables": 0}
+# several dispatcher threads launch in one process (two sidecars, a rescue
+# beside a server): the counts' read-modify-write takes this lock
+_LAUNCHES_LOCK = threading.Lock()
 
 # ---------------------------------------------------------------------------
 # Work counts (Montgomery multiplies mod p and mod n), from which the
@@ -580,7 +584,8 @@ def _lib() -> ctypes.CDLL:
 def _launch_check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def key_tables(kx: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:

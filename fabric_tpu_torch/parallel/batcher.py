@@ -1,14 +1,16 @@
 """Cross-channel verify coalescing with bounded-queue backpressure.
 
-The port's counterpart of the JAX package's `parallel/batcher`, less the
-serve plane's front-door API (`try_submit` with its `on_dispatch` hook and
-`deadline_s` linger cap, and the `pending_lanes` fill signal), which waits
-for a front door in the port. The card wants few, large launches; a peer
-produces many small, bursty verify requests (one per block, per channel).
-This batcher sits between them:
+The port's counterpart of the JAX package's `parallel/batcher`. The card
+wants few, large launches; a peer produces many small, bursty verify
+requests (one per block, per channel). This batcher sits between them:
 
 - requests enqueue onto ONE bounded queue (backpressure: submitters block
   when the device is behind; admission is all-or-nothing per request);
+- the serve sidecar's front door, `try_submit`, admits NOW or refuses
+  (the sidecar turns a refusal into ST_BUSY), fires the request's
+  `on_dispatch` hook when its lane permits are released, and caps the
+  coalescing linger by the request's `deadline_s`; `pending_lanes` is
+  the fill signal its retry-after hint scales with;
 - a dispatcher thread drains the queue into batches: it takes whatever is
   queued, lingers a few ms for stragglers while the batch is small, then
   launches ONE provider batch (K2 through `CUDAProvider`) for all of it via
@@ -44,16 +46,20 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from fabric_tpu_torch.common import fabobs
 from fabric_tpu_torch.common.faults import fault_point
+from fabric_tpu_torch.common.flogging import must_get_logger
 from fabric_tpu_torch.common.retry import DISPATCH_POLICY, RetryPolicy, call_with_retry
+
+logger = must_get_logger("batcher")
 
 
 class _Request:
     __slots__ = (
         "keys", "sigs", "digests", "event", "result", "error", "permits",
-        "t_submit",
+        "t_submit", "on_dispatch", "deadline_s",
     )
 
-    def __init__(self, keys, sigs, digests):
+    def __init__(self, keys, sigs, digests, on_dispatch=None,
+                 deadline_s=None):
         self.keys = keys
         self.sigs = sigs
         self.digests = digests
@@ -62,6 +68,15 @@ class _Request:
         self.error: Optional[BaseException] = None
         self.permits = 0
         self.t_submit = time.perf_counter()
+        # fired exactly when this request's lane permits are released
+        # (dispatcher pickup) — the serve sidecar's per-class QoS
+        # ledger mirrors the batcher's admission window through it
+        self.on_dispatch = on_dispatch
+        # wire-deadline discipline (serve protocol rev 3): the absolute
+        # time.monotonic() moment this request's budget expires, or
+        # None.  The dispatcher caps its coalescing linger by the
+        # TIGHTEST deadline in the batch.
+        self.deadline_s = deadline_s
 
     def resolve(self) -> List[bool]:
         self.event.wait()  # bounded by the batcher lifetime: stop() settles every admitted request fail-closed (event.set), so this wait can never outlive the batcher
@@ -168,6 +183,14 @@ class VerifyBatcher:
             )
             self._last_mode = self.mode
 
+    @property
+    def pending_lanes(self) -> int:
+        """Lanes currently admitted but not yet dispatched — the
+        admission-control fill signal the serve sidecar scales its
+        retry_after hint by."""
+        with self._lanes_cv:
+            return self._max_pending_lanes - self._lanes_free
+
     def submit(
         self,
         keys: Sequence,
@@ -176,6 +199,41 @@ class VerifyBatcher:
     ) -> Callable[[], List[bool]]:
         """Admit the request's lanes, blocking while the lane budget is
         spent, and return its resolver."""
+        resolver = self._admit(keys, signatures, digests, block=True)
+        assert resolver is not None  # blocking admission never rejects
+        return resolver
+
+    def try_submit(
+        self,
+        keys: Sequence,
+        signatures: Sequence[bytes],
+        digests: Sequence[bytes],
+        on_dispatch: Optional[Callable[[], None]] = None,
+        deadline_s: Optional[float] = None,
+    ) -> Optional[Callable[[], List[bool]]]:
+        """Non-blocking admission (the serve sidecar's front door): the
+        resolver when the lane budget admits the request NOW, else None
+        — the caller turns that into an explicit reject-with-retry-after
+        instead of stalling a socket thread on the condition variable.
+        ``on_dispatch`` fires when the dispatcher picks the request up
+        (the moment its lane permits are released) — callers keeping a
+        parallel admission ledger release theirs in the same window.
+        ``deadline_s`` (absolute ``time.monotonic()``) caps how long the
+        dispatcher may linger this request for coalescing company."""
+        return self._admit(
+            keys, signatures, digests, block=False, on_dispatch=on_dispatch,
+            deadline_s=deadline_s,
+        )
+
+    def _admit(
+        self,
+        keys: Sequence,
+        signatures: Sequence[bytes],
+        digests: Sequence[bytes],
+        block: bool,
+        on_dispatch: Optional[Callable[[], None]] = None,
+        deadline_s: Optional[float] = None,
+    ) -> Optional[Callable[[], List[bool]]]:
         n = len(keys)
         if n == 0:
             return list
@@ -186,7 +244,10 @@ class VerifyBatcher:
         # bounded admission: lanes are taken atomically (all or nothing)
         # and released at dispatch. An oversized request is capped so it
         # can't demand more lanes than exist.
-        req = _Request(list(keys), list(signatures), list(digests))
+        req = _Request(
+            list(keys), list(signatures), list(digests),
+            on_dispatch=on_dispatch, deadline_s=deadline_s,
+        )
         req.permits = min(n, self._max_pending_lanes)
         with self._lanes_cv:
             while self._lanes_free < req.permits:
@@ -195,6 +256,9 @@ class VerifyBatcher:
                 # will never release
                 if self._stopped:
                     raise RuntimeError("batcher stopped")
+                if not block:
+                    fabobs.obs_count("fabric_batcher_busy_rejects_total")
+                    return None
                 self._lanes_cv.wait()  # released by dispatch (lane permits freed) and by stop(), which sets _stopped and notify_all()s this cv — the loop re-checks _stopped every wake, so the wait is bounded by batcher teardown
             self._lanes_free -= req.permits
             pending = self._max_pending_lanes - self._lanes_free
@@ -236,8 +300,19 @@ class VerifyBatcher:
             except queue.Empty:
                 if lanes >= self.max_batch // 2:
                     break  # big enough: don't trade latency for lanes
-                if self.linger_s > 0:
-                    waiter.wait(self.linger_s)
+                # the linger window respects the TIGHTEST wire deadline
+                # in the batch: a budgeted request is dispatched, never
+                # lingered past the moment its client walks away
+                linger = self.linger_s
+                tightest = min(
+                    (r.deadline_s for r in batch
+                     if r.deadline_s is not None),
+                    default=None,
+                )
+                if tightest is not None:
+                    linger = min(linger, tightest - time.monotonic())
+                if linger > 0:
+                    waiter.wait(linger)
                 try:
                     nxt = self._q.get_nowait()
                 except queue.Empty:
@@ -270,6 +345,12 @@ class VerifyBatcher:
                 self._lanes_cv.notify_all()
                 released = self._max_pending_lanes - self._lanes_free
             fabobs.obs_gauge("fabric_batcher_pending_lanes", released)
+            for r in batch:
+                if r.on_dispatch is not None:
+                    try:
+                        r.on_dispatch()
+                    except Exception as exc:  # a ledger hook must never kill the dispatcher
+                        logger.warning("on_dispatch hook failed: %s", exc)
             try:
                 with fabobs.span(
                     "batcher.launch", lanes=len(keys), requests=len(batch)

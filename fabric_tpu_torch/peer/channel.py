@@ -13,8 +13,10 @@ reference:
 3. kvledger.commit -> MVCC merge (K5 with `device_mvcc`) + block store +
    state/history commit.
 
-The provider is given, never made: the port has no default provider and no
-serve plane whose `for_channel` binding the JAX channel applies. `device`
+The provider is given, never made (the port has no default provider); a
+serve-plane provider (`serve/client.SidecarProvider`, `serve/router.
+SidecarRouter`) is bound to the channel's admission class through its
+`for_channel`, as the JAX channel binds it. `device`
 goes to the ledger (`ledger/kvledger.KVLedger`), which resolves it when
 `device_mvcc` asks for the card. `writeset_check` and `plugin_registry` go
 to the validator, `state_mirror` and `btl_policy` to the ledger.
@@ -67,7 +69,11 @@ class Channel:
     ):
         self.metrics = metrics
         self.channel_id = channel_id
-        self.provider = provider
+        # serve-plane QoS: a sidecar-routed provider binds this channel's
+        # admission class, so a shared sidecar sheds priority-aware;
+        # providers without for_channel pass through unchanged
+        bind = getattr(provider, "for_channel", None)
+        self.provider = bind(channel_id) if callable(bind) else provider
         self.ledger = KVLedger(
             ledger_dir, channel_id, btl_policy=btl_policy,
             device_mvcc=device_mvcc, state_mirror=state_mirror, device=device,

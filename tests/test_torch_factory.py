@@ -123,7 +123,7 @@ def test_registered_rungs_as_jax():
             mod.provider_from_config({"Default": "boom"})
     assert built[0] is not built[1] and built[0] == built[1]
     assert bccsp.ec_backend_name() == jbccsp.ec_backend_name() == "hostec"
-    assert factory._LAZY_PROVIDER_MODULES == {}
+    assert factory._LAZY_PROVIDER_MODULES == {"SERVE": "fabric_tpu_torch.serve.client"}
 
 
 @pytest.mark.parametrize("slot", ["CUDA", "TPU", "cuda"])

@@ -3,7 +3,8 @@ cryptography (the card's machine has neither of the last two), nor yaml
 (not known to be on the card's machine), and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
-raises at construction. The alias modules under the JAX package's old paths
+raises at construction, and so do `bccsp.probe_provider()` and a serve
+sidecar on the "auto" or "device" engine. The alias modules under the JAX package's old paths
 (`validation/{msgvalidation,txflags}`, `crypto/{der,p256,fp256bn}`) are the
 port's own modules; loading a validation plugin by module path brings in no
 JAX; and a Channel takes `writeset_check`, `plugin_registry` and
@@ -51,6 +52,9 @@ from fabric_tpu_torch.validation.blockparse import parse_block
 import tempfile
 from fabric_tpu_torch.ledger.kvledger import KVLedger
 from fabric_tpu_torch.peer.channel import Channel
+from fabric_tpu_torch.crypto.bccsp import probe_provider
+from fabric_tpu_torch.crypto.factory import FactoryError
+from fabric_tpu_torch.serve.server import SidecarServer
 scratch = tempfile.mkdtemp()
 parse_block([b""])  # the native pass: the port's own library, built on first use
 with open("/proc/self/maps") as maps:
@@ -73,11 +77,15 @@ for name, make in (("CUDAProvider", CUDAProvider),
                    ("MultiChannelValidator", lambda: MultiChannelValidator({})),
                    ("KVLedger", lambda: KVLedger(scratch + "/a", "ch", device_mvcc=True)),
                    ("Channel", lambda: Channel("ch", scratch + "/b", MSPManager([]),
-                                               ChaincodeRegistry(), None, device_mvcc=True))):
+                                               ChaincodeRegistry(), None, device_mvcc=True)),
+                   ("probe_provider", probe_provider),
+                   ("SidecarServer", lambda: SidecarServer(scratch + "/s.sock")),
+                   ("SidecarServer_device", lambda: SidecarServer(scratch + "/t.sock",
+                                                                  engine="device"))):
     try:
         make()
         refused[name] = None
-    except RuntimeError as exc:
+    except (RuntimeError, FactoryError) as exc:
         refused[name] = str(exc)
 print(json.dumps({"modules": names, "leaked": leaked, "refused": refused,
                   "libraries": libraries}))
@@ -111,7 +119,9 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "crypto.fp256bn", "protos.configtx", "policy.manager", "channelconfig",
                  "channelconfig.capabilities", "channelconfig.bundle", "channelconfig.configtx",
                  "channelconfig.encoder", "peer.aclmgmt", "crypto.hostec", "crypto.hostec_np",
-                 "crypto.hostbn", "crypto.factory", "crypto.pkcs11"):
+                 "crypto.hostbn", "crypto.factory", "crypto.pkcs11", "serve", "serve.__main__",
+                 "serve.protocol", "serve.qos", "serve.registry", "serve.server", "serve.client",
+                 "serve.router", "serve.fleetload"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -120,6 +130,7 @@ def test_port_imports_no_jax_and_needs_a_card():
         if path.suffix in (".py", ".cc", ".h", ".cu"):
             assert "libfabric_native" not in path.read_text(), path
     if not torch.cuda.is_available():
+        assert {"probe_provider", "SidecarServer", "SidecarServer_device"} <= set(report["refused"])
         for name, refused in report["refused"].items():
             assert refused, f"{name}() must raise without a card"
 
