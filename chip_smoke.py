@@ -218,7 +218,37 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      SidecarRouter, one drained and restarted at its address under 40
      requests, no rescue, both serving. Every mask against factory_config2's
      hostec_np memo;
- 25. the launch floor (a kernel that does nothing, timed as the kernels
+ 25. idemix_msp: the Idemix MSP. The port's idemixgen (`ca_keygen`, then
+     `signerconfig` an identity) writes an issuer and 16 signer identities
+     (4 OUs, MEMBER and ADMIN, the tool's roles) under build/smoke_idemix/,
+     plus a CLIENT- and a PEER-mask credential and another issuer's
+     identity; IdemixMSP loads the directory. In a pool of spawned
+     processes (one a core, at most 8) each identity is made, deserialized,
+     validated on the host, checked with satisfies_principal against a
+     matching and a non-matching ROLE and OU principal, and signs a message
+     (verified there and here, and refused on another message). The 16
+     association proofs tiled to config #3's 256 lanes (disclosure
+     [1,1,0,0], the empty message, the OU's hash and the role disclosed)
+     through verify_signatures_batch on the card (K4, K3), 3 times: all
+     True; a batch of 8 lanes (a member, an admin, a flipped proof byte, a
+     claimed ADMIN role, a claimed OU, another issuer's identity, the CLIENT-
+     and PEER-mask credentials, whose proofs disclose MEMBER's mask as in
+     the reference) equal to the host validate lane by lane; the CRI's
+     P-384 signature verified and a flipped one refused; a weak
+     Boneh-Boyen signature verified and refused on another message;
+ 26. mesh_sharded: the multi-device wrappers over the card listed 4 times.
+     ShardedVerify.verify_flat at the headline's 32,768 lanes over
+     flat_mesh() (1 K1 launch) and over the 4-times mesh (4, a stream
+     each), beside the unsharded K1 call, in turns; MeshCUDAProvider:
+     config #2's block through BlockValidator (one K2 launch, unsharded, as
+     the reference's batch_verify) and _run_kernel on the limb route's
+     4,096 lanes (4 K1 launches); MultiChannelValidator over grid_mesh(4, 1)
+     on config #5's four channels (4 K1 launches a validate) beside the
+     unsharded one; Ate2Kernel.check_sharded at config #3's 256 lanes (4
+     K4 launches) beside check. Every mask and flag byte equal to the
+     unsharded call's and the oracle's; K1 alone at 32,768 lanes and at a
+     quarter of them;
+ 27. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -2014,14 +2044,15 @@ def native_phase(np, build_s: float, der_sets: dict, blocks: dict) -> None:
 
 
 def multichannel_phase(torch, np, dev, imad_rate, n_channels=CONFIG5_CHANNELS,
-                       n_txs=CONFIG5_TXS, runs=CONFIG5_RUNS) -> dict:
+                       n_txs=CONFIG5_TXS, runs=CONFIG5_RUNS, keep=None) -> dict:
     """multichannel_config5: bench.py's config #5 (bench_multichannel,
     bench.py:736-808) on the card, one block of `n_txs` txs per channel
     through MultiChannelValidator, a warm-up and `runs` timed runs on one
     validator a channel: every channel's flags all VALID and equal to that
     channel's own validate, the native parse for every block, K1 once a
     run. Returns K1's time, launches, plain version and bound at the stacked
-    shape, for its entry of the kernels line."""
+    shape, for its entry of the kernels line. A `keep` dict receives the
+    blocks, each channel's flags alone and the network ("config5")."""
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
     from fabric_tpu_torch.ops import p256_kernel as pk
     from fabric_tpu_torch.parallel.multichannel import MultiChannelValidator
@@ -2108,6 +2139,8 @@ def multichannel_phase(torch, np, dev, imad_rate, n_channels=CONFIG5_CHANNELS,
           "all_valid": True, "flags_equal_each_channel_alone": True, "parser": "native",
           "backend": "cuda", "k1_launches_per_validate": 1, "k1": k1,
           "seconds": time.perf_counter() - t_phase})
+    if keep is not None:
+        keep["config5"] = {"raw": raw, "alone": alone, "net": net}
     return k1
 
 
@@ -4445,11 +4478,13 @@ def der_parsed(native, before: int, batches: int) -> str:
     return "native"
 
 
-def p256_phases(torch, np, dev, imad_rate):
+def p256_phases(torch, np, dev, imad_rate, keep=None):
     """Phases 1-5 (the CUDAProvider and K1, K2 and the table kernel);
     returns their entries of the kernels line, K2's and the table kernel's
     times at the block's shape, and the DER signatures the native phase
-    parses (the headline's and the crafted lanes')."""
+    parses (the headline's and the crafted lanes'). A `keep` dict receives
+    the headline's and the limb route's rows with their oracle masks
+    ("headline", "limb") for mesh_sharded_phase."""
     from fabric_tpu_torch.common import der, p256
     from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError, parse_and_precheck
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, _bucket as bucket
@@ -4762,8 +4797,458 @@ def p256_phases(torch, np, dev, imad_rate):
               "table_ms": table_times[label]["ms"]})
     der_sets = {"headline": head[1],
                 "crafted": [der.marshal_signature(r, s) for _pt, _d, r, s, _v in crafted]}
+    if keep is not None:
+        keep["headline"], keep["limb"] = (head_rows, head_want), (limb_rows, limb_want)
     return (kernels, {"kernel_ms": shapes["block"]["ms"], "table_ms": table_times["block"]["ms"]},
             der_sets)
+
+
+# ---------------------------------------------------------------------------
+# The Idemix MSP (idemixgen, IdemixMSP, the identities' proofs on K4/K3) and
+# the multi-device wrappers (ShardedVerify, MeshCUDAProvider, check_sharded)
+# ---------------------------------------------------------------------------
+
+IDEMIX_MSP_SEED = 2028
+IDEMIX_MSP_NAME = "IdemixOrg"
+IDEMIX_MSP_IDENTITIES = 16  # 4 OUs x (member, admin) x 2 enrollment ids
+IDEMIX_MSP_OUS = 4
+IDEMIX_MSP_MESSAGE = b"idemix_msp proposal"
+MESH_POSITIONS = 4  # the card listed 4 times
+MESH_RUNS = 3  # timed calls of each form, in turns
+
+
+def _msp_outcome(fn, *args) -> str:
+    from fabric_tpu_torch.msp.idemix_msp import IdemixMSPError
+
+    try:
+        fn(*args)
+        return "ok"
+    except IdemixMSPError as exc:
+        return str(exc)
+
+
+def _msp_identity_job(args) -> dict:
+    """Pool worker: one identity's host side, as a peer's MSP runs it one
+    identity at a time. (issuer key bytes, revocation PEM, signer config
+    bytes, seed, principals) -> the serialized identity, the outcomes of
+    validate, of satisfies_principal on each principal and of verify on the
+    message and on another, the message's signature, the seconds taken."""
+    import random
+
+    from fabric_tpu_torch.common import p384
+    from fabric_tpu_torch.msp import idemix_msp as im
+    from fabric_tpu_torch.protos import fabric, wire
+
+    ipk_raw, rev_pem, signer_raw, seed, principals = args
+    t0 = time.perf_counter()
+    msp = im.IdemixMSP({"name": IDEMIX_MSP_NAME, "ipk": ipk_raw}, p384.load_pem_public_key(rev_pem))
+    signer = im.IdemixSigningIdentity(
+        msp, wire.decode(fabric.IDEMIX_MSP_SIGNER_CONFIG, signer_raw), random.Random(seed))
+    ident = msp.deserialize_identity(signer.serialize())
+    sig = signer.sign(IDEMIX_MSP_MESSAGE)
+    return {"raw": signer.serialize(), "validate": _msp_outcome(msp.validate, ident),
+            "principals": [_msp_outcome(msp.satisfies_principal, ident, p) for p in principals],
+            "sig": sig, "verify": [_msp_outcome(msp.verify, ident, m, sig)
+                                   for m in (IDEMIX_MSP_MESSAGE, IDEMIX_MSP_MESSAGE + b"!")],
+            "seconds": time.perf_counter() - t0}
+
+
+def _msp_validate_job(args) -> str:
+    """Pool worker: the host validate of serialized identity bytes under an
+    issuer key's bytes: "ok" or the error."""
+    from fabric_tpu_torch.msp import idemix_msp as im
+
+    ipk_raw, raw = args
+    msp = im.IdemixMSP({"name": IDEMIX_MSP_NAME, "ipk": ipk_raw})
+    return _msp_outcome(lambda: msp.validate(msp.deserialize_identity(raw)))
+
+
+def _with_claims(raw: bytes, change) -> bytes:
+    """Serialized identity bytes with `change(inner)` applied to its
+    SerializedIdemixIdentity dict."""
+    from fabric_tpu_torch.protos import fabric, wire
+
+    sid = wire.decode(fabric.SERIALIZED_IDENTITY, raw)
+    inner = wire.decode(fabric.SERIALIZED_IDEMIX_IDENTITY, sid["id_bytes"])
+    change(inner)
+    return wire.encode(fabric.SERIALIZED_IDENTITY, dict(
+        sid, id_bytes=wire.encode(fabric.SERIALIZED_IDEMIX_IDENTITY, inner)))
+
+
+def idemix_msp_phase(torch, np, dev, identities=IDEMIX_MSP_IDENTITIES,
+                     lanes=IDEMIX_SIZES[-1], workers=None) -> dict:
+    """idemix_msp: the port's idemixgen writes an issuer and `identities`
+    signer configs (4 OUs, MEMBER and ADMIN: the tool's roles) under
+    build/smoke_idemix/, plus a CLIENT-mask and a PEER-mask credential
+    (generate_signer_config) and another issuer's identity; IdemixMSP loads
+    the directory. In a pool of spawned processes, as many as the host has
+    cores (at most 8), each identity is made, deserialized, validated on the
+    host, checked with satisfies_principal against a matching and a
+    non-matching ROLE and OU principal, and signs a message that verifies
+    (and fails on another). The identities' association proofs tiled to
+    config #3's `lanes` go through verify_signatures_batch on the card
+    (K4, K3): every lane True; a batch of tampered lanes (a flipped proof
+    byte, a claimed ADMIN role, a claimed OU, another issuer's identity, the
+    CLIENT- and PEER-mask credentials, whose proofs disclose MEMBER's mask)
+    is False where the host validate is, lane by lane. The CRI's P-384
+    signature passes verify_epoch_pk and fails once flipped; a weak
+    Boneh-Boyen signature verifies and fails on another message. Returns the
+    phase's K3 and K4 launches (counts zeroed at its start)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import os
+    import random
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from pathlib import Path
+
+    from fabric_tpu_torch import idemix
+    from fabric_tpu_torch.cli import idemixgen
+    from fabric_tpu_torch.common import fp256bn as host
+    from fabric_tpu_torch.common import p384
+    from fabric_tpu_torch.idemix import batch as ib
+    from fabric_tpu_torch.msp import idemix_msp as im
+    from fabric_tpu_torch.ops import bn256_kernel as bk
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.protos import idemix as ipb
+
+    t_phase = time.perf_counter()
+    for k in pkn.LAUNCHES:
+        pkn.LAUNCHES[k] = 0
+    bk.LAUNCHES["bn256_msm"] = 0
+    rng = random.Random(IDEMIX_MSP_SEED)
+    root = Path(__file__).resolve().parent / "build" / "smoke_idemix"
+    shutil.rmtree(root, ignore_errors=True)
+    org, other = root / "org", root / "other"
+
+    # --- idemixgen: the issuer, a signer config an identity ---------------
+    t0 = time.perf_counter()
+    specs = []  # (enrollment id, OU, role mask, signer config bytes)
+    with contextlib.redirect_stdout(io.StringIO()):
+        idemixgen.ca_keygen(str(org), random.Random(rng.getrandbits(64)))
+        for i in range(identities):
+            ou, enrollment = f"OU{i % IDEMIX_MSP_OUS + 1}", f"user{i}"
+            admin = (i // IDEMIX_MSP_OUS) % 2 == 1
+            idemixgen.signerconfig(str(org), ou, enrollment, admin,
+                                   random.Random(rng.getrandbits(64)))
+            dest = org / "users" / enrollment / "SignerConfig"
+            dest.parent.mkdir(parents=True)
+            os.replace(org / "user" / "SignerConfig", dest)
+            specs.append((enrollment, ou, im.ROLE_ADMIN if admin else im.ROLE_MEMBER,
+                          dest.read_bytes()))
+        idemixgen.ca_keygen(str(other), random.Random(rng.getrandbits(64)))
+        idemixgen.signerconfig(str(other), "OU1", "mallory", False,
+                               random.Random(rng.getrandbits(64)))
+    issuer_key = ipb.decode(ipb.ISSUER_KEY, (org / "ca" / "IssuerSecretKey").read_bytes())
+    rev_key = p384.load_pem_private_key((org / "ca" / "RevocationKey").read_bytes())
+    masks = {}
+    for label, mask in (("client-mask", im.ROLE_CLIENT), ("peer-mask", im.ROLE_PEER)):
+        masks[label] = wire.encode(fabric.IDEMIX_MSP_SIGNER_CONFIG, im.generate_signer_config(
+            issuer_key, rev_key, "OU1", mask, label, random.Random(rng.getrandbits(64))))
+    issue_s = time.perf_counter() - t0
+
+    ipk_raw = (org / "msp" / "IssuerPublicKey").read_bytes()
+    rev_pem = (org / "msp" / "RevocationPublicKey").read_bytes()
+    rev_pk = p384.load_pem_public_key(rev_pem)
+    msp = im.IdemixMSP({"name": IDEMIX_MSP_NAME, "ipk": ipk_raw, "revocation_pk": rev_pem}, rev_pk)
+    other_ipk = (other / "msp" / "IssuerPublicKey").read_bytes()
+
+    def role(r):
+        return {"principal_classification": fabric.ROLE, "principal": wire.encode(
+            fabric.MSP_ROLE, {"msp_identifier": IDEMIX_MSP_NAME, "role": r})}
+
+    def ou_principal(ou):
+        return {"principal_classification": fabric.ORGANIZATION_UNIT, "principal": wire.encode(
+            fabric.ORGANIZATION_UNIT_MSG, {"msp_identifier": IDEMIX_MSP_NAME,
+                                           "organizational_unit_identifier": ou})}
+
+    # per identity: its role (match), a role it lacks, its OU, the next OU
+    jobs, expected = [], []
+    for i, (enrollment, ou, mask, signer_raw) in enumerate(specs):
+        next_ou = f"OU{(i + 1) % IDEMIX_MSP_OUS + 1}"
+        if mask == im.ROLE_ADMIN:
+            lacking = fabric.CLIENT if i % 2 else fabric.PEER
+            principals = [role(fabric.ADMIN), role(lacking)]
+            want = ["ok", "user does not have the required role"]
+        else:
+            principals = [role(fabric.MEMBER), role(fabric.ADMIN)]
+            want = ["ok", "user is not an admin"]
+        principals += [ou_principal(ou), ou_principal(next_ou)]
+        expected.append(want + ["ok", "OU identifier does not match"])
+        jobs.append((ipk_raw, rev_pem, signer_raw, IDEMIX_MSP_SEED + i, principals))
+    extra = {label: (ipk_raw, rev_pem, raw, IDEMIX_MSP_SEED + 100 + k, [])
+             for k, (label, raw) in enumerate(masks.items())}
+    extra["other-issuer"] = (other_ipk, (other / "msp" / "RevocationPublicKey").read_bytes(),
+                             (other / "user" / "SignerConfig").read_bytes(),
+                             IDEMIX_MSP_SEED + 200, [])
+    workers = workers or min(8, len(os.sched_getaffinity(0)))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_msp_identity_job, jobs + list(extra.values())))
+        host_s = time.perf_counter() - t0
+        results, extra_results = done[:len(jobs)], dict(zip(extra, done[len(jobs):]))
+        for i, (res, want) in enumerate(zip(results, expected)):
+            if (res["validate"] != "ok" or res["principals"] != want
+                    or res["verify"][0] != "ok" or res["verify"][1] == "ok"):
+                raise AssertionError(f"idemix_msp: identity {i} on the host: {res}, want {want}")
+        idents = [msp.deserialize_identity(res["raw"]) for res in results]
+        for ident, res in zip(idents, results):  # the signatures again, in this process
+            msp.verify(ident, IDEMIX_MSP_MESSAGE, res["sig"])
+        for (enrollment, ou, mask, _), ident in zip(specs, idents):
+            if ident.ou_identifier != ou or ident.role_mask != mask:
+                raise AssertionError(f"idemix_msp: {enrollment} reads {ident.ou_identifier}, "
+                                     f"{ident.role_mask}")
+
+        # the tampered lanes, validated on the host in the pool
+        member, admin = results[0]["raw"], results[IDEMIX_MSP_OUS]["raw"]
+
+        def flip_proof(inner):
+            proof = ipb.decode(ipb.SIGNATURE, inner["proof"])
+            proof["proof_c"] = bytes([proof["proof_c"][0] ^ 1]) + proof["proof_c"][1:]
+            inner["proof"] = ipb.encode(ipb.SIGNATURE, proof)
+
+        def claim_admin(inner):
+            inner["role"] = wire.encode(fabric.MSP_ROLE, {"msp_identifier": IDEMIX_MSP_NAME,
+                                                          "role": fabric.ADMIN})
+
+        def claim_ou(inner):
+            inner["ou"] = wire.encode(fabric.ORGANIZATION_UNIT_MSG, {
+                "msp_identifier": IDEMIX_MSP_NAME, "organizational_unit_identifier": "OU9"})
+
+        # under this MSP's issuer key; the CLIENT- and PEER-mask credentials'
+        # identities were validated under it in their jobs
+        tampered = {"flipped-proof-byte": _with_claims(member, flip_proof),
+                    "claimed-admin": _with_claims(member, claim_admin),
+                    "claimed-ou": _with_claims(member, claim_ou),
+                    "other-issuer": extra_results["other-issuer"]["raw"]}
+        tampered_verdicts = dict(zip(tampered, pool.map(
+            _msp_validate_job, [(ipk_raw, raw) for raw in tampered.values()])))
+    mixed = [("member", member, results[0]["validate"]),
+             ("admin", admin, results[IDEMIX_MSP_OUS]["validate"])]
+    mixed += [(label, raw, tampered_verdicts[label]) for label, raw in tampered.items()]
+    mixed += [(label, extra_results[label]["raw"], extra_results[label]["validate"])
+              for label in masks]
+
+    # --- the proofs on the card, config #3's lanes -------------------------
+    def batch_args(batch_idents):
+        return ([x.proof for x in batch_idents], [im.PROOF_DISCLOSURE] * len(batch_idents),
+                msp.ipk, [b""] * len(batch_idents),
+                [msp.proof_attribute_values(x) for x in batch_idents], im.RH_INDEX)
+
+    tiled = batch_args([idents[i % len(idents)] for i in range(lanes)])
+    batch_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mask = ib.verify_signatures_batch(*tiled, device=dev)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if mask != [True] * lanes:
+            raise AssertionError(f"idemix_msp: {mask.count(False)} proof lanes refused on the card")
+    mixed_idents = [msp.deserialize_identity(raw) for _, raw, _ in mixed]
+    got = ib.verify_signatures_batch(*batch_args(mixed_idents), device=dev)
+    host_verdicts = [v == "ok" for _, _, v in mixed]
+    if got != host_verdicts or host_verdicts != [True, True] + [False] * (len(mixed) - 2):
+        raise AssertionError(f"idemix_msp: tampered lanes {got}, host {[v for *_, v in mixed]}")
+
+    # --- the CRI's P-384 signature, a weak Boneh-Boyen signature ----------
+    signer_config = wire.decode(fabric.IDEMIX_MSP_SIGNER_CONFIG, specs[0][3])
+    cri = ipb.decode(ipb.CREDENTIAL_REVOCATION_INFORMATION,
+                     signer_config["credential_revocation_information"])
+    cri_args = (cri["epoch_pk"], cri.get("epoch", 0), cri.get("revocation_alg", 0))
+    idemix.verify_epoch_pk(rev_pk, cri_args[0], cri["epoch_pk_sig"], *cri_args[1:])
+    flipped = bytearray(cri["epoch_pk_sig"])
+    flipped[10] ^= 1
+    try:
+        idemix.verify_epoch_pk(rev_pk, cri_args[0], bytes(flipped), *cri_args[1:])
+        raise AssertionError("idemix_msp: a flipped CRI signature verified")
+    except idemix.IdemixError:
+        pass
+    wbb_sk, wbb_pk = idemix.wbb_keygen(rng)
+    m = host.rand_mod_order(rng)
+    wbb_sig = idemix.wbb_sign(wbb_sk, m)
+    idemix.wbb_verify(wbb_pk, wbb_sig, m)
+    try:
+        idemix.wbb_verify(wbb_pk, wbb_sig, m + 1)
+        raise AssertionError("idemix_msp: a weak-BB signature verified on another message")
+    except idemix.IdemixError:
+        pass
+    launches = {"ate2_unity": pkn.LAUNCHES["ate2_unity"], "bn256_msm": bk.LAUNCHES["bn256_msm"]}
+    if launches != {"ate2_unity": 4, "bn256_msm": 4}:
+        raise AssertionError(f"idemix_msp: launches {launches}, want a K4 and a K3 a batch")
+    emit({"phase": "idemix_msp", "identities": identities, "ous": IDEMIX_MSP_OUS,
+          "roles": ["MEMBER", "ADMIN"], "issue_seconds": issue_s, "workers": workers,
+          "host_seconds": host_s,
+          "host_seconds_per_identity": [r["seconds"] for r in results],
+          "principal_checks": sum(len(r["principals"]) for r in results),
+          "proof_lanes": lanes, "batch_ms": batch_ms, "proof_lanes_all_true": True,
+          "mixed_lanes": [label for label, _, _ in mixed], "mixed_mask": got,
+          "mixed_equal_host_validate": True, "cri_verified": True, "cri_flipped_refused": True,
+          "wbb_verified": True, "wbb_other_message_refused": True, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def mesh_sharded_phase(torch, np, dev, inputs: dict) -> dict:
+    """mesh_sharded: the multi-device wrappers on one card. `inputs` holds
+    the headline's and the limb route's rows and oracle masks (p256_phases),
+    config #2's envelopes and network (validator_phases), config #5's blocks
+    and flags (multichannel_phase) and config #3's batch (idemix_phases).
+    ShardedVerify.verify_flat at config #1's 32,768 lanes over flat_mesh()
+    (1 K1 launch) and over the card listed 4 times (4); MeshCUDAProvider
+    over that mesh: config #2's block through BlockValidator (one K2
+    launch, unsharded, as the reference's batch_verify) and its _run_kernel
+    on the limb route (4 K1 launches); MultiChannelValidator over
+    grid_mesh(4, 1) on config #5's four channels (4 K1 launches a validate);
+    Ate2Kernel.check_sharded at config #3's 256 lanes over the 4-times mesh
+    (4 K4 launches). Every mask and flag byte equal to the unsharded launch
+    on the same inputs, each call form timed in turns. Returns the phase's
+    launches (counts zeroed at its start)."""
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.idemix import scheme
+    from fabric_tpu_torch.ops import p256_kernel as pk
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+    from fabric_tpu_torch.parallel import (MeshCUDAProvider, MultiChannelValidator,
+                                           ShardedVerify, flat_mesh, grid_mesh)
+    from fabric_tpu_torch.protos import fabric, wire
+
+    t_phase = time.perf_counter()
+    for table in (pk.LAUNCHES, pkn.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+    def cols(rows):
+        return [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows]
+
+    def k1_delta(before):
+        return pk.LAUNCHES["p256_verify_limbs"] - before
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    mesh4 = flat_mesh([dev] * MESH_POSITIONS)
+    prov = CUDAProvider(device=dev)
+    head_rows, head_want = inputs["headline"]
+    limbs = prov.prep_limbs(*cols(head_rows))
+
+    # --- verify_flat at config #1's 32,768 lanes --------------------------
+    def unsharded():
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in limbs]
+        return np.array(pk.verify_batch(*args).cpu().tolist(), dtype=bool)
+
+    flat, four = ShardedVerify(flat_mesh()), ShardedVerify(mesh4)
+    forms = {"unsharded": unsharded, "flat_mesh": lambda: flat.verify_flat(*limbs),
+             "mesh4": lambda: four.verify_flat(*limbs)}
+    per_call = {"unsharded": 1, "flat_mesh": 1, "mesh4": MESH_POSITIONS}
+    flat_ms = {name: [] for name in forms}
+    for _ in range(MESH_RUNS):
+        for name, fn in forms.items():
+            before = pk.LAUNCHES["p256_verify_limbs"]
+            mask, ms = timed(fn)
+            flat_ms[name].append(ms)
+            if k1_delta(before) != per_call[name]:
+                raise AssertionError(f"mesh_sharded: {name} took {k1_delta(before)} K1 launches")
+            if mask.tolist() != head_want:
+                raise AssertionError(f"mesh_sharded: {name} mask differs from the unsharded one")
+    k1_flat = pk.LAUNCHES["p256_verify_limbs"]
+
+    # --- MeshCUDAProvider: config #2's block (K2), the limb route (K1) ------
+    net = inputs["net"]
+    mprov = MeshCUDAProvider(mesh4)
+    raw_block = wire.encode(fabric.BLOCK, net.make_block(inputs["config2"], 1))
+    block_flags, block_ms = {}, {}
+    for name, provider in (("cuda", prov), ("mesh", mprov)):
+        k2 = pk.LAUNCHES["p256_verify_bytes"]
+        before = pk.LAUNCHES["p256_verify_limbs"]
+        validator = net.validator(provider)
+        flags, ms = timed(lambda: validator.validate(wire.decode(fabric.BLOCK, raw_block)))
+        block_flags[name], block_ms[name] = flags.tobytes(), ms
+        if pk.LAUNCHES["p256_verify_bytes"] - k2 != 1 or k1_delta(before):
+            raise AssertionError(f"mesh_sharded: {name} provider's block took other launches")
+    if block_flags["mesh"] != block_flags["cuda"] or block_flags["mesh"] != bytes(
+            len(inputs["config2"])):
+        raise AssertionError("mesh_sharded: MeshCUDAProvider's block flags differ")
+    limb_rows, limb_want = inputs["limb"]
+    before = pk.LAUNCHES["p256_verify_limbs"]
+    sharded_limb, limb_ms = timed(lambda: mprov._run_kernel(mprov.prep_limbs(*cols(limb_rows))))
+    if k1_delta(before) != MESH_POSITIONS:
+        raise AssertionError("mesh_sharded: _run_kernel must launch K1 once a position")
+    before = pk.LAUNCHES["p256_verify_limbs"]
+    plain_limb, limb_unsharded_ms = timed(lambda: prov.batch_verify(*cols(limb_rows)))
+    if k1_delta(before) != 1 or sharded_limb != plain_limb or plain_limb != limb_want:
+        raise AssertionError("mesh_sharded: the limb route's sharded mask differs")
+
+    # --- MultiChannelValidator over grid_mesh(4, 1): config #5 ---------------
+    c5 = inputs["config5"]
+    channels = sorted(c5["raw"])
+
+    def multi(**where):
+        return MultiChannelValidator({ch: c5["net"].validator(CUDAProvider(device=dev), channel=ch)
+                                      for ch in channels}, **where)
+
+    validators = {"unsharded": (multi(device=dev), 1),
+                  "grid": (multi(mesh=grid_mesh(MESH_POSITIONS, 1, [dev] * MESH_POSITIONS)),
+                           MESH_POSITIONS)}
+    c5_ms = {name: [] for name in validators}
+    for _ in range(2):
+        for name, (mv, launches_per) in validators.items():
+            before = pk.LAUNCHES["p256_verify_limbs"]
+            flags, ms = timed(lambda: mv.validate(
+                {ch: wire.decode(fabric.BLOCK, c5["raw"][ch]) for ch in channels}))
+            c5_ms[name].append(ms)
+            if k1_delta(before) != launches_per:
+                raise AssertionError(f"mesh_sharded: config #5 {name}: {k1_delta(before)} K1")
+            if any(flags[ch].tobytes() != c5["alone"][ch] for ch in channels):
+                raise AssertionError(f"mesh_sharded: config #5 {name} flags differ")
+
+    # --- check_sharded at config #3's 256 lanes -----------------------------
+    sigs, ipk = inputs["config3"][0], inputs["config3"][2]
+    pairs = [(scheme.ecp_from_proto(s["a_prime"]), scheme.ecp_from_proto(s["a_bar"]))
+             for s in sigs]
+    kernel = pkn.Ate2Kernel(scheme.ecp2_from_proto(ipk["w"]), dev)
+    k4_ms = {"check": [], "check_sharded": []}
+    for _ in range(MESH_RUNS):
+        before = pkn.LAUNCHES["ate2_unity"]
+        whole, ms = timed(lambda: kernel.check(pairs))
+        k4_ms["check"].append(ms)
+        split, ms = timed(lambda: kernel.check_sharded(pairs, mesh4))
+        k4_ms["check_sharded"].append(ms)
+        if pkn.LAUNCHES["ate2_unity"] - before != 1 + MESH_POSITIONS:
+            raise AssertionError("mesh_sharded: check_sharded must launch K4 once a position")
+        if split != whole or whole != [True] * len(pairs):
+            raise AssertionError("mesh_sharded: check_sharded verdicts differ from check's")
+    launches = {"p256_verify_limbs": pk.LAUNCHES["p256_verify_limbs"],
+                "p256_verify_bytes": pk.LAUNCHES["p256_verify_bytes"],
+                "p256_key_tables": pk.LAUNCHES["p256_key_tables"],
+                "ate2_unity": pkn.LAUNCHES["ate2_unity"]}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"mesh_sharded: {name} never launched")
+    # K1 alone at the headline's shape and at a position's quarter of it, after
+    # the counts are read: these launches are not the path's
+    resident = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in limbs]
+    quarter = [a[..., :a.shape[-1] // MESH_POSITIONS].contiguous() for a in resident]
+    k1_ms = {"full": device_ms(torch, lambda: pk.verify_batch(*resident), 3),
+             "quarter": device_ms(torch, lambda: pk.verify_batch(*quarter), 3)}
+    emit({"phase": "mesh_sharded", "positions": MESH_POSITIONS,
+          "verify_flat": {"lanes": len(head_rows), "ms": flat_ms, "k1_per_call": per_call,
+                          "k1_device_ms": k1_ms, "masks_equal_unsharded": True},
+          "provider": {"block_ms": block_ms, "k2_per_block": 1, "block_flags_equal": True,
+                       "limb_lanes": len(limb_rows), "limb_ms": limb_ms,
+                       "limb_unsharded_ms": limb_unsharded_ms, "k1_per_run_kernel": MESH_POSITIONS,
+                       "limb_mask_equal_unsharded": True},
+          "config5": {"channels": len(channels), "ms": c5_ms,
+                      "k1_per_validate": {"unsharded": 1, "grid": MESH_POSITIONS},
+                      "flags_equal_each_channel": True},
+          "check_sharded": {"lanes": len(pairs), "ms": k4_ms,
+                            "k4_per_call": {"check": 1, "check_sharded": MESH_POSITIONS},
+                            "verdicts_equal_check": True},
+          "k1_launches_verify_flat": k1_flat, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # the repetitions device_ms takes for K5 and K6 (20) and for K7 (50)
@@ -4845,11 +5330,11 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     imad_rate = IMAD_PER_SM_PER_CLOCK * sms * clock_hz
-    kernels, k2_block, der_sets = p256_phases(torch, np, dev, imad_rate)
+    chain = {}
+    kernels, k2_block, der_sets = p256_phases(torch, np, dev, imad_rate, keep=chain)
     # --- MVCC: kernel vs plain, config #4, the resident chain --------------
     kernels += mvcc_phases(torch, np, dev)
     # --- Idemix: kernel vs plain, config #3, the mixed mask -----------------
-    chain = {}
     kernels += idemix_phases(torch, np, dev, imad_rate, keep=chain)
     # --- Block validation of config #2, K7 ----------------------------------
     blocks, k7 = validator_phases(torch, np, dev, k2_block)
@@ -4857,7 +5342,7 @@ def main() -> int:
     # --- The native host runtime against the Python routes -----------------
     native_phase(np, native_build_s, der_sets, blocks)
     # --- Config #5: four channels, one K1 launch a validate ----------------
-    k1_config5 = multichannel_phase(torch, np, dev, imad_rate)
+    k1_config5 = multichannel_phase(torch, np, dev, imad_rate, keep=chain)
     next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
     # --- The peer's commit path: the pipelined chain, four channels --------
     pipeline_launches = pipeline_phases(torch, np, dev, keep=chain)
@@ -4885,6 +5370,19 @@ def main() -> int:
                                              for who in ("server", "rescue", "in_process")}}
     next(k for k in kernels if k["name"] == "mvcc_resolve")["serve_config2"] = {
         "launches": serve_launches["mvcc_resolve"]}
+    # --- The Idemix MSP: idemixgen, IdemixMSP, the proofs on K4/K3 ---------
+    msp_launches = idemix_msp_phase(torch, np, dev)
+    # --- The multi-device wrappers over the card listed 4 times ------------
+    mesh_launches = mesh_sharded_phase(torch, np, dev, {
+        "headline": chain["headline"], "limb": chain["limb"], "net": chain["net"],
+        "config2": blocks["config2"], "config5": chain["config5"],
+        "config3": chain["idemix_sets"][f"config3_{IDEMIX_SIZES[-1]}"]})
+    for name in ("bn256_msm", "ate2_unity"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["idemix_msp"] = {"launches": msp_launches[name]}
+    for name in ("p256_verify_limbs", "p256_verify_bytes", "p256_key_tables", "ate2_unity"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["mesh_sharded"] = {"launches": mesh_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

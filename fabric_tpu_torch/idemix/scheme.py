@@ -3,30 +3,33 @@ port's dict messages.
 
 The port's copy of the JAX package's `idemix/scheme.py`: issuer keys and
 their proof (issuerkey.go), credential requests (credrequest.go),
-credential issuance, a BBS+ signature (credential.go), pseudonyms
-(util.go MakeNym) and the signature of knowledge over a credential
-(signature.go NewSignature / Ver), with the same Fiat-Shamir transcripts.
-Given the same `random.Random` state it issues the same keys, credentials
-and signatures, byte for byte.
+credential issuance and verification, a BBS+ signature (credential.go),
+pseudonyms (util.go MakeNym), the signature of knowledge over a credential
+(signature.go NewSignature / Ver), pseudonym signatures (nymsignature.go),
+weak Boneh-Boyen signatures (weak-bb.go) and the revocation authority's
+long-term ECDSA P-384 key and CRI (revocation_authority.go), with the same
+Fiat-Shamir transcripts. Given the same `random.Random` state it issues the
+same keys, credentials and signatures, byte for byte.
 
 A message is a dict in the form of `protos/wire.py` (schemas in
 `protos/idemix.py`): a field that is absent reads as protobuf's default.
 
-Left out: the revocation authority's long-term ECDSA P-384 key, `create_cri`
-and `verify_epoch_pk`, which need the `cryptography` package (absent on the
-card's machine); pseudonym signatures, credential verification and the weak
-Boneh-Boyen signatures, which no path of the port calls. Only
-ALG_NO_REVOCATION exists, as in the reference; a signature is verified
-against an unsigned ALG_NO_REVOCATION CRI, whose epoch key verification
-with no revocation key never reads.
+Only ALG_NO_REVOCATION exists, as in the reference. The revocation key is
+the port's own P-384 (`common/p384.py`; the card's machine has no
+`cryptography`), and its ECDSA nonce comes from the caller's generator
+where the JAX package's comes from the OS, so a CRI's signature differs
+between the packages while each verifies under the other.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
+import hashlib
 from typing import List, Optional, Sequence, Tuple
 
 from fabric_tpu_torch.common import fp256bn as bn
+from fabric_tpu_torch.common import p384
 from fabric_tpu_torch.protos import idemix as pb
 
 SIGN_LABEL = b"sign"
@@ -260,6 +263,29 @@ def new_credential(key: dict, req: dict, attrs: Sequence[int], rng) -> dict:
     }
 
 
+def verify_credential(cred: dict, sk: int, ipk: dict) -> None:
+    """Credential.Ver (credential.go): the b-value from the attributes, then
+    e(w * g2^e, A) == e(g2, B) on the host."""
+    a = ecp_from_proto(cred.get("a"))
+    b = ecp_from_proto(cred.get("b"))
+    e = _big(cred, "e")
+    s = _big(cred, "s")
+    attrs = [bn.big_from_bytes(v) for v in cred.get("attrs", [])]
+
+    b_prime = bn.G1_GEN
+    b_prime = bn.g1_add(b_prime, bn.g1_mul2(ecp_from_proto(ipk.get("h_sk")), sk,
+                                            ecp_from_proto(ipk.get("h_rand")), s))
+    # zip's truncation, as the JAX package's product over (h_attrs, attrs)
+    b_prime = bn.g1_add(b_prime, _attr_bases_product(
+        ipk, range(len(ipk.get("h_attrs", []))), attrs))
+    if b != b_prime:
+        raise IdemixError("b-value from credential does not match the attribute values")
+
+    lhs_g2 = bn.g2_add(bn.g2_mul(bn.G2_GEN, e), ecp2_from_proto(ipk.get("w")))
+    if bn.pairing(lhs_g2, a) != bn.pairing(bn.G2_GEN, b):
+        raise IdemixError("credential is not cryptographically valid")
+
+
 # --------------------------------------------------------------------------
 # Pseudonyms (util.go MakeNym)
 # --------------------------------------------------------------------------
@@ -451,3 +477,126 @@ def verify_signature(sig: dict, disclosure: Sequence[int], ipk: dict, msg: bytes
                              ipk.get("hash", b""), disclosure, msg)
     if proof_c != _second_challenge(c, nonce):
         raise IdemixError("signature invalid: zero-knowledge proof is invalid")
+
+
+# --------------------------------------------------------------------------
+# Nym signatures (nymsignature.go)
+# --------------------------------------------------------------------------
+
+
+def new_nym_signature(sk: int, nym: bn.G1Point, r_nym: int, ipk: dict, msg: bytes,
+                      rng) -> dict:
+    nonce = bn.rand_mod_order(rng)
+    h_rand = ecp_from_proto(ipk.get("h_rand"))
+    h_sk = ecp_from_proto(ipk.get("h_sk"))
+
+    r_sk = bn.rand_mod_order(rng)
+    r_r_nym = bn.rand_mod_order(rng)
+    t = bn.g1_mul2(h_sk, r_sk, h_rand, r_r_nym)
+
+    c = _nym_challenge(t, nym, ipk.get("hash", b""), msg)
+    proof_c = _second_challenge(c, nonce)
+    return {
+        "proof_c": bn.big_to_bytes(proof_c),
+        "proof_s_sk": bn.big_to_bytes(_mod(r_sk + proof_c * sk)),
+        "proof_s_r_nym": bn.big_to_bytes(_mod(r_r_nym + proof_c * r_nym)),
+        "nonce": bn.big_to_bytes(nonce),
+    }
+
+
+def _nym_challenge(t, nym, ipk_hash_bytes: bytes, msg: bytes) -> int:
+    buf = bytearray()
+    buf += SIGN_LABEL
+    _append_g1(buf, t)
+    _append_g1(buf, nym)
+    buf += ipk_hash_bytes
+    buf += msg
+    return bn.hash_mod_order(bytes(buf))
+
+
+def verify_nym_signature(sig: dict, nym: bn.G1Point, ipk: dict, msg: bytes) -> None:
+    proof_c = _big(sig, "proof_c")
+    proof_s_sk = _big(sig, "proof_s_sk")
+    proof_s_r_nym = _big(sig, "proof_s_r_nym")
+    nonce = _big(sig, "nonce")
+    h_rand = ecp_from_proto(ipk.get("h_rand"))
+    h_sk = ecp_from_proto(ipk.get("h_sk"))
+
+    t = bn.g1_mul2(h_sk, proof_s_sk, h_rand, proof_s_r_nym)
+    t = bn.g1_add(t, bn.g1_neg(bn.g1_mul(nym, proof_c)))
+
+    c = _nym_challenge(t, nym, ipk.get("hash", b""), msg)
+    if proof_c != _second_challenge(c, nonce):
+        raise IdemixError("pseudonym signature invalid: zero-knowledge proof is invalid")
+
+
+# --------------------------------------------------------------------------
+# Weak Boneh-Boyen signatures (weak-bb.go)
+# --------------------------------------------------------------------------
+
+
+def wbb_keygen(rng) -> Tuple[int, bn.G2Point]:
+    sk = bn.rand_mod_order(rng)
+    return sk, bn.g2_mul(bn.G2_GEN, sk)
+
+
+def wbb_sign(sk: int, m: int) -> bn.G1Point:
+    exp = pow(_mod(sk + m), bn.R - 2, bn.R)
+    return bn.g1_mul(bn.G1_GEN, exp)
+
+
+@functools.lru_cache(maxsize=1)
+def _gen_gt() -> bn.Fp12:
+    return bn.pairing(bn.G2_GEN, bn.G1_GEN)
+
+
+def wbb_verify(pk: bn.G2Point, sig: bn.G1Point, m: int) -> None:
+    if pk is None or sig is None:
+        raise IdemixError("Weak-BB signature invalid: received nil input")
+    p = bn.g2_add(pk, bn.g2_mul(bn.G2_GEN, m))
+    if bn.pairing(p, sig) != _gen_gt():
+        raise IdemixError("Weak-BB signature is invalid")
+
+
+# --------------------------------------------------------------------------
+# Revocation authority (revocation_authority.go)
+# --------------------------------------------------------------------------
+
+
+def generate_long_term_revocation_key(rng) -> p384.ECDSAP384PrivateKey:
+    """Long-term revocation key: ECDSA on P-384 like the reference, its
+    scalar drawn from `rng`."""
+    return p384.ECDSAP384PrivateKey.generate(rng)
+
+
+def _cri_prefix_digest(alg: int, epoch_pk: dict, epoch: int) -> bytes:
+    """SHA-256 of the CRI serialized with its revocation_alg, epoch_pk and
+    epoch only: the bytes the authority signs."""
+    prefix = {"epoch": epoch, "epoch_pk": epoch_pk, "revocation_alg": alg}
+    return hashlib.sha256(pb.encode(pb.CREDENTIAL_REVOCATION_INFORMATION, prefix)).digest()
+
+
+def create_cri(key: p384.ECDSAP384PrivateKey, unrevoked_handles: Sequence[int], epoch: int,
+               alg: int, rng) -> dict:
+    """The epoch's CRI, its prefix signed with `key` (the nonce from
+    `rng`)."""
+    if alg != ALG_NO_REVOCATION:
+        raise IdemixError("the specified revocation algorithm is not supported.")
+    epoch_pk = ecp2_to_proto(bn.G2_GEN)  # dummy PK
+    cri: dict = {"epoch_pk": epoch_pk}
+    if epoch:
+        cri["epoch"] = epoch
+    if alg:
+        cri["revocation_alg"] = alg
+    cri["epoch_pk_sig"] = key.sign(_cri_prefix_digest(alg, epoch_pk, epoch), rng)
+    return cri
+
+
+def verify_epoch_pk(pk: p384.ECDSAP384PublicKey, epoch_pk: dict, epoch_pk_sig: bytes, epoch: int,
+                    alg: int) -> None:
+    """VerifyEpochPK: the revocation authority's signature over the (alg,
+    epoch_pk, epoch) CRI prefix."""
+    try:
+        pk.verify(epoch_pk_sig, _cri_prefix_digest(alg, epoch_pk, epoch))
+    except p384.SignatureError as exc:
+        raise IdemixError("EpochPKSig invalid") from exc

@@ -42,9 +42,13 @@ is the test hook: both Miller values and the final-exponentiated value per
 lane as host Fp12 tuples, from the kernel's debug entry or the plain
 version.
 
-Departures from the JAX package: one launch per batch (no 8/16/64 lane
-buckets or 64-lane chunks: those bound XLA compiles) and no
-`check_sharded` (a multi-card wrapper).
+`Ate2Kernel.check_sharded` splits the lanes over a mesh's axis: one K4
+launch a position (a stream a position on the card), the verdicts gathered
+to the host.
+
+Departures from the JAX package: one launch per batch, or per mesh
+position (no 8/16/64 lane buckets or 64-lane chunks: those bound XLA
+compiles).
 """
 
 from __future__ import annotations
@@ -536,6 +540,31 @@ class Ate2Kernel:
             return []
         mask = unity_check(self.tables, *lane_columns(pairs, self.device))
         return [bool(v) for v in mask.tolist()]
+
+    def check_sharded(self, pairs: Sequence[Pair], mesh, axis: str = "data") -> List[bool]:
+        """Lane-sharded pairing over a `parallel.mesh.Mesh` (SURVEY P6): the
+        per-lane Miller loop and final exponentiation have no cross-lane
+        work, so the lanes, padded with dead lanes (ok False) to a multiple
+        of the axis size, split evenly over the devices along `axis`, one
+        launch each; the real lanes' verdicts come back. The line tables
+        are the kernel's, copied once to each device."""
+        from fabric_tpu_torch.parallel.mesh import run_positions
+
+        n = len(pairs)
+        if n == 0:
+            return []
+        devices = mesh.positions(axis)
+        for device in devices:
+            cudalib.resolve_device(device, "Ate2 pairing")
+        w = -(-n // len(devices))
+        lanes = list(pairs) + [None] * (w * len(devices) - n)
+
+        def job(chunk):
+            return lambda device: unity_check(self.tables, *lane_columns(chunk, device))
+
+        masks = run_positions([(device, job(lanes[j * w:(j + 1) * w]))
+                               for j, device in enumerate(devices)])
+        return [bool(v) for v in np.concatenate(masks)[:n]]
 
 
 @functools.lru_cache(maxsize=8)

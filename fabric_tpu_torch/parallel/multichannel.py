@@ -11,14 +11,18 @@ channel's signatures: the counterpart of the JAX package's
 `jax.jit(jax.vmap(verify_batch_device))` over a channel axis
 (`parallel/sharded.py:69-85`). Each channel then finishes its host phases
 (principal matching, policy circuits, duplicate txids) in its own
-`BlockValidator`, as on the single-channel path. The port runs on one
-H100, so there is no mesh: the channel axis is a stretch of lanes.
+`BlockValidator`, as on the single-channel path. Without a mesh the
+channel axis is a stretch of lanes. With one (`mesh=`, the JAX
+constructor's `mesh`, `fabric_tpu/parallel/multichannel.py:31-33`; a keyword
+here, after the validators, so that callers without a mesh keep working)
+the stack goes through `ShardedVerify.verify_channels`: one K1 launch a mesh
+position over its channels' block of lanes.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,7 +31,8 @@ from fabric_tpu_torch.common.limbparams import NLIMBS
 from fabric_tpu_torch.common.txflags import ValidationFlags
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, _bucket
 from fabric_tpu_torch.ops import p256_kernel as pk
-from fabric_tpu_torch.parallel.sharded import channel_stack, pad_lanes
+from fabric_tpu_torch.parallel.mesh import Mesh
+from fabric_tpu_torch.parallel.sharded import ShardedVerify, channel_stack, pad_lanes
 from fabric_tpu_torch.validation.blockparse import parse_block
 from fabric_tpu_torch.validation.validator import BlockValidator
 
@@ -35,12 +40,19 @@ from fabric_tpu_torch.validation.validator import BlockValidator
 class MultiChannelValidator:
     """Validates one block per channel, every channel's signatures in one
     K1 launch on `device` (the card unless the caller asks for "cpu", where
-    K1's plain version runs)."""
+    K1's plain version runs), or in one K1 launch a position of `mesh`."""
 
-    def __init__(self, validators: Dict[str, BlockValidator], device=None):
+    sharded: Optional[ShardedVerify] = None  # K1 over the mesh, when there is one
+
+    def __init__(self, validators: Dict[str, BlockValidator], device=None,
+                 mesh: Optional[Mesh] = None):
         self.validators = dict(validators)
+        if mesh is not None:
+            self.sharded = ShardedVerify(mesh)
+        if device is None:
+            device = mesh.grid()[0, 0] if mesh is not None else "cuda"
         # the host prep (native DER parse, key-limb cache) shared by the channels
-        self._prep = CUDAProvider(device="cuda" if device is None else device)
+        self._prep = CUDAProvider(device=device)
         # launch to mask on the host, the last validate's K1 step (copies
         # included), in milliseconds
         self.last_device_ms = 0.0
@@ -70,15 +82,20 @@ class MultiChannelValidator:
 
         # each channel's stretch of lanes starts on a K1 block boundary
         widest = max(per_channel[ch][5][-1].shape[0] for ch in channels)
-        lanes = pad_lanes(_bucket(max(widest, 1)), pk.LANES_PER_BLOCK)
-        stacked = channel_stack([per_channel[ch][5] for ch in channels], lanes, len(channels))
+        data = self.sharded.data_size if self.sharded else 1
+        lanes = pad_lanes(_bucket(max(widest, 1)), pk.LANES_PER_BLOCK * data)
+        n_stack = pad_lanes(len(channels), self.sharded.channel_size if self.sharded else 1)
+        stacked = channel_stack([per_channel[ch][5] for ch in channels], lanes, n_stack)
         t_dev = time.perf_counter()
-        dev = self._prep.device
-        # (channels, 20, lanes) -> (20, channels * lanes): the channels end to end
-        args = [torch.from_numpy(np.ascontiguousarray(a.transpose(1, 0, 2).reshape(NLIMBS, -1)))
-                .to(dev) for a in stacked[:5]]
-        args.append(torch.from_numpy(stacked[5].reshape(-1)).to(dev))
-        masks = pk.verify_batch(*args).cpu().numpy().reshape(len(channels), lanes)
+        if self.sharded is not None:
+            masks = self.sharded.verify_channels(*stacked)
+        else:
+            dev = self._prep.device
+            # (channels, 20, lanes) -> (20, channels * lanes): the channels end to end
+            args = [torch.from_numpy(np.ascontiguousarray(
+                a.transpose(1, 0, 2).reshape(NLIMBS, -1))).to(dev) for a in stacked[:5]]
+            args.append(torch.from_numpy(stacked[5].reshape(-1)).to(dev))
+            masks = pk.verify_batch(*args).cpu().numpy().reshape(len(channels), lanes)
         self.last_device_ms = (time.perf_counter() - t_dev) * 1e3
 
         out: Dict[str, ValidationFlags] = {}

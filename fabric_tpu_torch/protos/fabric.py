@@ -1,10 +1,11 @@
 """Schemas of the block, transaction, MSP and policy messages for the wire codec.
 
 The port's counterpart of the JAX package's `common_pb2`, `peer_pb2`,
-`identities_pb2`, `msp_principal_pb2`, `policies_pb2`, `collection_pb2` and
-`lifecycle_pb2`, as far as the block validator, the transaction builder, the
-policy conversion, the collections, `_lifecycle` and the legacy validation
-use them (`protos/src/{common,peer,identities,msp_principal,policies,
+`identities_pb2`, `msp_principal_pb2`, `msp_config_pb2` (the Idemix MSP's
+two messages), `policies_pb2`, `collection_pb2` and `lifecycle_pb2`, as far
+as the block validator, the transaction builder, the policy conversion, the
+collections, `_lifecycle`, the legacy validation and the Idemix MSP use them
+(`protos/src/{common,peer,identities,msp_principal,msp_config,policies,
 collection,lifecycle}.proto`). Messages
 are dicts in `wire.decode`'s form; `wire.encode` writes them byte for byte as
 protobuf's `SerializeToString` does. Map fields (`ChaincodeProposalPayload.
@@ -114,6 +115,13 @@ TRANSACTION: Schema = {1: _msg("actions", TRANSACTION_ACTION, repeated=True)}
 
 # identities.proto, msp_principal.proto
 SERIALIZED_IDENTITY: Schema = {1: Field("mspid", "string"), 2: Field("id_bytes", "bytes")}
+SERIALIZED_IDEMIX_IDENTITY: Schema = {
+    1: Field("nym_x", "bytes"),
+    2: Field("nym_y", "bytes"),
+    3: Field("ou", "bytes"),
+    4: Field("role", "bytes"),
+    5: Field("proof", "bytes"),
+}
 MSP_PRINCIPAL: Schema = {
     1: Field("principal_classification", "enum"),
     2: Field("principal", "bytes"),
@@ -125,6 +133,23 @@ ORGANIZATION_UNIT_MSG: Schema = {
     1: Field("msp_identifier", "string"),
     2: Field("organizational_unit_identifier", "string"),
     3: Field("certifiers_identifier", "bytes"),
+}
+
+# msp_config.proto: the Idemix MSP's configuration
+IDEMIX_MSP_SIGNER_CONFIG: Schema = {
+    1: Field("cred", "bytes"),
+    2: Field("sk", "bytes"),
+    3: Field("organizational_unit_identifier", "string"),
+    4: Field("role", "int32"),
+    5: Field("enrollment_id", "string"),
+    6: Field("credential_revocation_information", "bytes"),
+}
+IDEMIX_MSP_CONFIG: Schema = {
+    1: Field("name", "string"),
+    2: Field("ipk", "bytes"),
+    3: _msg("signer", IDEMIX_MSP_SIGNER_CONFIG),
+    4: Field("revocation_pk", "bytes"),
+    5: Field("epoch", "int64"),
 }
 
 # policies.proto; SignaturePolicy and NOutOf refer to each other

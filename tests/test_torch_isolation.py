@@ -3,8 +3,9 @@ cryptography (the card's machine has neither of the last two), nor yaml
 (not known to be on the card's machine), and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
-raises at construction, and so do `bccsp.probe_provider()` and a serve
-sidecar on the "auto" or "device" engine. The alias modules under the JAX package's old paths
+raises at construction, and so do `bccsp.probe_provider()`, a serve
+sidecar on the "auto" or "device" engine, the default device mesh and
+`MeshCUDAProvider()`. The alias modules under the JAX package's old paths
 (`validation/{msgvalidation,txflags}`, `crypto/{der,p256,fp256bn}`) are the
 port's own modules; loading a validation plugin by module path brings in no
 JAX; and a Channel takes `writeset_check`, `plugin_registry` and
@@ -55,6 +56,7 @@ from fabric_tpu_torch.peer.channel import Channel
 from fabric_tpu_torch.crypto.bccsp import probe_provider
 from fabric_tpu_torch.crypto.factory import FactoryError
 from fabric_tpu_torch.serve.server import SidecarServer
+from fabric_tpu_torch.parallel import MeshCUDAProvider, flat_mesh, grid_mesh
 scratch = tempfile.mkdtemp()
 parse_block([b""])  # the native pass: the port's own library, built on first use
 with open("/proc/self/maps") as maps:
@@ -81,7 +83,9 @@ for name, make in (("CUDAProvider", CUDAProvider),
                    ("probe_provider", probe_provider),
                    ("SidecarServer", lambda: SidecarServer(scratch + "/s.sock")),
                    ("SidecarServer_device", lambda: SidecarServer(scratch + "/t.sock",
-                                                                  engine="device"))):
+                                                                  engine="device")),
+                   ("flat_mesh", flat_mesh), ("grid_mesh", lambda: grid_mesh(1)),
+                   ("MeshCUDAProvider", MeshCUDAProvider)):
     try:
         make()
         refused[name] = None
@@ -121,7 +125,8 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "channelconfig.encoder", "peer.aclmgmt", "crypto.hostec", "crypto.hostec_np",
                  "crypto.hostbn", "crypto.factory", "crypto.pkcs11", "serve", "serve.__main__",
                  "serve.protocol", "serve.qos", "serve.registry", "serve.server", "serve.client",
-                 "serve.router", "serve.fleetload"):
+                 "serve.router", "serve.fleetload", "common.p384", "msp.idemix_msp", "cli",
+                 "cli.idemixgen", "parallel", "parallel.mesh", "parallel.provider"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -130,7 +135,8 @@ def test_port_imports_no_jax_and_needs_a_card():
         if path.suffix in (".py", ".cc", ".h", ".cu"):
             assert "libfabric_native" not in path.read_text(), path
     if not torch.cuda.is_available():
-        assert {"probe_provider", "SidecarServer", "SidecarServer_device"} <= set(report["refused"])
+        assert {"probe_provider", "SidecarServer", "SidecarServer_device", "flat_mesh",
+                "grid_mesh", "MeshCUDAProvider"} <= set(report["refused"])
         for name, refused in report["refused"].items():
             assert refused, f"{name}() must raise without a card"
 
