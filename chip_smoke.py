@@ -238,7 +238,7 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      Boneh-Boyen signature verified and refused on another message;
  26. mesh_sharded: the multi-device wrappers over the card listed 4 times.
      ShardedVerify.verify_flat at the headline's 32,768 lanes over
-     flat_mesh() (1 K1 launch) and over the 4-times mesh (4, a stream
+     flat_mesh() (1 K1 launch a card) and over the 4-times mesh (4, a stream
      each), beside the unsharded K1 call, in turns; MeshCUDAProvider:
      config #2's block through BlockValidator (one K2 launch, unsharded, as
      the reference's batch_verify) and _run_kernel on the limb route's
@@ -247,8 +247,21 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      unsharded one; Ate2Kernel.check_sharded at config #3's 256 lanes (4
      K4 launches) beside check. Every mask and flag byte equal to the
      unsharded call's and the oracle's; K1 alone at 32,768 lanes and at a
-     quarter of them;
- 27. the launch floor (a kernel that does nothing, timed as the kernels
+     quarter of them; on a host with several cards, each form again over
+     meshes of distinct cards, every launch on its position's card;
+ 27. endorse_config2: Fabric's transaction flow at config #2's width.
+     Org1's client signs 3,008 proposals of benchcc; Org1's and Org2's
+     peers each check the creator (Identity.verify: one K2 launch of one
+     lane), simulate over their committed state and sign; the client's
+     envelopes go to a SoloChain that cuts and signs 1,000-tx blocks into
+     both peers' CommitPipelines (the orderer's signature through
+     block_signature_verifier, K2, the key combs, K5). 8 proposals refused
+     by both endorsers, 100 MVCC_READ_CONFLICT, 4
+     ENDORSEMENT_POLICY_FAILURE; both peers, the expected codes and a
+     serial host-MVCC ledger equal; qscc's answers against the ledger;
+     every K2 lane against hostec_np. The smoke also prints whether grpc and
+     yaml import (the `modules` line, after the build);
+ 28. the launch floor (a kernel that does nothing, timed as the kernels
      are), the kernels line with it as floor_ms, then the card's name and
      power limit.
 
@@ -5102,8 +5115,15 @@ def mesh_sharded_phase(torch, np, dev, inputs: dict) -> dict:
     grid_mesh(4, 1) on config #5's four channels (4 K1 launches a validate);
     Ate2Kernel.check_sharded at config #3's 256 lanes over the 4-times mesh
     (4 K4 launches). Every mask and flag byte equal to the unsharded launch
-    on the same inputs, each call form timed in turns. Returns the phase's
-    launches (counts zeroed at its start)."""
+    on the same inputs, each call form timed in turns. flat_mesh() spans
+    every card of the host, so its call is one K1 launch a card. On a host
+    with more than one card (`distinct_devices`, after the path's counts are
+    read), the same calls over distinct cards: verify_flat over flat_mesh()
+    and grid_mesh(2, 2), MeshCUDAProvider's _run_kernel over flat_mesh(),
+    MultiChannelValidator over grid_mesh(4, 1) and grid_mesh(2, 2), and
+    check_sharded over flat_mesh(), every mask and flag byte equal to the
+    unsharded launch's and each position's launch on its own card. Returns
+    the phase's launches (counts zeroed at its start)."""
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
     from fabric_tpu_torch.idemix import scheme
     from fabric_tpu_torch.ops import p256_kernel as pk
@@ -5139,10 +5159,11 @@ def mesh_sharded_phase(torch, np, dev, inputs: dict) -> dict:
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in limbs]
         return np.array(pk.verify_batch(*args).cpu().tolist(), dtype=bool)
 
+    n_cards = torch.cuda.device_count()
     flat, four = ShardedVerify(flat_mesh()), ShardedVerify(mesh4)
     forms = {"unsharded": unsharded, "flat_mesh": lambda: flat.verify_flat(*limbs),
              "mesh4": lambda: four.verify_flat(*limbs)}
-    per_call = {"unsharded": 1, "flat_mesh": 1, "mesh4": MESH_POSITIONS}
+    per_call = {"unsharded": 1, "flat_mesh": n_cards, "mesh4": MESH_POSITIONS}
     flat_ms = {name: [] for name in forms}
     for _ in range(MESH_RUNS):
         for name, fn in forms.items():
@@ -5233,7 +5254,12 @@ def mesh_sharded_phase(torch, np, dev, inputs: dict) -> dict:
     quarter = [a[..., :a.shape[-1] // MESH_POSITIONS].contiguous() for a in resident]
     k1_ms = {"full": device_ms(torch, lambda: pk.verify_batch(*resident), 3),
              "quarter": device_ms(torch, lambda: pk.verify_batch(*quarter), 3)}
-    emit({"phase": "mesh_sharded", "positions": MESH_POSITIONS,
+    distinct = None
+    if n_cards > 1:
+        distinct = mesh_distinct_devices(torch, np, dev, inputs, limbs, cols, pairs, kernel,
+                                         unsharded_mask=head_want, block_flags=block_flags["cuda"],
+                                         limb_mask=plain_limb)
+    emit({"phase": "mesh_sharded", "positions": MESH_POSITIONS, "cards": n_cards,
           "verify_flat": {"lanes": len(head_rows), "ms": flat_ms, "k1_per_call": per_call,
                           "k1_device_ms": k1_ms, "masks_equal_unsharded": True},
           "provider": {"block_ms": block_ms, "k2_per_block": 1, "block_flags_equal": True,
@@ -5247,6 +5273,555 @@ def mesh_sharded_phase(torch, np, dev, inputs: dict) -> dict:
                             "k4_per_call": {"check": 1, "check_sharded": MESH_POSITIONS},
                             "verdicts_equal_check": True},
           "k1_launches_verify_flat": k1_flat, "launches": launches,
+          "distinct_devices": distinct,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def mesh_distinct_devices(torch, np, dev, inputs: dict, limbs, cols, pairs, kernel,
+                          unsharded_mask, block_flags, limb_mask) -> dict:
+    """mesh_sharded over distinct cards (a host with more than one): each
+    call form over meshes of different cards, every mask and flag byte equal
+    to the unsharded launch's (`unsharded_mask`, `block_flags`, `limb_mask`,
+    config #5's flags each channel alone), and the device of every K1 and
+    K4 launch recorded by wrapping the wrappers the mesh code calls: the
+    launches of a call run one on each position's card. Returns what each
+    form launched where."""
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.ops import p256_kernel as pk
+    from fabric_tpu_torch.ops import pairing_kernel as pkn
+    from fabric_tpu_torch.parallel import (MeshCUDAProvider, MultiChannelValidator,
+                                           ShardedVerify, flat_mesh, grid_mesh)
+    from fabric_tpu_torch.protos import fabric, wire
+
+    seen = []
+    real_k1, real_k4 = pk.verify_batch, pkn.unity_check
+
+    def k1(*args, **kw):
+        seen.append(("K1", str(args[0].device)))
+        return real_k1(*args, **kw)
+
+    def k4(tables, *cols_, **kw):
+        seen.append(("K4", str(cols_[0].device)))
+        return real_k4(tables, *cols_, **kw)
+
+    n_cards = torch.cuda.device_count()
+    meshes = {"flat_mesh": flat_mesh()}
+    if n_cards >= 4:
+        meshes.update(grid_2x2=grid_mesh(2, 2), grid_4x1=grid_mesh(4, 1))
+    out = {}
+
+    def check(name, mesh, fn, want, kind="K1", row=False):
+        del seen[:]
+        got = fn()
+        positions = [str(d) for d in (mesh.grid()[0] if row else mesh.grid().reshape(-1))]
+        launched = [d for k, d in seen if k == kind]
+        if got != want:
+            raise AssertionError(f"mesh_sharded: {name} over distinct cards differs from the "
+                                 f"unsharded launch")
+        if sorted(launched) != sorted(positions) or len(set(launched)) != len(launched):
+            raise AssertionError(f"mesh_sharded: {name} launched on {launched}, mesh {positions}")
+        out[name] = {"mesh": str(mesh), "launches_on": launched, "equal_unsharded": True}
+
+    c5 = inputs["config5"]
+    channels = sorted(c5["raw"])
+
+    def c5_flags(mv):
+        flags = mv.validate({ch: wire.decode(fabric.BLOCK, c5["raw"][ch]) for ch in channels})
+        return [flags[ch].tobytes() for ch in channels]
+
+    pk.verify_batch, pkn.unity_check = k1, k4
+    try:
+        for label, mesh in meshes.items():
+            sv = ShardedVerify(mesh)
+            check(f"verify_flat/{label}", mesh, lambda: sv.verify_flat(*limbs).tolist(),
+                  unsharded_mask, row=True)
+            mv = MultiChannelValidator({ch: c5["net"].validator(CUDAProvider(device=dev),
+                                                                channel=ch)
+                                        for ch in channels}, mesh=mesh)
+            check(f"config5/{label}", mesh, lambda: c5_flags(mv),
+                  [c5["alone"][ch] for ch in channels])
+        mesh = meshes["flat_mesh"]
+        mprov = MeshCUDAProvider(mesh)
+        limb_rows = inputs["limb"][0]
+        check("run_kernel/flat_mesh", mesh,
+              lambda: mprov._run_kernel(mprov.prep_limbs(*cols(limb_rows))), limb_mask, row=True)
+        raw_block = wire.encode(fabric.BLOCK, inputs["net"].make_block(inputs["config2"], 1))
+        flags = inputs["net"].validator(mprov).validate(wire.decode(fabric.BLOCK, raw_block))
+        if flags.tobytes() != block_flags:
+            raise AssertionError("mesh_sharded: MeshCUDAProvider's block over distinct cards")
+        check("check_sharded/flat_mesh", mesh, lambda: kernel.check_sharded(pairs, mesh),
+              kernel.check(pairs), kind="K4")
+    finally:
+        pk.verify_batch, pkn.unity_check = real_k1, real_k4
+    return {"cards": n_cards, "forms": out}
+
+
+# ---------------------------------------------------------------------------
+# The endorsement side and the solo orderer: endorse_config2
+# ---------------------------------------------------------------------------
+
+ENDORSE_SEED = CONFIG2_SEED + 16  # the orderer org's material (ConfigNet) beside Config2Net's
+# three blocks of proposals: (round's name, its block's MVCC conflicts,
+# proposals with a flipped client signature, envelopes with a flipped
+# endorsement signature)
+ENDORSE_ROUNDS = (("put", False, 0, 0), ("read_write", True, 0, 0), ("refused", False, 8, 4))
+# the solo orderer's BatchSize: MaxMessageCount is the block's 1,000 txs;
+# PreferredMaxBytes and AbsoluteMaxBytes are configtx.yaml's AbsoluteMaxBytes
+# (99 MB), so the count cuts (a config #2 block of 1,000 envelopes holds
+# about 3 MB, past the 2 MB PreferredMaxBytes default)
+ENDORSE_MAX_BYTES = 99 * 1024 * 1024
+
+
+class BenchCC:
+    """benchcc as endorse_config2 runs it in process, over either package's
+    shim module (`shim`): `put k` writes k (config #2's transaction shape,
+    one write); `rw k [k2]` reads each key and writes k (config #4's
+    in-block conflict pattern when k2 is written earlier in the block)."""
+
+    def __init__(self, shim):
+        self.shim = shim
+
+    def init(self, stub):
+        return self.shim.success()
+
+    def invoke(self, stub):
+        fn, params = stub.get_function_and_parameters()
+        if fn == "put" and len(params) == 1:
+            stub.put_state(params[0], b"v")
+            return self.shim.success()
+        if fn == "rw" and params:
+            for key in params:
+                stub.get_state(key)
+            stub.put_state(params[0], b"w")
+            return self.shim.success()
+        return self.shim.error_response(f"benchcc: unknown function {fn}")
+
+
+class EndorseNet:
+    """endorse_config2's network and traffic: Config2Net's Org1-3, client
+    and endorsing peers (bench.py `_Net`, 314-388) and ConfigNet's orderer
+    org and genesis block (the port's encoder), minted from `seed`; the
+    proposals of each round of ENDORSE_ROUNDS, the codes each block must
+    get, computed from the round alone."""
+
+    def __init__(self, seed=ENDORSE_SEED, channel=CONFIG2_CHANNEL):
+        self.net = Config2Net(seed=seed)
+        self.cn = ConfigNet(self.net, seed=seed + 1)
+        self.channel = channel
+        self.genesis = self.cn.genesis(channel)
+
+    @staticmethod
+    def args(conflict: bool, i: int):
+        """Proposal i's chaincode arguments: `put k{i}`, or with `conflict`
+        `rw k{i}` that also reads k{i-1} when i % 10 == 9."""
+        if not conflict:
+            return [b"put", b"k%d" % i]
+        return [b"rw", b"k%d" % i] + ([b"k%d" % (i - 1)] if i % 10 == 9 else [])
+
+    def refused(self, rnd: int, n: int, refused: int) -> set:
+        """The proposals of round `rnd` (of `n`) with a flipped client signature."""
+        import random
+
+        return set(random.Random(f"refused {self.channel} {rnd}").sample(range(n), refused))
+
+    def flipped(self, rnd: int, n_txs: int, flipped: int) -> set:
+        """The ordered envelopes of round `rnd` with a flipped endorsement
+        signature: `flipped` (at most n_txs // 10) positions 10 j + 3, away
+        from the conflict pattern."""
+        import random
+
+        slots = random.Random(f"flipped {self.channel} {rnd}").sample(
+            range(n_txs // 10), min(flipped, n_txs // 10))
+        return {10 * j + 3 for j in slots}
+
+    def proposals(self, rnd: int, n_txs: int):
+        """Round `rnd`'s proposals, client-signed: [(bundle, SignedProposal,
+        refused)], n_txs + the round's refused ones. The client's random
+        stream is reseeded from the channel and the round first."""
+        from fabric_tpu_torch.endorser import txbuilder as tb
+
+        _, conflict, refused, _ = ENDORSE_ROUNDS[rnd]
+        n = n_txs + refused
+        bad = self.refused(rnd, n, refused)
+        self.net.rng.seed(f"endorse {self.channel} {rnd}")
+        out = []
+        for i in range(n):
+            bundle = tb.create_proposal(self.net.client, self.channel, "benchcc",
+                                        self.args(conflict, i))
+            signed = tb.create_signed_proposal(bundle, self.net.client)
+            if i in bad:
+                sig = signed["signature"]
+                signed = {**signed, "signature": sig[:-1] + bytes([sig[-1] ^ 0x01])}
+            out.append((bundle, signed, i in bad))
+        return out
+
+    def envelopes(self, rnd: int, endorsed, n_txs: int):
+        """The client's envelopes of round `rnd` from `endorsed` ([(bundle,
+        [responses])] of the proposals both peers endorsed, in order), the
+        round's flipped endorsements re-signed with one signature flipped."""
+        from fabric_tpu_torch.endorser import txbuilder as tb
+
+        flip = self.flipped(rnd, n_txs, ENDORSE_ROUNDS[rnd][3])
+        out = []
+        for j, (bundle, responses) in enumerate(endorsed):
+            env = tb.create_signed_tx(bundle, self.net.client, responses)
+            out.append(self.net.resigned(env, self.net.flip_endorsement) if j in flip else env)
+        return out
+
+    def codes(self, rnd: int, n_txs: int) -> bytes:
+        """The TRANSACTIONS_FILTER round `rnd`'s block must get."""
+        _, conflict, _, flipped = ENDORSE_ROUNDS[rnd]
+        codes = [MASK_CODES["valid"]] * n_txs
+        if conflict:
+            for i in range(9, n_txs, 10):
+                codes[i] = 11  # MVCC_READ_CONFLICT
+        for j in self.flipped(rnd, n_txs, flipped):
+            codes[j] = MASK_CODES["bad_endorsement"]
+        return bytes(codes)
+
+
+def endorsing_peer(en, k: int, path: str, provider, dev, endorser_cls=None, signer=None,
+                   device_mvcc=True):
+    """Peer k of endorse_config2 (Org1's for k = 0, Org2's for k = 1): a
+    bundle of the genesis block over `provider` (its MSPs verify a
+    creator's signature there), a Channel with the orderer's signature
+    checked through `block_signature_verifier` and the genesis block
+    committed, a ChaincodeSupport with benchcc and qscc, and an Endorser
+    (`endorser_cls`, default Endorser) signing with the peer's identity
+    (or `signer`). Returns (channel, endorser)."""
+    from fabric_tpu_torch.chaincode import shim
+    from fabric_tpu_torch.chaincode.support import ChaincodeSupport
+    from fabric_tpu_torch.channelconfig.bundle import bundle_from_genesis_block
+    from fabric_tpu_torch.endorser.endorser import Endorser
+    from fabric_tpu_torch.orderer.blockwriter import block_signature_verifier
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.protos import fabric, wire
+    from fabric_tpu_torch.scc.qscc import QSCC
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    genesis_raw = wire.encode(fabric.BLOCK, en.genesis)
+    bundle = bundle_from_genesis_block(wire.decode(fabric.BLOCK, genesis_raw), provider)
+    registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", en.net.policy)])
+    ch = Channel(en.channel, path, bundle.msp_manager, registry, provider,
+                 verify_orderer_sig=block_signature_verifier(lambda: bundle),
+                 device_mvcc=device_mvcc, device=dev)
+    ch.ledger.commit(wire.decode(fabric.BLOCK, genesis_raw))
+    support = ChaincodeSupport()
+    support.register("benchcc", BenchCC(shim))
+    support.register("qscc", QSCC(lambda cid: ch.ledger if cid == en.channel else None),
+                     system=True)
+    endorser = (endorser_cls or Endorser)(
+        signer or en.net.endorsers[k], bundle.msp_manager, support,
+        get_ledger=lambda cid: ch.ledger if cid == en.channel else None)
+    return ch, endorser
+
+
+def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
+    """endorse_config2: Fabric's transaction flow at config #2's width on the
+    card, proposal -> endorse -> order -> validate -> commit. Org1's client
+    signs each round's proposals (`EndorseNet`); Org1's and Org2's peers
+    (`endorsing_peer`) each check the creator through their bundle's MSPs
+    (Identity.verify: one K2 launch of one lane), simulate benchcc over
+    their committed state and sign a response; the client assembles the
+    envelopes from the two equal responses; a SoloChain
+    (BatchConfig(max_message_count=1000) with ENDORSE_MAX_BYTES, the
+    orderer org's signer) cuts and signs one block a round and delivers it to both peers'
+    CommitPipelines, whose Channels check its orderer signature through
+    `block_signature_verifier` and validate and commit it (K2, the key
+    combs, K5). Both peers' Channels and MSPs share one
+    BatchingProvider(CUDAProvider). A round's proposals are endorsed only
+    after the previous block committed on both peers, as a Fabric client
+    waits for its commit event: a simulation reads the state the
+    committer thread writes. Rounds: 1,000 `put k{i}`; 1,000 read-writes
+    with config #4's conflict pattern (100 MVCC_READ_CONFLICT); 1,008
+    proposals of which 8 carry a flipped client signature (both endorsers
+    answer 500 "access denied"; never ordered) and 4 ordered envelopes a
+    flipped endorsement signature (ENDORSEMENT_POLICY_FAILURE). Then qscc
+    through Org1's endorser: GetChainInfo, GetBlockByNumber(2) and
+    GetTransactionByID of a conflicted tx, each against the committed
+    ledger. Checks: every response's status; each filter against
+    EndorseNet.codes; both peers' filters, commit hashes, .chain bytes and
+    SQLite rows equal; the same blocks stored serially on a third ledger
+    with the host MVCC equal; every K2 lane (each creator check's and each
+    batch's) held against SoftwareProvider(hostec_np); K2 once a creator
+    check and at least once a block, the key combs, K5 once a block on
+    each peer. Returns the phase's launches of K2, the key combs and K5."""
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from fabric_tpu_torch.chaincode import shim  # noqa: F401 - benchcc's shim
+    from fabric_tpu_torch.crypto import factory, hostec, hostec_np
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.endorser.endorser import Endorser
+    from fabric_tpu_torch.endorser import txbuilder as tb
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.orderer.blockcutter import BatchConfig
+    from fabric_tpu_torch.orderer.solo import SoloChain
+    from fabric_tpu_torch.parallel.batcher import BatchingProvider
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+    t_phase = time.perf_counter()
+    rounds = ENDORSE_ROUNDS
+    en = EndorseNet()
+    root = Path(__file__).resolve().parent / "build" / "smoke_endorse"
+    shutil.rmtree(root, ignore_errors=True)
+    times = {"validate": 0.0, "simulate_endorse": 0.0, "sign": 0.0, "process": [0.0, 0.0]}
+
+    class TimedEndorser(Endorser):
+        """Endorser with each step's host seconds added to `times`."""
+
+        def _validate(self, up):
+            t0 = time.perf_counter()
+            try:
+                return super()._validate(up)
+            finally:
+                times["validate"] += time.perf_counter() - t0
+
+        def _simulate_and_endorse(self, up):
+            t0 = time.perf_counter()
+            try:
+                return super()._simulate_and_endorse(up)
+            finally:
+                times["simulate_endorse"] += time.perf_counter() - t0
+
+    class TimedSigner:
+        """A peer's SigningIdentity with its signing seconds added to `times`."""
+
+        def __init__(self, signer):
+            self._signer = signer
+
+        def serialize(self):
+            return self._signer.serialize()
+
+        def sign(self, msg):
+            t0 = time.perf_counter()
+            try:
+                return self._signer.sign(msg)
+            finally:
+                times["sign"] += time.perf_counter() - t0
+
+    base = type(recording_cuda_provider(dev))
+
+    class CreatorRecording(base):
+        """The recording provider, also keeping each verify() lane (a
+        creator check: one K2 launch of one lane), its verdict and its
+        seconds."""
+
+        def __init__(self, device):
+            super().__init__(device)
+            self.verify_lanes = []
+            self.verify_s = 0.0
+
+        def verify(self, key, signature, digest):
+            t0 = time.perf_counter()
+            ok = super().verify(key, signature, digest)
+            self.verify_s += time.perf_counter() - t0
+            self.verify_lanes.append((key, signature, digest, ok))
+            return ok
+
+    recorder = CreatorRecording(dev)
+    bp = BatchingProvider(recorder)
+    peers, pipes, committed, errors = [], [], [[], []], []
+    sw = None
+    try:
+        for k in range(2):
+            ch, endorser = endorsing_peer(en, k, str(root / f"peer{k}"), bp, dev,
+                                          endorser_cls=TimedEndorser,
+                                          signer=TimedSigner(en.net.endorsers[k]))
+            peers.append((ch, endorser))
+            pipes.append(CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=(
+                lambda b, f, k=k: committed[k].append(
+                    (f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH]))),
+                on_error=lambda b, exc: errors.append(exc)))
+        delivered = []
+        solo = SoloChain(en.channel, signer=en.cn.orderer,
+                         batch_config=BatchConfig(max_message_count=n_txs,
+                                                  absolute_max_bytes=ENDORSE_MAX_BYTES,
+                                                  preferred_max_bytes=ENDORSE_MAX_BYTES),
+                         deliver=lambda b: delivered.append(wire.encode(fabric.BLOCK, b)),
+                         genesis_block=en.genesis)
+        if delivered != [wire.encode(fabric.BLOCK, en.genesis)]:
+            raise AssertionError("endorse_config2: the orderer did not bootstrap from genesis")
+        setup_s = time.perf_counter() - t_phase
+
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for key in table:
+                table[key] = 0
+        statuses, rounds_out, block_ms, sign_client_s = [], [], [], 0.0
+        envs_by_round = []
+        t_drive = time.perf_counter()
+        for rnd in range(len(rounds)):
+            t0 = time.perf_counter()
+            props = en.proposals(rnd, n_txs)
+            sign_client_s += time.perf_counter() - t0
+            endorsed, refused_seen = [], 0
+            for bundle, signed, refused in props:
+                responses = []
+                for k, (_, endorser) in enumerate(peers):
+                    t0 = time.perf_counter()
+                    resp = endorser.process_proposal(signed)
+                    times["process"][k] += time.perf_counter() - t0
+                    responses.append(resp)
+                got = [(r["response"].get("status", 0), r["response"].get("message", ""))
+                       for r in responses]
+                want = ([(500, "access denied: The signature is invalid")] * 2 if refused
+                        else [(200, "")] * 2)
+                if got != want:
+                    raise AssertionError(f"endorse_config2: round {rnd} proposal responses {got}")
+                if refused:
+                    refused_seen += 1
+                    continue
+                if responses[0]["payload"] != responses[1]["payload"]:
+                    raise AssertionError("endorse_config2: the peers' response payloads differ")
+                endorsed.append((bundle, responses))
+            statuses.append({"endorsed": len(endorsed), "refused": refused_seen})
+            envs = en.envelopes(rnd, endorsed, n_txs)
+            envs_by_round.append(envs)
+            # order: the n_txs-th envelope cuts the round's block
+            before = len(delivered)
+            for env in envs:
+                solo.order(env)
+            if len(delivered) != before + 1 or len(wire.decode(
+                    fabric.BLOCK, delivered[-1])["data"]["data"]) != n_txs:
+                raise AssertionError(f"endorse_config2: round {rnd} cut "
+                                     f"{len(delivered) - before} blocks")
+            t0 = time.perf_counter()
+            for pipe in pipes:
+                pipe.submit(wire.decode(fabric.BLOCK, delivered[-1]))
+            if not all(pipe.drain(timeout=300) for pipe in pipes) or errors:
+                raise AssertionError(f"endorse_config2: round {rnd} did not commit: {errors!r}")
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+        drive_s = time.perf_counter() - t_drive
+        n_props = sum(n_txs + r[2] for r in rounds)
+        unpack = sum(times["process"]) - times["validate"] - times["simulate_endorse"]
+        split = {"unpack": unpack, "validate_host": times["validate"] - recorder.verify_s,
+                 "validate_k2_round_trip": recorder.verify_s,
+                 "simulate": times["simulate_endorse"] - times["sign"], "sign": times["sign"]}
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md)}
+        stats = [pipe.stage_stats() for pipe in pipes]
+        n_blocks = len(rounds)
+
+        # --- the checks ---------------------------------------------------------
+        want_codes = [en.codes(rnd, n_txs) for rnd in range(n_blocks)]
+        if [f for f, _ in committed[0]] != want_codes or committed[0] != committed[1]:
+            raise AssertionError("endorse_config2: filters or commit hashes differ between the "
+                                 "peers or from the expected codes")
+        creator_checks = len(recorder.verify_lanes)
+        refused_lanes = [ok for _, _, _, ok in recorder.verify_lanes].count(False)
+        if creator_checks != 2 * n_props or refused_lanes != 2 * sum(r[2] for r in rounds):
+            raise AssertionError(f"endorse_config2: {creator_checks} creator checks, "
+                                 f"{refused_lanes} refused")
+        if (launches["p256_verify_bytes"] != creator_checks + len(recorder.records)
+                or len(recorder.records) < n_blocks or launches["p256_key_tables"] < 1
+                or launches["p256_verify_limbs"] or launches["mvcc_resolve"] != 2 * n_blocks
+                or launches["mvcc_resolve_global"]):
+            raise AssertionError(f"endorse_config2 launches: {launches}, "
+                                 f"{len(recorder.records)} batch launches")
+        # qscc through Org1's endorser, against the committed ledger
+        ledger = peers[0][0].ledger
+        conflicted = protoutil.unmarshal(fabric.CHANNEL_HEADER, wire.decode(
+            fabric.PAYLOAD, envs_by_round[1][9]["payload"])["header"]["channel_header"])["tx_id"]
+        qscc = {}
+        for name, args in (("GetChainInfo", [b"GetChainInfo", en.channel.encode()]),
+                           ("GetBlockByNumber", [b"GetBlockByNumber", en.channel.encode(), b"2"]),
+                           ("GetTransactionByID", [b"GetTransactionByID", en.channel.encode(),
+                                                   conflicted.encode()])):
+            bundle = tb.create_proposal(en.net.client, en.channel, "qscc", args)
+            resp = peers[0][1].process_proposal(tb.create_signed_proposal(bundle, en.net.client))
+            if resp["response"].get("status") != 200:
+                raise AssertionError(f"endorse_config2: qscc {name}: {resp['response']}")
+            qscc[name] = resp["response"].get("payload", b"")
+        info = wire.decode(fabric.BLOCKCHAIN_INFO, qscc["GetChainInfo"])
+        last = ledger.block_store.get_block_by_number(n_blocks)
+        block2 = wire.decode(fabric.BLOCK, qscc["GetBlockByNumber"])
+        sent2 = wire.decode(fabric.BLOCK, delivered[2])
+        pt = wire.decode(fabric.PROCESSED_TRANSACTION, qscc["GetTransactionByID"])
+        if (info != {"height": n_blocks + 1,
+                     "currentBlockHash": protoutil.block_header_hash(last["header"]),
+                     "previousBlockHash": last["header"]["previous_hash"]}
+                or (block2["header"], block2["data"]) != (sent2["header"], sent2["data"])
+                or block2["metadata"]["metadata"][fabric.TRANSACTIONS_FILTER] != want_codes[1]
+                or block2["metadata"]["metadata"][fabric.COMMIT_HASH] != committed[0][1][1]
+                or pt != {"transactionEnvelope": envs_by_round[1][9], "validationCode": 11}):
+            raise AssertionError("endorse_config2: a qscc answer differs from the ledger")
+        for pipe in pipes:
+            pipe.stop()
+        bp.stop()
+        for ch, _ in peers:
+            ch.ledger.close()
+
+        # --- the same blocks stored serially, MVCC on the host -----------------
+        ref, _ = endorsing_peer(en, 0, str(root / "reference"), CUDAProvider(device=dev), dev,
+                                device_mvcc=False)
+        t0 = time.perf_counter()
+        ref_out = []
+        for raw in delivered[1:]:
+            b = wire.decode(fabric.BLOCK, raw)
+            ref_out.append((ref.store_block(b).tobytes(),
+                            b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+        ref_s = time.perf_counter() - t0
+        ref.ledger.close()
+        if ref_out != committed[0]:
+            raise AssertionError("endorse_config2: the serial host-MVCC ledger differs")
+        chains = {p: (root / p / f"{en.channel}.chain").read_bytes()
+                  for p in ("peer0", "peer1", "reference")}
+        rows = {p: ledger_rows(root / p / f"{en.channel}.state.db")
+                for p in ("peer0", "peer1", "reference")}
+        if len(set(chains.values())) != 1 or not rows["peer0"] == rows["peer1"] == rows[
+                "reference"]:
+            raise AssertionError("endorse_config2: .chain bytes or SQLite rows differ")
+
+        # --- every K2 lane against SoftwareProvider(hostec_np) -----------------
+        t0 = time.perf_counter()
+        sw = factory.provider_from_config({**FACTORY_CONFIG, "Default": "SW"})
+        if sw.describe_backend() != "sw:hostec_np":
+            raise AssertionError(f"endorse_config2: host tier {sw.describe_backend()}")
+        lanes = [(k, s, d, ok) for k, s, d, ok in recorder.verify_lanes]
+        lanes += [lane for r in recorder.records
+                  for lane in zip(r["keys"], r["sigs"], r["digests"], r["verdicts"])]
+        held = []
+        for off in range(0, len(lanes), K2_HOLD_CHUNK):
+            chunk = lanes[off: off + K2_HOLD_CHUNK]
+            held += sw.batch_verify([k for k, _, _, _ in chunk], [s for _, s, _, _ in chunk],
+                                    [d for _, _, d, _ in chunk])
+        if held != [ok for _, _, _, ok in lanes]:
+            raise AssertionError("endorse_config2: K2 and hostec_np disagree on a lane")
+        hold_s = time.perf_counter() - t0
+    finally:
+        for pipe in pipes:
+            pipe.stop()
+        bp.stop()
+        hostec_np.shutdown_pool()
+        hostec.shutdown_pool()
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_endorsed = 2 * n_props
+    emit({"phase": "endorse_config2", "blocks": n_blocks, "txs_per_block": n_txs,
+          "rounds": [{"name": r[0], "proposals": n_txs + r[2], **s,
+                      "codes": {str(c): want_codes[i].count(c) for c in sorted(set(
+                          want_codes[i]))}}
+                     for i, (r, s) in enumerate(zip(rounds, statuses))],
+          "setup_seconds": setup_s, "drive_seconds": drive_s,
+          "client_sign_seconds": sign_client_s,
+          "ms_per_proposal": {k: v / n_endorsed * 1e3 for k, v in split.items()},
+          "ms_per_proposal_total": sum(times["process"]) / n_endorsed * 1e3,
+          "proposals_per_s_per_endorser": [n_props / t for t in times["process"]],
+          "ms_per_block_pipeline": block_ms, "stage_stats": stats,
+          "creator_checks": creator_checks, "creator_refused": refused_lanes,
+          "k2_batch_launches": len(recorder.records),
+          "k2_batch_lanes": [len(r["keys"]) for r in recorder.records],
+          "qscc": {"height": info["height"], "block_2_equal": True,
+                   "tx_validation_code": pt["validationCode"]},
+          "serial_host_mvcc": {"seconds": ref_s, "equal": True},
+          "k2_lanes_held": {"lanes": len(lanes), "seconds": hold_s},
+          "peers_equal": True, "launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -5275,6 +5850,22 @@ def floor_ms(torch, cudalib, dev, threads: int = 1, shared_bytes: int = 0) -> di
     launch()
     torch.cuda.synchronize()
     return {reps: device_ms(torch, launch, reps) for reps in FLOOR_REPS}
+
+
+def module_probe(names=("grpc", "yaml")) -> dict:
+    """Whether each module imports on this machine and its version, each in a
+    child process: the smoke itself imports neither."""
+    import subprocess
+
+    out = {}
+    for name in names:
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import {name}; print(getattr({name}, '__version__', ''))"],
+            capture_output=True, text=True, timeout=120)
+        err = proc.stderr.strip().splitlines()
+        out[name] = {"imports": proc.returncode == 0, "version": proc.stdout.strip() or None,
+                     "error": err[-1] if proc.returncode and err else None}
+    return out
 
 
 def main() -> int:
@@ -5327,6 +5918,9 @@ def main() -> int:
                        or "policy_eval_kernel" in fn},
     })
 
+    # whether the card's machine has what the grpc and yaml modules of the
+    # JAX package need, for the slices that port them
+    emit({"phase": "modules", **module_probe()})
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     imad_rate = IMAD_PER_SM_PER_CLOCK * sms * clock_hz
@@ -5383,6 +5977,11 @@ def main() -> int:
     for name in ("p256_verify_limbs", "p256_verify_bytes", "p256_key_tables", "ate2_unity"):
         row = next(k for k in kernels if k["name"] == name)
         row["mesh_sharded"] = {"launches": mesh_launches[name]}
+    # --- The endorsement side and the solo orderer: proposals to blocks -----
+    endorse_launches = endorse_phase(torch, np, dev)
+    for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["endorse_config2"] = {"launches": endorse_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

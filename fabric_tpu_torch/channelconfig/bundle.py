@@ -144,7 +144,7 @@ def local_msp_config_to_proto(cfg: MSPConfig) -> dict:
     return {"type": MSP_TYPE_FABRIC, "config": wire.encode(cfgpb.FABRIC_MSP_CONFIG, f)}
 
 
-def _parse_org(name: str, group: dict) -> Tuple[OrgConfig, Optional[MSP]]:
+def _parse_org(name: str, group: dict, provider=None) -> Tuple[OrgConfig, Optional[MSP]]:
     msp_cfg = _value(group, MSP_KEY, cfgpb.MSP_CONFIG)
     msp_obj = None
     msp_id = name
@@ -152,7 +152,7 @@ def _parse_org(name: str, group: dict) -> Tuple[OrgConfig, Optional[MSP]]:
         fabric_cfg = protoutil.unmarshal(cfgpb.FABRIC_MSP_CONFIG, msp_cfg.get("config", b""))
         local = fabric_msp_config_to_local(fabric_cfg)
         msp_id = local.msp_id
-        msp_obj = MSP(local)
+        msp_obj = MSP(local, provider)
     anchors: Tuple[Tuple[str, int], ...] = ()
     ap = _value(group, ANCHOR_PEERS_KEY, cfgpb.ANCHOR_PEERS)
     if ap is not None:
@@ -202,7 +202,7 @@ class Bundle:
             cr = _value(og, CHANNEL_RESTRICTIONS_KEY, cfgpb.CHANNEL_RESTRICTIONS)
             orgs = []
             for name, sub in sorted(og.get("groups", {}).items()):
-                org, msp_obj = _parse_org(name, sub)
+                org, msp_obj = _parse_org(name, sub, provider)
                 orgs.append(org)
                 if msp_obj is not None:
                     msps.append(msp_obj)
@@ -227,7 +227,7 @@ class Bundle:
         if ag is not None:
             orgs = []
             for name, sub in sorted(ag.get("groups", {}).items()):
-                org, msp_obj = _parse_org(name, sub)
+                org, msp_obj = _parse_org(name, sub, provider)
                 orgs.append(org)
                 if msp_obj is not None:
                     msps.append(msp_obj)
@@ -248,7 +248,7 @@ class Bundle:
             for cname, consortium in sorted(cg.get("groups", {}).items()):
                 corgs = []
                 for name, sub in sorted(consortium.get("groups", {}).items()):
-                    org, msp_obj = _parse_org(name, sub)
+                    org, msp_obj = _parse_org(name, sub, provider)
                     corgs.append(org)
                     if msp_obj is not None:
                         msps.append(msp_obj)

@@ -1,2 +1,3 @@
 """Endorsement-side transaction construction (reference core/endorser +
-protoutil/txutils.go CreateSignedTx), for tests and the chip smoke."""
+protoutil/txutils.go CreateSignedTx) and the endorser service
+(`endorser.Endorser.process_proposal`)."""

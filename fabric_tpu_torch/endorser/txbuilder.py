@@ -1,18 +1,21 @@
 """Proposal/transaction assembly (reference protoutil/txutils.go:
-CreateChaincodeProposal, CreateProposalResponse/GetProposalHash1,
-CreateSignedTx; the endorsement signature of plugin_endorser.go).
+CreateChaincodeProposal, GetSignedProposal, CreateProposalResponse/
+GetProposalHash1, CreateSignedTx; the endorsement signature of
+plugin_endorser.go).
 
 The port's counterpart of the JAX package's `endorser/txbuilder.py`, over
 the wire codec: the same messages, byte for byte, for the same identities
-and nonces. Messages are dicts in `wire.decode`'s form. Transient data is
-left out: it never enters the transaction, and the port's paths send none.
+and nonces. Messages are dicts in `wire.decode`'s form. A proposal may carry
+a transient map: it rides in the signed proposal's payload only, and the
+proposal hash and the transaction carry the sanitized payload without it
+(`cc_proposal_payload_tx`).
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 from fabric_tpu_torch.msp.signer import SigningIdentity
 from fabric_tpu_torch.protos import fabric, protoutil, wire
@@ -26,12 +29,17 @@ class ProposalBundle:
     tx_id: str
     channel_header: bytes
     signature_header: bytes
-    cc_proposal_payload: bytes
+    cc_proposal_payload: bytes  # with the transient map (the endorser's input)
+    cc_proposal_payload_tx: bytes  # sanitized: no transient map (goes in the tx)
     chaincode_name: str
 
 
 def create_proposal(
-    signer: SigningIdentity, channel_id: str, chaincode_name: str, args: Sequence[bytes]
+    signer: SigningIdentity,
+    channel_id: str,
+    chaincode_name: str,
+    args: Sequence[bytes],
+    transient: Optional[Dict[str, bytes]] = None,
 ) -> ProposalBundle:
     nonce = signer.new_nonce()
     creator = signer.serialize()
@@ -44,7 +52,10 @@ def create_proposal(
         "chaincode_id": {"name": chaincode_name},
         "input": {"args": list(args)},
     }}
-    ccpp = {"input": wire.encode(fabric.CHAINCODE_INVOCATION_SPEC, cis)}
+    ccpp_tx = {"input": wire.encode(fabric.CHAINCODE_INVOCATION_SPEC, cis)}
+    ccpp = dict(ccpp_tx)
+    if transient:
+        ccpp["TransientMap"] = dict(transient)
     return ProposalBundle(
         channel_id=channel_id,
         tx_id=tx_id,
@@ -52,27 +63,41 @@ def create_proposal(
         signature_header=wire.encode(
             fabric.SIGNATURE_HEADER, protoutil.make_signature_header(creator, nonce)),
         cc_proposal_payload=wire.encode(fabric.CHAINCODE_PROPOSAL_PAYLOAD, ccpp),
+        cc_proposal_payload_tx=wire.encode(fabric.CHAINCODE_PROPOSAL_PAYLOAD, ccpp_tx),
         chaincode_name=chaincode_name,
     )
 
 
+def create_signed_proposal(bundle: ProposalBundle, signer: SigningIdentity) -> dict:
+    """protoutil.GetSignedProposal: Proposal{header, payload with the
+    transient map} signed by the client over the serialized proposal
+    bytes; returns a SignedProposal message."""
+    header = wire.encode(fabric.HEADER, {"channel_header": bundle.channel_header,
+                                         "signature_header": bundle.signature_header})
+    proposal_bytes = wire.encode(fabric.PROPOSAL, {"header": header,
+                                                   "payload": bundle.cc_proposal_payload})
+    return {"proposal_bytes": proposal_bytes, "signature": signer.sign(proposal_bytes)}
+
+
 def proposal_hash(bundle: ProposalBundle) -> bytes:
     """GetProposalHash1: sha256 over channel header || signature header ||
-    chaincode proposal payload."""
+    sanitized chaincode proposal payload."""
     h = hashlib.sha256()
     h.update(bundle.channel_header)
     h.update(bundle.signature_header)
-    h.update(bundle.cc_proposal_payload)
+    h.update(bundle.cc_proposal_payload_tx)
     return h.digest()
 
 
-def endorse_proposal(bundle: ProposalBundle, endorser: SigningIdentity, results: bytes) -> dict:
+def endorse_proposal(bundle: ProposalBundle, endorser: SigningIdentity, results: bytes,
+                     response_payload: bytes = b"", events: bytes = b"") -> dict:
     """Simulate-free endorsement: wrap the given simulation `results`
     (serialized TxReadWriteSet) and sign prp || endorser identity; returns
     a ProposalResponse message."""
     action = {
         "results": results,
-        "response": {"status": 200},
+        "events": events,
+        "response": {"status": 200, "payload": response_payload},
         "chaincode_id": {"name": bundle.chaincode_name},
     }
     prp_bytes = wire.encode(fabric.PROPOSAL_RESPONSE_PAYLOAD, {
@@ -108,7 +133,7 @@ def create_signed_tx(
     if any(r.get("payload", b"") != payload_bytes for r in responses[1:]):
         raise ValueError("ProposalResponsePayloads do not match")
     cap = {
-        "chaincode_proposal_payload": bundle.cc_proposal_payload,
+        "chaincode_proposal_payload": bundle.cc_proposal_payload_tx,
         "action": {
             "proposal_response_payload": payload_bytes,
             "endorsements": [dict(r["endorsement"]) for r in responses],

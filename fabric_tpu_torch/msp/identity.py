@@ -6,7 +6,9 @@ port's own X.509 reader (`common/x509.py`) in place of `cryptography`, which
 the card's machine does not have. Each hop of a chain is checked with the
 port's P-256 oracle over the hash of the TBS bytes. The signature checks of
 transactions do not pass through here: the validator batches them to the
-provider.
+provider. `Identity.verify` (one signature, the endorser's creator check)
+goes to the provider the MSP was given; an MSP without one raises there, as
+there is no host check to fall back to.
 """
 
 from __future__ import annotations
@@ -71,11 +73,12 @@ def msp_config_from_pems(
 class Identity:
     """A deserialized (MSPID, X.509 cert) pair."""
 
-    def __init__(self, msp_id: str, cert: x509.Certificate):
+    def __init__(self, msp_id: str, cert: x509.Certificate, provider=None):
         if cert.public_key is None:
             raise MSPError("only ECDSA P-256 identities supported")
         self.msp_id = msp_id
         self.cert = cert
+        self._provider = provider
         self.public_key = ECDSAPublicKey(*cert.public_key)
         # memoized derived forms: an identity is deserialized once per
         # distinct cert but consulted per signature job
@@ -98,6 +101,20 @@ class Identity:
             self._fingerprint = hashlib.sha256(self.serialize()).digest()
         return self._fingerprint
 
+    def verify(self, msg: bytes, sig: bytes) -> None:
+        """Raises MSPError unless `sig` is this identity's signature over
+        `msg` (msp/identities.go Verify: SHA-256, then the provider's
+        verify); on `CUDAProvider` one K2 launch of one lane."""
+        if self._provider is None:
+            raise MSPError("identity has no provider to verify with")
+        digest = self._provider.hash(msg)
+        try:
+            ok = self._provider.verify(self.public_key, sig, digest)
+        except Exception as e:
+            raise MSPError(f"could not determine the validity of the signature: {e}")
+        if not ok:
+            raise MSPError("The signature is invalid")
+
 
 def _load_cert(pem: bytes) -> x509.Certificate:
     try:
@@ -109,9 +126,10 @@ def _load_cert(pem: bytes) -> x509.Certificate:
 class MSP:
     """bccspmsp analog: one organization's verification context."""
 
-    def __init__(self, config: MSPConfig):
+    def __init__(self, config: MSPConfig, provider=None):
         self.config = config
         self.msp_id = config.msp_id
+        self._provider = provider
         self._roots = [_load_cert(c) for c in config.root_certs]
         self._intermediates = [_load_cert(c) for c in config.intermediate_certs]
         self._admin_serialized = {
@@ -135,7 +153,7 @@ class MSP:
         mspid = sid.get("mspid", "")
         if mspid != self.msp_id:
             raise MSPError(f"expected MSP ID {self.msp_id}, received {mspid}")
-        ident = Identity(mspid, _load_cert(sid.get("id_bytes", b"")))
+        ident = Identity(mspid, _load_cert(sid.get("id_bytes", b"")), self._provider)
         if len(self._deser_cache) > 16384:
             self._deser_cache.clear()
         self._deser_cache[serialized] = ident

@@ -15,9 +15,9 @@ Policy kinds:
   every child manager (implicitmeta.go).
 
 Departures from the JAX package, both deliberate:
-- The port's `Identity` has no `verify`: a SignaturePolicy verifies every
-  surviving signature of a set in one `provider.batch_verify` call (K2
-  through `CUDAProvider` on the card) instead of one verify a signer.
+- A SignaturePolicy verifies every surviving signature of a set in one
+  `provider.batch_verify` call (K2 through `CUDAProvider` on the card)
+  instead of one `Identity.verify` a signer.
 - The JAX policies catch every exception of a signer (`manager.py:90`) and of
   a sub-policy (`:139`). The port catches only what is a verdict: an identity
   that fails to deserialize (`MSPError`, `WireError`) and a lane the provider

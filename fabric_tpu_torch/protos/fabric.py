@@ -4,22 +4,25 @@ The port's counterpart of the JAX package's `common_pb2`, `peer_pb2`,
 `identities_pb2`, `msp_principal_pb2`, `msp_config_pb2` (the Idemix MSP's
 two messages), `policies_pb2`, `collection_pb2` and `lifecycle_pb2`, as far
 as the block validator, the transaction builder, the policy conversion, the
-collections, `_lifecycle`, the legacy validation and the Idemix MSP use them
+collections, `_lifecycle`, the legacy validation, the Idemix MSP, the
+endorser, the system chaincodes and the orderer use them
 (`protos/src/{common,peer,identities,msp_principal,msp_config,policies,
 collection,lifecycle}.proto`). Messages
 are dicts in `wire.decode`'s form; `wire.encode` writes them byte for byte as
-protobuf's `SerializeToString` does. Map fields (`ChaincodeProposalPayload.
-TransientMap`, `ChaincodeInput.decorations`) are left out: nothing on the
-port's paths writes them, and the reader skips them as unknown fields.
+protobuf's `SerializeToString` does. `ChaincodeProposalPayload.TransientMap`
+is a map field (`wire._map`): a dict {key: bytes}, written in upb's key
+order. `ChaincodeInput.decorations` is left out: nothing on the port's paths
+writes it, and the reader skips it as an unknown field.
 """
 
 from __future__ import annotations
 
-from fabric_tpu_torch.protos.wire import Field, Schema, _msg
+from fabric_tpu_torch.protos.wire import Field, Schema, _map, _msg
 
 # common.HeaderType
 MESSAGE, CONFIG, CONFIG_UPDATE, ENDORSER_TRANSACTION = 0, 1, 2, 3
 # common.BlockMetadataIndex: SIGNATURES, LAST_CONFIG, TRANSACTIONS_FILTER, ORDERER, COMMIT_HASH
+SIGNATURES = 0
 TRANSACTIONS_FILTER = 2
 COMMIT_HASH = 4
 BLOCK_METADATA_SLOTS = 5
@@ -64,6 +67,12 @@ CHANNEL_HEADER: Schema = {
     8: Field("tls_cert_hash", "bytes"),
 }
 SIGNATURE_HEADER: Schema = {1: Field("creator", "bytes"), 2: Field("nonce", "bytes")}
+LAST_CONFIG: Schema = {1: Field("index", "uint64")}
+BLOCKCHAIN_INFO: Schema = {
+    1: Field("height", "uint64"),
+    2: Field("currentBlockHash", "bytes"),
+    3: Field("previousBlockHash", "bytes"),
+}
 
 # peer.proto
 CHAINCODE_ID: Schema = {
@@ -81,7 +90,20 @@ CHAINCODE_SPEC: Schema = {
 GOLANG = 1  # ChaincodeSpec.Type
 CHAINCODE_INVOCATION_SPEC: Schema = {1: _msg("chaincode_spec", CHAINCODE_SPEC)}
 CHAINCODE_HEADER_EXTENSION: Schema = {2: _msg("chaincode_id", CHAINCODE_ID)}
-CHAINCODE_PROPOSAL_PAYLOAD: Schema = {1: Field("input", "bytes")}
+CHAINCODE_DEPLOYMENT_SPEC: Schema = {
+    1: _msg("chaincode_spec", CHAINCODE_SPEC),
+    3: Field("code_package", "bytes"),
+}
+SIGNED_PROPOSAL: Schema = {1: Field("proposal_bytes", "bytes"), 2: Field("signature", "bytes")}
+PROPOSAL: Schema = {
+    1: Field("header", "bytes"),
+    2: Field("payload", "bytes"),
+    3: Field("extension", "bytes"),
+}
+CHAINCODE_PROPOSAL_PAYLOAD: Schema = {
+    1: Field("input", "bytes"),
+    2: _map("TransientMap", "string", Field("value", "bytes")),
+}
 RESPONSE: Schema = {
     1: Field("status", "int32"),
     2: Field("message", "string"),
@@ -112,6 +134,28 @@ CHAINCODE_ACTION_PAYLOAD: Schema = {
 }
 TRANSACTION_ACTION: Schema = {1: Field("header", "bytes"), 2: Field("payload", "bytes")}
 TRANSACTION: Schema = {1: _msg("actions", TRANSACTION_ACTION, repeated=True)}
+PROCESSED_TRANSACTION: Schema = {
+    1: _msg("transactionEnvelope", ENVELOPE),
+    2: Field("validationCode", "int32"),
+}
+CHAINCODE_EVENT: Schema = {
+    1: Field("chaincode_id", "string"),
+    2: Field("tx_id", "string"),
+    3: Field("event_name", "string"),
+    4: Field("payload", "bytes"),
+}
+CHANNEL_INFO: Schema = {1: Field("channel_id", "string")}
+CHANNEL_QUERY_RESPONSE: Schema = {1: _msg("channels", CHANNEL_INFO, repeated=True)}
+CHAINCODE_INFO: Schema = {
+    1: Field("name", "string"),
+    2: Field("version", "string"),
+    3: Field("path", "string"),
+    4: Field("input", "string"),
+    5: Field("escc", "string"),
+    6: Field("vscc", "string"),
+    7: Field("id", "bytes"),
+}
+CHAINCODE_QUERY_RESPONSE: Schema = {1: _msg("chaincodes", CHAINCODE_INFO, repeated=True)}
 
 # identities.proto, msp_principal.proto
 SERIALIZED_IDENTITY: Schema = {1: Field("mspid", "string"), 2: Field("id_bytes", "bytes")}

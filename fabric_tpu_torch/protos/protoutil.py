@@ -119,3 +119,16 @@ def unmarshal(schema: wire.Schema, raw: bytes) -> dict:
     """Parse or raise `wire.WireError`, a ValueError (the Go-style
     unmarshal-with-error wrapper)."""
     return wire.decode(schema, raw)
+
+
+def unmarshal_as(schema: wire.Schema, raw: bytes, full_name: str) -> dict:
+    """`unmarshal`, raising ValueError with the text the JAX package's
+    `protoutil.unmarshal` gives for the same bytes: "error unmarshalling
+    <Name>: Error parsing message with type '<full_name>'" (protobuf's
+    parse error names the message's full name, e.g. "common.Block")."""
+    try:
+        return wire.decode(schema, raw)
+    except wire.WireError as e:
+        short = full_name.rsplit(".", 1)[-1]
+        raise ValueError(f"error unmarshalling {short}: Error parsing message with type "
+                         f"'{full_name}'") from e

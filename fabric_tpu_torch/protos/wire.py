@@ -170,6 +170,15 @@ TX_RWSET: Schema = {
     1: Field("data_model", "enum"),
     2: _msg("ns_rwset", NS_RWSET, repeated=True),
 }
+COLLECTION_PVT_RWSET: Schema = {1: Field("collection_name", "string"), 2: Field("rwset", "bytes")}
+NS_PVT_RWSET: Schema = {
+    1: Field("namespace", "string"),
+    2: _msg("collection_pvt_rwset", COLLECTION_PVT_RWSET, repeated=True),
+}
+TX_PVT_RWSET: Schema = {
+    1: Field("data_model", "enum"),
+    2: _msg("ns_pvt_rwset", NS_PVT_RWSET, repeated=True),
+}
 
 # txmgr (txmgr_updates.proto): the commit hash's update bytes
 TXMGR_KV_WRITE: Schema = {

@@ -36,6 +36,7 @@ leaked = sorted(
     or m == "google.protobuf" or m.startswith("google.protobuf.")
     or m == "cryptography" or m.startswith("cryptography.")
     or m == "yaml" or m.startswith("yaml.")
+    or m == "grpc" or m.startswith("grpc.")
 )
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
 from fabric_tpu_torch.ledger.mvcc_device import DeviceValidator, ResidentDeviceValidator
@@ -126,7 +127,11 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "crypto.hostbn", "crypto.factory", "crypto.pkcs11", "serve", "serve.__main__",
                  "serve.protocol", "serve.qos", "serve.registry", "serve.server", "serve.client",
                  "serve.router", "serve.fleetload", "common.p384", "msp.idemix_msp", "cli",
-                 "cli.idemixgen", "parallel", "parallel.mesh", "parallel.provider"):
+                 "cli.idemixgen", "parallel", "parallel.mesh", "parallel.provider",
+                 "ledger.simulator", "chaincode", "chaincode.shim", "chaincode.support",
+                 "chaincode.package", "chaincode.extbuilder", "endorser.endorser", "scc",
+                 "scc.qscc", "scc.cscc", "scc.lscc", "scc.lifecycle_scc", "orderer",
+                 "orderer.blockcutter", "orderer.blockwriter", "orderer.solo"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -210,6 +215,27 @@ def test_channel_takes_writeset_check_plugins_and_mirror(tmp_path):
         assert ch.ledger.state_mirror is mirror
     finally:
         ch.ledger.close()
+
+
+_SLICE_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch import chaincode, orderer, scc
+from fabric_tpu_torch.chaincode import extbuilder, package
+from fabric_tpu_torch.endorser import endorser, txbuilder
+from fabric_tpu_torch.ledger import simulator
+from fabric_tpu_torch.orderer import blockwriter
+from fabric_tpu_torch.scc import lifecycle_scc
+print(json.dumps(sorted(m for m in ("torch", "grpc", "yaml") if m in sys.modules)))
+"""
+
+
+def test_endorsement_and_orderer_modules_import_no_torch():
+    """The endorsement side and the solo orderer touch no tensor, so they
+    load neither torch nor grpc nor yaml."""
+    out = subprocess.run([sys.executable, "-c", _SLICE_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 _HOST_TIER_PROBE = r"""

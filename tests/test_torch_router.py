@@ -235,6 +235,15 @@ def test_hedge_wins_against_a_gray_endpoint(fleet):
     assert rt.hedges == 0
     rt.hedge_min_s = 0.010
     victim = rt._order(32)[0]
+    # the tracker learned the three warm batches; their latencies follow the
+    # machine's load (a loaded host's 32-lane batch can take hundreds of ms,
+    # pushing 2 x p95 past the 1,500 ms gray delay), so the learned window is
+    # replaced by three 20 ms samples: the hedge fires at 40 ms whatever the load
+    assert victim.tracker.samples == 3
+    victim.tracker = router._LatencyTracker()
+    for _ in range(3):
+        victim.tracker.record(0.020)
+    assert victim.hedge_delay_s(rt.hedge_min_s) == 0.040
     gray = _server_of(servers, victim)
     plan = FaultPlan.parse(f"serve.dispatch=delay:1.0:ms=1500:at={gray.chaos_key}", seed=3)
     with fabobs.obs_installed() as obs, plan_installed(plan):

@@ -45,6 +45,7 @@ from fabric_tpu.serve import registry as jregistry
 from fabric_tpu.serve import server as jserver
 from fabric_tpu_torch.common import der, fabobs, p256
 from fabric_tpu_torch.common.faults import FaultPlan, plan_installed
+from fabric_tpu_torch.common.retry import CooldownGate
 from fabric_tpu_torch.crypto import bccsp, hostec, hostec_np
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
 from fabric_tpu_torch.crypto.factory import FactoryError, provider_from_config
@@ -967,6 +968,10 @@ def test_dead_address_rescued_and_dial_cooldown(sockdir, monkeypatch):
     orig = provider.client._connect
     monkeypatch.setattr(provider.client, "_connect",
                         lambda: calls.append(1) or orig())
+    # the dial gate's cooldown on a clock that stands still: a loaded host's
+    # rescue can outlast the cooldown's 0.5 s on the wall clock
+    provider.client._dial_gate = CooldownGate(provider.client._dial_gate.policy,
+                                              clock=lambda: 0.0)
     try:
         assert provider.batch_verify(*lanes.port()) == lanes.expected
         assert len(calls) == 1 and not provider.client._dial_gate.ready()
