@@ -2220,6 +2220,17 @@ def ledger_rows(path, tables=("state", "hashed", "pvt", "history", "meta",
         db.close()
 
 
+def stored_blocks(path) -> list:
+    """Every block of a closed ledger's block file (a `.chain`), in order."""
+    from fabric_tpu_torch.ledger.blockstore import BlockStore
+
+    store = BlockStore(str(path))
+    try:
+        return list(store.iter_blocks())
+    finally:
+        store.close()
+
+
 def recording_cuda_provider(dev):
     """A CUDAProvider that keeps each launch's lanes, its device inputs and
     the verdicts its resolver returned, so the lanes K2 verified on a
@@ -3085,10 +3096,12 @@ class ConfigNet:
 
         return {k: v for k, v in DEFAULT_ACLS.items() if v.startswith("/")}
 
-    def profile(self, enc, to_msp=lambda c: c):
+    def profile(self, enc, to_msp=lambda c: c, **ordering):
         """Solo orderer with the orderer org; Application Org1-3 with anchor
         peers, the encoder's sample policies (Readers and Writers ANY,
-        Admins and Endorsement MAJORITY), the default ACLs, V2_0."""
+        Admins and Endorsement MAJORITY), the default ACLs, V2_0.
+        `ordering` overrides OrdererProfile's fields (orderer_type,
+        raft_consenters, the BatchSize)."""
         orgs = [enc.OrganizationProfile(o.msp_id, to_msp(o.msp_config()),
                                         anchor_peers=[(f"peer0.org{i}.bench", 7051)])
                 for i, o in enumerate(self.net.orgs, start=1)]
@@ -3096,11 +3109,11 @@ class ConfigNet:
                                           orderer_endpoints=["orderer0.orderer.bench:7050"])
         return enc.Profile(
             application=enc.ApplicationProfile(organizations=orgs, acls=self.channel_acls()),
-            orderer=enc.OrdererProfile(orderer_type="solo",
-                                       addresses=["orderer0.orderer.bench:7050"],
-                                       organizations=[orderer]))
+            orderer=enc.OrdererProfile(**{"orderer_type": "solo",
+                                          "addresses": ["orderer0.orderer.bench:7050"],
+                                          "organizations": [orderer], **ordering}))
 
-    def genesis(self, channel):
+    def genesis(self, channel, **ordering):
         """The genesis block of `profile(encoder)` (the port's encoder), with
         one change: the Application group's mod policy is written absolute,
         "/Channel/Application/Admins", which names the policy Fabric resolves
@@ -3110,12 +3123,12 @@ class ConfigNet:
         `_authorize`), so under the encoder's "Admins" no update can add an
         org: its MSP value asks for /Channel/Application/Org4MSP/Admins,
         which does not exist (tests/test_torch_channelconfig.py pins that in
-        both)."""
+        both). `ordering` as for `profile`."""
         from fabric_tpu_torch.channelconfig import encoder
         from fabric_tpu_torch.protos import configtx as cfgpb
         from fabric_tpu_torch.protos import fabric, protoutil, wire
 
-        config = encoder.new_config(self.profile(encoder))
+        config = encoder.new_config(self.profile(encoder, **ordering))
         config["channel_group"]["groups"]["Application"]["mod_policy"] = APPLICATION_ADMINS
         chdr = wire.encode(fabric.CHANNEL_HEADER, protoutil.make_channel_header(
             fabric.CONFIG, channel))
@@ -5371,6 +5384,8 @@ ENDORSE_ROUNDS = (("put", False, 0, 0), ("read_write", True, 0, 0), ("refused", 
 # (99 MB), so the count cuts (a config #2 block of 1,000 envelopes holds
 # about 3 MB, past the 2 MB PreferredMaxBytes default)
 ENDORSE_MAX_BYTES = 99 * 1024 * 1024
+# the etcdraft cluster of raft_config2: the smallest that survives losing a node
+RAFT_CONSENTERS = 3
 
 
 class BenchCC:
@@ -5403,13 +5418,37 @@ class EndorseNet:
     and endorsing peers (bench.py `_Net`, 314-388) and ConfigNet's orderer
     org and genesis block (the port's encoder), minted from `seed`; the
     proposals of each round of ENDORSE_ROUNDS, the codes each block must
-    get, computed from the round alone."""
+    get, computed from the round alone.
 
-    def __init__(self, seed=ENDORSE_SEED, channel=CONFIG2_CHANNEL):
+    The genesis is an etcdraft channel's: RAFT_CONSENTERS consenters of the
+    orderer org and a BatchSize of `n_txs` messages and ENDORSE_MAX_BYTES.
+    endorse_config2's SoloChain orders on it (a solo chain reads no
+    consensus type) and raft_config2's cluster joins it, so the two phases
+    order the same envelopes into the same chain of blocks."""
+
+    def __init__(self, seed=ENDORSE_SEED, channel=CONFIG2_CHANNEL, n_txs=CONFIG2_TXS):
         self.net = Config2Net(seed=seed)
         self.cn = ConfigNet(self.net, seed=seed + 1)
         self.channel = channel
-        self.genesis = self.cn.genesis(channel)
+        self.consenters = [(f"orderer{i}.orderer.bench", 7050, b"", b"")
+                           for i in range(1, RAFT_CONSENTERS + 1)]
+        self.genesis = self.cn.genesis(channel, orderer_type="etcdraft",
+                                       raft_consenters=self.consenters,
+                                       max_message_count=n_txs,
+                                       absolute_max_bytes=ENDORSE_MAX_BYTES,
+                                       preferred_max_bytes=ENDORSE_MAX_BYTES)
+
+    def consenter_signers(self):
+        """A SigningIdentity of the orderer org for each consenter and one
+        for the follower orderer, enrolled from the org's CA."""
+        import random
+
+        from fabric_tpu_torch.msp.signer import SigningIdentity
+
+        rng = random.Random(f"consenters {self.channel}")
+        return [SigningIdentity(self.cn.orderer_org.ca.enroll(
+            f"orderer{i}.orderer.bench", ou="orderer"), rng)
+            for i in range(1, RAFT_CONSENTERS + 2)]
 
     @staticmethod
     def args(conflict: bool, i: int):
@@ -5517,7 +5556,7 @@ def endorsing_peer(en, k: int, path: str, provider, dev, endorser_cls=None, sign
     return ch, endorser
 
 
-def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
+def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None) -> dict:
     """endorse_config2: Fabric's transaction flow at config #2's width on the
     card, proposal -> endorse -> order -> validate -> commit. Org1's client
     signs each round's proposals (`EndorseNet`); Org1's and Org2's peers
@@ -5546,7 +5585,11 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
     with the host MVCC equal; every K2 lane (each creator check's and each
     batch's) held against SoftwareProvider(hostec_np); K2 once a creator
     check and at least once a block, the key combs, K5 once a block on
-    each peer. Returns the phase's launches of K2, the key combs and K5."""
+    each peer. Returns the phase's launches of K2, the key combs and K5;
+    with `keep`, keeps under keep["endorse_config2"] what raft_config2
+    orders again: the network, each round's envelopes, the blocks as the
+    solo chain delivered them, both peers' (filter, commit hash) pairs and
+    the committed .chain blocks and SQLite rows of peer 0."""
     import shutil
     import threading
     from pathlib import Path
@@ -5566,7 +5609,7 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
 
     t_phase = time.perf_counter()
     rounds = ENDORSE_ROUNDS
-    en = EndorseNet()
+    en = EndorseNet(n_txs=n_txs)
     root = Path(__file__).resolve().parent / "build" / "smoke_endorse"
     shutil.rmtree(root, ignore_errors=True)
     times = {"validate": 0.0, "simulate_endorse": 0.0, "sign": 0.0, "process": [0.0, 0.0]}
@@ -5777,6 +5820,13 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
         if len(set(chains.values())) != 1 or not rows["peer0"] == rows["peer1"] == rows[
                 "reference"]:
             raise AssertionError("endorse_config2: .chain bytes or SQLite rows differ")
+        if keep is not None:
+            keep["endorse_config2"] = {
+                "en": en, "envelopes": envs_by_round, "blocks": list(delivered),
+                "committed": [list(committed[0]), list(committed[1])],
+                "stored": [wire.encode(fabric.BLOCK, b) for b in
+                           stored_blocks(root / "peer0" / f"{en.channel}.chain")],
+                "rows": rows["peer0"]}
 
         # --- every K2 lane against SoftwareProvider(hostec_np) -----------------
         t0 = time.perf_counter()
@@ -5823,6 +5873,645 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS) -> dict:
           "k2_lanes_held": {"lanes": len(lanes), "seconds": hold_s},
           "peers_equal": True, "launches": launches,
           "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The Raft orderer and block delivery: raft_config2
+# ---------------------------------------------------------------------------
+
+RAFT_TICK_S = 0.02  # the driver thread's tick: a 10-tick election timeout is 0.2-0.4 s
+RAFT_WAIT_S = 600.0  # the longest any wait of the phase may take before it fails
+RAFT_FLIPPED = 8  # envelopes with a flipped envelope signature (FORBIDDEN, never ordered)
+RAFT_OUTSIDERS = 4  # envelopes signed by an identity outside the channel (FORBIDDEN)
+
+
+class RaftNet:
+    """raft_config2's ordering service in one process: a port Registrar per
+    consenter (raft ids 1..n, each with its own orderer-org signer, all
+    bundles over `provider`) joined to one etcdraft genesis; their raft
+    messages carried by in-process queues that one driver thread drains,
+    ticking every live node each RAFT_TICK_S; per node a BroadcastHandler
+    whose cluster client forwards an envelope the node cannot order to the
+    leader's handler (forwarded=True), a DeliverHandler for clients whose
+    sessions must satisfy `readers` (the channel's Readers policy), and
+    one for the cluster (orderer to orderer, no policy: the cluster's
+    transport authenticates its members). A partitioned node neither ticks
+    nor sends nor receives, its endpoints refuse to connect, and a session
+    it serves ends; `restart` reopens a node's Registrar on its ledger and
+    WAL, and a session the old one still serves breaks with a
+    ConnectionError, as its stream would. Every wait is woken by a block
+    write, a partition, a restart or `stop`."""
+
+    def __init__(self, genesis: dict, signers, provider, root, readers, channel: str):
+        import collections
+        import threading
+
+        self.genesis = genesis
+        self.signers = signers
+        self.provider = provider
+        self.root = root
+        self.readers = readers
+        self.channel = channel
+        self.n = len(signers)
+        self.queues = {i: collections.deque() for i in range(1, self.n + 1)}
+        self.regs, self.handlers, self.delivers, self.cluster_delivers = {}, {}, {}, {}
+        self.partitioned = set()
+        self.incarnation = {}  # node -> how many times it was started
+        self.written_at = {}  # (node, block number) -> perf_counter when written
+        self.sessions = 0  # client deliver sessions opened (each a Readers check)
+        self.forwards = 0
+        self._cv = threading.Condition()
+        self._closed = False
+        for i in range(1, self.n + 1):
+            self.start_node(i)
+        self._thread = threading.Thread(target=self._drive, name="raft-driver", daemon=True)
+        self._thread.start()
+
+    # -- nodes ---------------------------------------------------------------
+    def start_node(self, i: int) -> None:
+        from fabric_tpu_torch.deliver.server import DeliverHandler
+        from fabric_tpu_torch.orderer.broadcast import BroadcastHandler
+        from fabric_tpu_torch.orderer.multichannel import Registrar
+
+        reg = Registrar(str(self.root / f"orderer{i}"), signer=self.signers[i - 1],
+                        raft_node_id=i, provider=self.provider,
+                        raft_transport_factory=lambda channel, frm: (
+                            lambda to, msg: self._send(frm, to, msg)))
+        reg.on_block(lambda channel, block, i=i: self._written(i, block))
+        reg.join_channel(self.genesis)
+        with self._cv:
+            gen = self.incarnation[i] = self.incarnation.get(i, 0) + 1
+            self.regs[i] = reg
+            self.handlers[i] = BroadcastHandler(reg, cluster_client=self)
+            self.delivers[i] = DeliverHandler(self.source(i, reg, gen),
+                                              policy_checker=self._readers,
+                                              wait_timeout=RAFT_WAIT_S)
+            self.cluster_delivers[i] = DeliverHandler(self.source(i, reg, gen),
+                                                      wait_timeout=RAFT_WAIT_S)
+            self._cv.notify_all()
+
+    def _readers(self, channel, sd):
+        with self._cv:
+            self.sessions += 1
+        self.readers(channel, sd)
+
+    def source(self, i, reg, gen):
+        from fabric_tpu_torch.deliver.server import BlockSource
+
+        def lookup(channel):
+            support = reg.get_chain(channel) or reg.followers.get(channel)
+            if support is None:
+                return None
+
+            def get_block(n):
+                self._alive(i, gen)
+                try:
+                    return support.get_block(n)
+                except Exception:
+                    self._alive(i, gen)  # its store closed under it by a restart
+                    raise
+
+            return BlockSource(get_block, lambda: support.height,
+                               lambda n, timeout: self._wait(i, gen, support, n, timeout))
+
+        return lookup
+
+    def _alive(self, i, gen) -> None:
+        if self.incarnation[i] != gen:
+            raise ConnectionError(f"orderer {i} restarted")
+
+    def _wait(self, i, gen, support, n, timeout) -> bool:
+        with self._cv:
+            self._cv.wait_for(lambda: support.height > n or i in self.partitioned
+                              or self._closed or self.incarnation[i] != gen, timeout)
+            self._alive(i, gen)
+            return support.height > n and i not in self.partitioned and not self._closed
+
+    def _written(self, i, block) -> None:
+        import time as _time
+
+        with self._cv:
+            self.written_at[(i, block["header"].get("number", 0))] = _time.perf_counter()
+            self._cv.notify_all()
+
+    def chain(self, i):
+        support = self.regs[i].get_chain(self.channel)
+        return support.chain if support is not None else None
+
+    def height(self, i) -> int:
+        return self.chain(i).height
+
+    # -- transport and the driver thread --------------------------------------
+    def _send(self, frm, to, msg) -> None:
+        with self._cv:
+            if frm in self.partitioned or to in self.partitioned or to not in self.queues:
+                return
+            self.queues[to].append(msg)
+            self._cv.notify_all()
+
+    def forward_submit(self, channel_id, env, leader_id):
+        from fabric_tpu_torch.protos import fabric
+
+        if leader_id in self.partitioned:
+            return fabric.SERVICE_UNAVAILABLE, f"leader {leader_id} unreachable"
+        self.forwards += 1
+        return self.handlers[leader_id].process_message(env, forwarded=True)
+
+    def _drive(self) -> None:
+        import time as _time
+
+        next_tick = _time.perf_counter()
+        while True:
+            with self._cv:
+                self._cv.wait_for(lambda: self._closed or any(
+                    q for i, q in self.queues.items() if i not in self.partitioned),
+                    max(0.0, next_tick - _time.perf_counter()))
+                if self._closed:
+                    return
+                live = [i for i in sorted(self.regs) if i not in self.partitioned]
+            if _time.perf_counter() >= next_tick:
+                for i in live:
+                    self.chain(i).tick()
+                next_tick = _time.perf_counter() + RAFT_TICK_S
+            for i in live:
+                q = self.queues[i]
+                while q:
+                    msg = q.popleft()
+                    if i not in self.partitioned:
+                        self.chain(i).step(msg)
+
+    # -- the phase's moves -----------------------------------------------------
+    def leader(self, exclude=()):
+        for i in sorted(self.regs):
+            if i in self.partitioned or i in exclude:
+                continue
+            chain = self.chain(i)
+            if chain is not None and chain.node.role == "leader":
+                return i
+        return None
+
+    def wait(self, pred, what: str, timeout=RAFT_WAIT_S):
+        with self._cv:
+            if not self._cv.wait_for(pred, timeout):
+                raise AssertionError(f"raft_config2: timed out waiting for {what}")
+
+    def wait_leader(self, exclude=()) -> int:
+        self.wait(lambda: self.leader(exclude) is not None, "a leader")
+        return self.leader(exclude)
+
+    def wait_height(self, ids, height: int) -> None:
+        self.wait(lambda: all(self.height(i) >= height for i in ids),
+                  f"height {height} on {sorted(ids)}")
+
+    def partition(self, i) -> None:
+        with self._cv:
+            self.partitioned.add(i)
+            self.queues[i].clear()
+            self._cv.notify_all()
+
+    def restart(self, i) -> None:
+        """Node i (partitioned) stops and starts again from its block store
+        and WAL; healed afterwards by `heal`."""
+        with self._cv:
+            self.incarnation[i] += 1  # the old one's sessions break from here
+            self._cv.notify_all()
+        chain = self.chain(i)
+        chain.wal.close()
+        chain.block_store.close()
+        self.start_node(i)
+
+    def heal(self) -> None:
+        with self._cv:
+            self.partitioned.clear()
+            self._cv.notify_all()
+
+    def endpoint(self, i, cluster=False):
+        """Node i's deliver endpoint for a BlockDeliverer: refuses to connect
+        while node i is partitioned."""
+        def serve(env):
+            if i in self.partitioned:
+                raise ConnectionError(f"orderer {i} unreachable")
+            handler = self.cluster_delivers[i] if cluster else self.delivers[i]
+            return handler.deliver_blocks(env)
+
+        return serve
+
+    def stop(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30)
+        for reg in self.regs.values():
+            for support in reg.chains.values():
+                support.chain.wal.close()
+                support.chain.block_store.close()
+
+
+def raft_phase(torch, np, dev, kept: dict) -> dict:
+    """raft_config2: endorse_config2's envelopes ordered by a three-node
+    etcdraft cluster of the port (`RaftNet`) and delivered to two fresh
+    peers on the card. The genesis is endorse_config2's (`EndorseNet`: three
+    consenters, BatchSize of its round's txs); each consenter is a
+    Registrar with its own orderer-org signer. Traffic: every envelope that
+    endorse_config2 ordered, round by round, broadcast through a consenter
+    that is not the leader: its SigFilter (the channel's Writers, K2) admits
+    it and its BroadcastHandler forwards it to the leader's, whose SigFilter
+    checks it again before the leader's RaftChain cuts and proposes it; 8
+    envelopes with a flipped signature and 4 signed by an identity outside
+    the channel answered FORBIDDEN at the first consenter. After block 1
+    is written everywhere the leader is partitioned; the other two elect a
+    leader and order blocks 2 and 3; the old leader restarts from its
+    block store and WAL, is healed and catches up. Two fresh peers
+    (`endorsing_peer` on the genesis, CommitPipelines over one
+    BatchingProvider(CUDAProvider): the orderer signature, K2, the key combs
+    and K5) pull through BlockDeliverers whose endpoints are the three
+    consenters' DeliverHandlers, the partitioned leader first, each session
+    authorized by the channel's Readers policy (K2). A fourth orderer joins
+    the genesis as a non-consenter and replicates through the cluster's
+    deliver (FollowerChain). DiscoveryService over the two peers answers
+    peers, config and endorsers("benchcc"), each client authorized through
+    K2, a stranger refused. Checks (no difference allowed): every block's
+    header and data equal the solo chain's; every consenter's and the
+    follower's blocks agree in header, data and consenter ids, and each
+    consenter's signature verifies; both peers' filters, commit hashes,
+    stored headers, data, filters, commit hashes and SQLite rows equal
+    endorse_config2's; every K2 lane of the phase equal to
+    SoftwareProvider(hostec_np); K2 launched at every SigFilter, deliver
+    session and block, the key combs, K5 once a block on each peer.
+    Returns the phase's launches of K2, the key combs and K5."""
+    import random
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from fabric_tpu_torch.channelconfig.bundle import bundle_from_genesis_block
+    from fabric_tpu_torch.common.retry import RetryPolicy
+    from fabric_tpu_torch.crypto import factory, hostec, hostec_np
+    from fabric_tpu_torch.deliver.client import BlockDeliverer
+    from fabric_tpu_torch.discovery import DiscoveryService, PeerInfo
+    from fabric_tpu_torch.discovery.service import DiscoveryError
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.orderer import broadcast as bcast
+    from fabric_tpu_torch.orderer import msgprocessor, raft_chain
+    from fabric_tpu_torch.orderer.blockwriter import block_signature_verifier
+    from fabric_tpu_torch.orderer.multichannel import Registrar
+    from fabric_tpu_torch.parallel.batcher import BatchingProvider
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.policy.manager import SignedData
+    from fabric_tpu_torch.protos import configtx as cfgpb
+    from fabric_tpu_torch.protos import fabric, protoutil, wire
+
+    t_phase = time.perf_counter()
+    en = kept["en"]
+    rounds = kept["envelopes"]
+    n_blocks = len(rounds)
+    solo = [wire.decode(fabric.BLOCK, raw) for raw in kept["blocks"]]
+    genesis = en.genesis
+    channel = en.channel
+    signers = en.consenter_signers()
+    root = Path(__file__).resolve().parent / "build" / "smoke_raft"
+    shutil.rmtree(root, ignore_errors=True)
+    # one recording provider a role, so each K2 launch is told apart:
+    # the consenters' SigFilters, the client deliver sessions' Readers
+    # checks, the peers (orderer signatures and validation), discovery
+    roles = ("sigfilter", "deliver", "peers", "discovery")
+    recorders = {r: recording_cuda_provider(dev) for r in roles}
+    bps = {r: BatchingProvider(recorders[r]) for r in roles}
+    readers_bundle = bundle_from_genesis_block(genesis, bps["deliver"])
+
+    def readers(channel_id, sd):
+        policy, _ = readers_bundle.policy_manager.get_policy("/Channel/Readers")
+        policy.evaluate_signed_data([sd])
+
+    # the host split of a broadcast envelope: the handler's header parse
+    # (its only use of protoutil), SigFilter, RaftChain.order, and the whole
+    times = {"unpack": 0.0, "sigfilter": 0.0, "propose": 0.0, "total": 0.0}
+    proposed_at = []
+    sig_apply, order, propose_batch = (msgprocessor.SigFilter.apply, raft_chain.RaftChain.order,
+                                       raft_chain.RaftChain._propose_batch)
+
+    def timed_sig(self, env):
+        t0 = time.perf_counter()
+        try:
+            return sig_apply(self, env)
+        finally:
+            times["sigfilter"] += time.perf_counter() - t0
+
+    def timed_order(self, env):
+        t0 = time.perf_counter()
+        try:
+            return order(self, env)
+        finally:
+            times["propose"] += time.perf_counter() - t0
+
+    class TimedUnpack:
+        def __getattr__(self, name):
+            return getattr(protoutil, name)
+
+        @staticmethod
+        def unmarshal_as(*args):
+            t0 = time.perf_counter()
+            try:
+                return protoutil.unmarshal_as(*args)
+            finally:
+                times["unpack"] += time.perf_counter() - t0
+
+    def stamped_propose(self, batch, is_config=False):
+        proposed_at.append(time.perf_counter())
+        return propose_batch(self, batch, is_config)
+
+    net, peers, pipes, deliverers, threads, follower_reg = None, [], [], [], [], None
+    errors, committed = [], [[], []]
+    commit_at = [{}, {}]
+    sw = None
+    try:
+        bcast.protoutil = TimedUnpack()
+        msgprocessor.SigFilter.apply = timed_sig
+        raft_chain.RaftChain.order = timed_order
+        raft_chain.RaftChain._propose_batch = stamped_propose
+        net = RaftNet(genesis, signers[:RAFT_CONSENTERS], bps["sigfilter"], root, readers,
+                      channel)
+        ids = list(range(1, RAFT_CONSENTERS + 1))
+        first_leader = net.wait_leader()
+        for k in range(2):
+            ch, _ = endorsing_peer(en, k, str(root / f"peer{k}"), bps["peers"], dev)
+            peers.append(ch)
+            pipes.append(CommitPipeline(ch, depth=PIPELINE_DEPTH, on_commit=(
+                lambda b, f, k=k: (committed[k].append(
+                    (f.tobytes(), b["metadata"]["metadata"][fabric.COMMIT_HASH])),
+                    commit_at[k].__setitem__(b["header"]["number"], time.perf_counter()))),
+                on_error=lambda b, exc: errors.append(exc)))
+        setup_s = time.perf_counter() - t_phase
+
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for key in table:
+                table[key] = 0
+        t_drive = time.perf_counter()
+        # the peers pull through the consenters, the leader first
+        order_ids = [first_leader] + [i for i in ids if i != first_leader]
+        got = [[], []]
+        for k in range(2):
+            d = BlockDeliverer(channel, [net.endpoint(i) for i in order_ids],
+                               on_block=lambda b, k=k: (got[k].append(b["header"]["number"]),
+                                                        pipes[k].submit(b)),
+                               next_block=lambda k=k: len(got[k]) + 1,
+                               signer=en.net.endorsers[k],
+                               retry_policy=RetryPolicy(base_s=0.05, multiplier=1.2, cap_s=1.0,
+                                                        deadline_s=RAFT_WAIT_S))
+            deliverers.append(d)
+            threads.append(threading.Thread(target=d.run, kwargs={"max_blocks": n_blocks},
+                                            name=f"deliver-peer{k}", daemon=True))
+        for t in threads:
+            t.start()
+        # the fourth orderer follows the cluster through its deliver
+        by_address = {f"{host}:{port}": i
+                      for i, (host, port, _, _) in enumerate(en.consenters, start=1)}
+        follower_reg = Registrar(str(root / "orderer4"), signer=signers[RAFT_CONSENTERS],
+                                 raft_node_id=RAFT_CONSENTERS + 1, provider=bps["sigfilter"],
+                                 follower_endpoint_factory=lambda addrs: [
+                                     net.endpoint(by_address[a], cluster=True)
+                                     for a in addrs if a in by_address])
+        follower = follower_reg.join_channel(genesis)
+        if type(follower).__name__ != "FollowerChain":
+            raise AssertionError("raft_config2: the fourth orderer did not join as a follower")
+
+        # -- broadcast ------------------------------------------------------------
+        statuses = {"success": 0, "forbidden": 0}
+        rng = random.Random(f"raft {channel}")
+        bad = []
+        for env in rng.sample(rounds[0], RAFT_FLIPPED):
+            sig = env["signature"]
+            bad.append({**env, "signature": sig[:-1] + bytes([sig[-1] ^ 0x01])})
+        outsider = en.net.stranger
+        for j in range(RAFT_OUTSIDERS):
+            payload = wire.decode(fabric.PAYLOAD, rounds[0][j]["payload"])
+            payload["header"]["signature_header"] = wire.encode(
+                fabric.SIGNATURE_HEADER, protoutil.make_signature_header(
+                    outsider.serialize(), outsider.new_nonce()))
+            raw = wire.encode(fabric.PAYLOAD, payload)
+            bad.append({"payload": raw, "signature": outsider.sign(raw)})
+
+        def broadcast(node, envs, want):
+            handler = net.handlers[node]
+            for env in envs:
+                t0 = time.perf_counter()
+                status, info = handler.process_message(env)
+                times["total"] += time.perf_counter() - t0
+                if status != want:
+                    raise AssertionError(f"raft_config2: broadcast answered {status} {info!r}")
+                statuses["success" if want == fabric.SUCCESS else "forbidden"] += 1
+
+        via = next(i for i in ids if i != first_leader)
+        broadcast(via, bad, fabric.FORBIDDEN)
+        broadcast(via, rounds[0], fabric.SUCCESS)
+        net.wait_height(ids, 2)
+        # -- failover: the leader is cut off; the other two carry on -------------
+        t0 = time.perf_counter()
+        net.partition(first_leader)
+        new_leader = net.wait_leader(exclude={first_leader})
+        failover_s = time.perf_counter() - t0
+        live = [i for i in ids if i != first_leader]
+        via = next(i for i in live if i != new_leader)
+        for rnd in range(1, n_blocks):
+            broadcast(via, rounds[rnd], fabric.SUCCESS)
+        net.wait_height(live, n_blocks + 1)
+        # -- the old leader restarts from its WAL and catches up ------------------
+        t0 = time.perf_counter()
+        net.restart(first_leader)
+        net.heal()
+        net.wait_height(ids, n_blocks + 1)
+        catch_up_s = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=RAFT_WAIT_S)
+        if any(t.is_alive() for t in threads) or got != [list(range(1, n_blocks + 1))] * 2:
+            raise AssertionError(f"raft_config2: the peers pulled {got}")
+        if not all(pipe.drain(timeout=RAFT_WAIT_S) for pipe in pipes) or errors:
+            raise AssertionError(f"raft_config2: the peers did not commit: {errors!r}")
+        net.wait(lambda: follower.height == n_blocks + 1, "the follower")
+        # -- discovery over the two peers --------------------------------------
+        disc_bundle = bundle_from_genesis_block(genesis, bps["discovery"])
+        infos = [PeerInfo("Org1MSP", "peer0.org1.bench:7051", peers[0].ledger.height,
+                          ("benchcc",)),
+                 PeerInfo("Org2MSP", "peer0.org2.bench:7051", peers[1].ledger.height,
+                          ("benchcc",))]
+        svc = DiscoveryService(lambda ch: infos if ch == channel else [],
+                               lambda ch: disc_bundle if ch == channel else None,
+                               lambda cc, ch: en.net.policy if cc == "benchcc" else None)
+        discovery = {}
+        for who, signer in (("org1", en.net.client), ("org2", en.cn.clients[1]),
+                            ("org3", en.cn.clients[2])):
+            sd = SignedData(b"discover", signer.serialize(), signer.sign(b"discover"))
+            discovery[who] = {
+                "peers": [p.endpoint for p in svc.peers(channel, sd)],
+                "config": svc.config(channel, sd),
+                "layouts": svc.endorsers(channel, "benchcc", sd).layouts}
+        stranger = SignedData(b"discover", outsider.serialize(), outsider.sign(b"discover"))
+        try:
+            svc.peers(channel, stranger)
+            raise AssertionError("raft_config2: discovery answered a stranger")
+        except DiscoveryError:
+            pass
+        drive_s = time.perf_counter() - t_drive
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md)}
+        k2_by_role = {r: len(recorders[r].records) for r in roles}
+        stats = [pipe.stage_stats() for pipe in pipes]
+        for pipe in pipes:
+            pipe.stop()
+
+        # --- the checks ---------------------------------------------------------
+        n_ordered = sum(len(r) for r in rounds)
+        if statuses != {"success": n_ordered, "forbidden": RAFT_FLIPPED + RAFT_OUTSIDERS}:
+            raise AssertionError(f"raft_config2: broadcast statuses {statuses}")
+        ledgers = {i: [net.chain(i).get_block(n) for n in range(n_blocks + 1)] for i in ids}
+        followed = [follower.get_block(n) for n in range(n_blocks + 1)]
+        for n in range(1, n_blocks + 1):
+            want = (solo[n]["header"], solo[n]["data"])
+            for blocks in list(ledgers.values()) + [followed]:
+                b = blocks[n]
+                if (b["header"], b["data"]) != want:
+                    raise AssertionError(f"raft_config2: block {n} differs from the solo chain's")
+                if (b["metadata"]["metadata"][fabric.ORDERER_METADATA]
+                        != ledgers[1][n]["metadata"]["metadata"][fabric.ORDERER_METADATA]):
+                    raise AssertionError(f"raft_config2: block {n}'s consenter ids differ")
+            if not any(wire.encode(fabric.BLOCK, followed[n]) == wire.encode(
+                    fabric.BLOCK, blocks[n]) for blocks in ledgers.values()):
+                raise AssertionError(f"raft_config2: the follower's block {n} is no consenter's")
+        genesis_raw = wire.encode(fabric.BLOCK, genesis)
+        stamped = {wire.encode(fabric.BLOCK, ledgers[i][0]) for i in ids}
+        if len(stamped) != 1 or wire.encode(fabric.BLOCK, followed[0]) != genesis_raw:
+            raise AssertionError("raft_config2: the genesis blocks differ")
+        ids_meta = cfgpb.RAFT_BLOCK_METADATA
+        consenter_ids = wire.decode(ids_meta, ledgers[1][1]["metadata"]["metadata"][
+            fabric.ORDERER_METADATA])
+        if consenter_ids.get("consenter_ids") != ids:
+            raise AssertionError(f"raft_config2: consenter ids {consenter_ids}")
+        check_rec = recording_cuda_provider(dev)
+        check_bundle = bundle_from_genesis_block(genesis, check_rec)
+        verify = block_signature_verifier(lambda: check_bundle)
+        if not all(verify(ledgers[i][n]) for i in ids for n in range(1, n_blocks + 1)):
+            raise AssertionError("raft_config2: a consenter's block signature does not verify")
+        if committed[0] != committed[1] or committed[0] != kept["committed"][0]:
+            raise AssertionError("raft_config2: the peers' filters or commit hashes differ "
+                                 "from endorse_config2's")
+        for ch in peers:
+            ch.ledger.close()
+        rows = {k: ledger_rows(root / f"peer{k}" / f"{channel}.state.db") for k in range(2)}
+        stored = {k: stored_blocks(root / f"peer{k}" / f"{channel}.chain") for k in range(2)}
+        want_stored = [wire.decode(fabric.BLOCK, raw) for raw in kept["stored"]]
+
+        def public(b):
+            m = b["metadata"]["metadata"]
+            return b["header"], b["data"], m[fabric.TRANSACTIONS_FILTER], m[fabric.COMMIT_HASH]
+
+        for k in range(2):
+            if rows[k] != kept["rows"] or [public(b) for b in stored[k][1:]] != [
+                    public(b) for b in want_stored[1:]] or wire.encode(
+                    fabric.BLOCK, stored[k][0]) != kept["stored"][0]:
+                raise AssertionError(f"raft_config2: peer {k}'s ledger differs from "
+                                     "endorse_config2's")
+        want_layouts = [{"G0": 1, "G1": 1}]
+        for who, answer in discovery.items():
+            if (answer["peers"] != ["peer0.org1.bench:7051", "peer0.org2.bench:7051"]
+                    or answer["layouts"] != want_layouts
+                    or answer["config"]["msps"] != ["OrdererMSP", "Org1MSP", "Org2MSP",
+                                                    "Org3MSP"]):
+                raise AssertionError(f"raft_config2: discovery answered {who}: {answer}")
+        # launches: K2 at every SigFilter (twice an ordered envelope: the
+        # consenter it reached and the leader), at every flipped one, at
+        # each client deliver session, at each block on each peer
+        sessions = net.sessions
+        if (launches["p256_verify_bytes"] != sum(k2_by_role.values())
+                or k2_by_role["sigfilter"] < 2 * n_ordered + RAFT_FLIPPED
+                or sessions < 3 or k2_by_role["deliver"] < sessions
+                or k2_by_role["peers"] < n_blocks or k2_by_role["discovery"] < 3
+                or launches["p256_key_tables"] < 1 or launches["p256_verify_limbs"]
+                or launches["mvcc_resolve"] != 2 * n_blocks or launches["mvcc_resolve_global"]):
+            raise AssertionError(f"raft_config2 launches: {launches}, by role {k2_by_role}, "
+                                 f"{sessions} sessions")
+        for bp in bps.values():
+            bp.stop()
+
+        # --- every K2 lane against SoftwareProvider(hostec_np) -----------------
+        t0 = time.perf_counter()
+        sw = factory.provider_from_config({**FACTORY_CONFIG, "Default": "SW"})
+        if sw.describe_backend() != "sw:hostec_np":
+            raise AssertionError(f"raft_config2: host tier {sw.describe_backend()}")
+        lanes = [lane for rec in list(recorders.values()) + [check_rec] for r in rec.records
+                 for lane in zip(r["keys"], r["sigs"], r["digests"], r["verdicts"])]
+        held = []
+        for off in range(0, len(lanes), K2_HOLD_CHUNK):
+            chunk = lanes[off: off + K2_HOLD_CHUNK]
+            held += sw.batch_verify([k for k, _, _, _ in chunk], [s for _, s, _, _ in chunk],
+                                    [d for _, _, d, _ in chunk])
+        if held != [ok for _, _, _, ok in lanes]:
+            raise AssertionError("raft_config2: K2 and hostec_np disagree on a lane")
+        refused_lanes = [ok for _, _, _, ok in lanes].count(False)
+        hold_s = time.perf_counter() - t0
+    finally:
+        bcast.protoutil = protoutil
+        msgprocessor.SigFilter.apply = sig_apply
+        raft_chain.RaftChain.order = order
+        raft_chain.RaftChain._propose_batch = propose_batch
+        for d in deliverers:
+            d.stop()
+        if net is not None:
+            net.stop()
+        for t in threads:
+            t.join(timeout=30)
+        if follower_reg is not None:
+            for f in list(follower_reg.followers.values()):
+                f.stop()
+        for pipe in pipes:
+            pipe.stop()
+        for bp in bps.values():
+            bp.stop()
+        for ch in peers:
+            ch.ledger.close()
+        hostec_np.shutdown_pool()
+        hostec.shutdown_pool()
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_env = sum(len(r) for r in rounds)
+    block_ms = []
+    for n in range(1, n_blocks + 1):
+        t_cut = proposed_at[n - 1]
+        # the consenters live when the block was cut (the partitioned leader
+        # writes blocks 2 on only when it is restarted)
+        writers = [t for (i, b), t in net.written_at.items()
+                   if b == n and i in ids and (n == 1 or i != first_leader)]
+        block_ms.append({"block": n,
+                         "consenters_ms": (max(writers) - t_cut) * 1e3,
+                         "peers_ms": [(commit_at[k][n] - t_cut) * 1e3 for k in range(2)]})
+    # what the three timed steps leave of the handler's time: classify, the
+    # expiration and size filters, the forwarding hop and the calls
+    other = times["total"] - times["unpack"] - times["sigfilter"] - times["propose"]
+    emit({"phase": "raft_config2", "consenters": RAFT_CONSENTERS, "blocks": n_blocks,
+          "txs_per_block": [len(r) for r in rounds], "tick_s": RAFT_TICK_S,
+          "broadcast": {**statuses, "forwarded": net.forwards,
+                        "flipped": RAFT_FLIPPED, "outsiders": RAFT_OUTSIDERS},
+          "setup_seconds": setup_s, "drive_seconds": drive_s,
+          "ms_per_envelope": {"unpack": times["unpack"] / n_env * 1e3,
+                              "sigfilter": times["sigfilter"] / n_env * 1e3,
+                              "propose": times["propose"] / n_env * 1e3,
+                              "classify_filters_forward": other / n_env * 1e3},
+          "ms_per_envelope_broadcast": times["total"] / n_env * 1e3,
+          "ms_per_block_cut_to_commit": block_ms,
+          "failover_seconds": failover_s, "leaders": [first_leader, new_leader],
+          "restart_catch_up_seconds": catch_up_s,
+          "deliver_sessions": sessions, "follower_height": n_blocks + 1,
+          "discovery": {"clients": sorted(discovery), "layouts": want_layouts,
+                        "stranger": "refused"},
+          "stage_stats": stats,
+          "k2_launches_by_role": k2_by_role,
+          "k2_lanes_held": {"lanes": len(lanes), "refused": refused_lanes, "seconds": hold_s},
+          "equal": {"solo_blocks": True, "consenters": True, "follower": True,
+                    "peers_vs_endorse_config2": True},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -5978,10 +6667,13 @@ def main() -> int:
         row = next(k for k in kernels if k["name"] == name)
         row["mesh_sharded"] = {"launches": mesh_launches[name]}
     # --- The endorsement side and the solo orderer: proposals to blocks -----
-    endorse_launches = endorse_phase(torch, np, dev)
+    endorse_launches = endorse_phase(torch, np, dev, keep=chain)
+    # --- The Raft orderer and block delivery: the same envelopes, 3 consenters -
+    raft_launches = raft_phase(torch, np, dev, chain["endorse_config2"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["endorse_config2"] = {"launches": endorse_launches[name]}
+        row["raft_config2"] = {"launches": raft_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -1,11 +1,12 @@
 """Shared retry/backoff discipline.
 
 A copy of the JAX package's `common/retry`: `RetryPolicy`, `Backoff`,
-`call_with_retry`, the `DISPATCH_POLICY` constant and `CooldownGate`. In
-the port the VerifyBatcher's dispatch path (`parallel/batcher.py`) is its
-consumer: a transient launch failure (an injected fault, an OSError)
-retries a bounded number of times before the error fans out to every
-waiting resolver.
+`call_with_retry`, the `DELIVER_POLICY` and `DISPATCH_POLICY` constants
+and `CooldownGate`. In the port the VerifyBatcher's dispatch path
+(`parallel/batcher.py`) is a consumer: a transient launch failure (an
+injected fault, an OSError) retries a bounded number of times before the
+error fans out to every waiting resolver; the deliver client's failover
+(`deliver/client.py`) paces its reconnects by `DELIVER_POLICY`.
 
 Determinism: jitter draws from a ``random.Random(seed)`` stream and the
 deadline is accounted against *nominal* (requested) sleep time, so a
@@ -51,6 +52,12 @@ class RetryPolicy:
     max_attempts: Optional[int] = None
     jitter: float = 0.0
 
+
+#: The reference deliver backoff: 1.2**n * 60 ms capped at 10 s, one hour
+#: of total sleep (`deliver/client.py`'s pull loop).
+DELIVER_POLICY = RetryPolicy(
+    base_s=0.06, multiplier=1.2, cap_s=10.0, deadline_s=3600.0
+)
 
 #: Bounded in-process retry for a device/pool launch: fail fast — the
 #: batcher's waiting resolvers are backpressure on live traffic.

@@ -15,7 +15,9 @@ order-dependent semantics (common/cauthdsl/cauthdsl.go:24-92):
 is the validator's default, as in the JAX package; `compile_batched` runs
 K7 (`ops/policy_kernel.py`, `csrc/policy_eval.cu`) on the card, or its
 plain version with `device="cpu"`, and `compile_batched_ref` is that plain
-version on any device.
+version on any device. torch and K7's wrapper are imported by the
+functions that use them, so the policy manager and the channel
+configuration above it (which need only `evaluate_host`) load no torch.
 """
 
 from __future__ import annotations
@@ -23,10 +25,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 import numpy as np
-import torch
 
-from fabric_tpu_torch.ops import cudalib
-from fabric_tpu_torch.ops import policy_kernel as pk
 from fabric_tpu_torch.policy.ast import NOutOf, SignaturePolicyEnvelope, SignedBy
 
 
@@ -62,6 +61,10 @@ def evaluate_host(env: SignaturePolicyEnvelope, sat: np.ndarray) -> bool:
 
 
 def _batched(env: SignaturePolicyEnvelope, num_signers: int, device, launch) -> Callable:
+    import torch
+
+    from fabric_tpu_torch.ops import policy_kernel as pk
+
     programs: Dict[int, pk.Program] = {}
 
     def run(sat) -> torch.Tensor:
@@ -84,6 +87,9 @@ def compile_batched(
     (B, num_signers, P) bool -> (B,) bool. It launches K7 on the card, which
     it needs unless `device="cpu"`, where it runs K7's plain version. The
     program is encoded once per P and kept with the function."""
+    from fabric_tpu_torch.ops import cudalib
+    from fabric_tpu_torch.ops import policy_kernel as pk
+
     dev = cudalib.resolve_device(device, "policy")
     return _batched(env, num_signers, dev, pk.policy_eval)
 
@@ -92,6 +98,10 @@ def compile_batched_ref(
     env: SignaturePolicyEnvelope, num_signers: int, device="cpu"
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """`compile_batched` through K7's plain version, on any device."""
+    import torch
+
+    from fabric_tpu_torch.ops import policy_kernel as pk
+
     return _batched(env, num_signers, torch.device(device), pk.policy_eval_ref)
 
 

@@ -94,6 +94,14 @@ RAFT_CONFIG_METADATA: Schema = {
     1: _msg("consenters", RAFT_CONSENTER, repeated=True),
     2: _msg("options", RAFT_OPTIONS),
 }
+# the consenter -> raft id mapping in a block's ORDERER metadata slot
+# (the JAX package's configuration.proto RaftBlockMetadata); the ids are
+# a packed repeated uint64
+RAFT_BLOCK_METADATA: Schema = {
+    1: Field("consenter_addresses", "string", repeated=True),
+    2: Field("consenter_ids", "uint64", repeated=True),
+    3: Field("next_consenter_id", "uint64"),
+}
 
 # peer/configuration.proto
 ANCHOR_PEER: Schema = {1: Field("host", "string"), 2: Field("port", "int32")}

@@ -21,9 +21,15 @@ from fabric_tpu_torch.protos.wire import Field, Schema, _map, _msg
 
 # common.HeaderType
 MESSAGE, CONFIG, CONFIG_UPDATE, ENDORSER_TRANSACTION = 0, 1, 2, 3
+ORDERER_TRANSACTION, DELIVER_SEEK_INFO, CHAINCODE_PACKAGE = 4, 5, 6
+# common.Status
+SUCCESS, BAD_REQUEST, FORBIDDEN, NOT_FOUND = 200, 400, 403, 404
+REQUEST_ENTITY_TOO_LARGE, INTERNAL_SERVER_ERROR = 413, 500
+NOT_IMPLEMENTED, SERVICE_UNAVAILABLE = 501, 503
 # common.BlockMetadataIndex: SIGNATURES, LAST_CONFIG, TRANSACTIONS_FILTER, ORDERER, COMMIT_HASH
 SIGNATURES = 0
 TRANSACTIONS_FILTER = 2
+ORDERER_METADATA = 3  # BlockMetadataIndex.ORDERER: the etcdraft consenter ids (configtx.RAFT_BLOCK_METADATA)
 COMMIT_HASH = 4
 BLOCK_METADATA_SLOTS = 5
 

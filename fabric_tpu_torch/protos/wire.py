@@ -34,6 +34,11 @@ message's), as protobuf keeps unknown fields; `encode` writes them after the
 known fields, where `SerializeToString` writes them, so a message that is
 parsed and serialized again comes out as protobuf's does.
 
+A repeated field of a varint kind (`uint64`, `int32`, `bool`, `enum`, ...)
+is written packed, as proto3 writes it: one length-delimited record of the
+varints, left out when the list is empty. The reader takes both forms, packed
+records and single varints, in any mix, as protobuf does.
+
 A `map<K, V>` field (`_map`) is a repeated entry message with the key as
 field 1 and the value as field 2. It decodes to a dict {key: value}; a key
 that arrives twice keeps its last value, as upb keeps it (a message value is
@@ -43,7 +48,8 @@ default (0, empty string or bytes, an empty message).
 Encoding writes what protobuf's `SerializeToString(deterministic=True)`
 writes for the same message: fields in field-number order, a map's entries
 in upb's order of their keys (`_map_key_order`: a string key by its UTF-8
-bytes, a key that is a prefix of another after it), each entry with its key
+bytes, a key that is a prefix of another after it; an integer key from the
+largest down), each entry with its key
 and its value written even where they are the default, as upb writes them
 (an empty string key as `0a 00`, an empty message value as `12 00`), proto3
 defaults (0, false, empty string or bytes) left out of singular fields but
@@ -268,12 +274,34 @@ def _skip(buf: bytes, pos: int, end: int, number: int, wire_type: int, depth: in
     raise WireError(f"invalid wire type {wire_type}")
 
 
+def _varint_value(kind: str, value: int):
+    """A decoded varint as the value of a field of `kind`."""
+    if kind == "bool":
+        return value != 0
+    if kind == "int64":
+        return value - ((value >> 63) << 64)
+    if kind == "int32":
+        value &= _MASK32
+        return value - ((value >> 31) << 32)
+    if kind != "uint64":
+        return value & _MASK32
+    return value
+
+
 def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, depth: int,
                  keep: bool = False) -> None:
     while pos < end:
         start = pos
         number, wire_type, pos = _tag(buf, pos, end)
         field = schema.get(number)
+        if (field is not None and field.repeated and wire_type == _LEN
+                and field.kind in _VARINT_KINDS):
+            stop, pos = _length(buf, pos, end)
+            values = out.setdefault(field.name, [])
+            while pos < stop:
+                value, pos = _varint(buf, pos, stop)
+                values.append(_varint_value(field.kind, value))
+            continue
         if field is None or wire_type != field.wire_type:
             pos = _skip(buf, pos, end, number, wire_type, depth)
             if keep:
@@ -282,15 +310,7 @@ def _decode_into(schema: Schema, buf: bytes, pos: int, end: int, out: dict, dept
         kind = field.kind
         if wire_type == _VARINT:
             value, pos = _varint(buf, pos, end)
-            if kind == "bool":
-                value = value != 0
-            elif kind == "int64":
-                value -= (value >> 63) << 64
-            elif kind == "int32":
-                value &= _MASK32
-                value -= (value >> 31) << 32
-            elif kind != "uint64":
-                value &= _MASK32
+            value = _varint_value(kind, value)
         else:
             stop, pos = _length(buf, pos, end)
             if kind == "map":
@@ -383,11 +403,12 @@ def _put_field(out: bytearray, number: int, field: Field, v) -> None:
 def _map_key_order(item):
     """upb's order of map keys: a string key by its UTF-8 bytes, except that
     a key that is a prefix of another comes after it (upb compares the
-    common prefix, then puts the longer key first: "ab", "a", then "")."""
+    common prefix, then puts the longer key first: "ab", "a", then ""), and
+    an integer key in descending order."""
     key = item[0]
     if isinstance(key, str):
         return (*key.encode("utf-8"), 256)
-    return key
+    return -key  # an integer key: upb writes the largest first
 
 
 def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
@@ -402,6 +423,15 @@ def _encode_into(schema: Schema, msg: dict, out: bytearray) -> None:
                 body = bytearray()
                 _put_field(body, 1, key_f, key)
                 _put_field(body, 2, value_f, v)
+                _put_varint(out, number << 3 | _LEN)
+                _put_varint(out, len(body))
+                out += body
+            continue
+        if field.repeated and field.kind in _VARINT_KINDS:
+            if value:
+                body = bytearray()
+                for v in value:
+                    _put_varint(body, int(v))
                 _put_varint(out, number << 3 | _LEN)
                 _put_varint(out, len(body))
                 out += body

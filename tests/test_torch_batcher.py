@@ -16,6 +16,7 @@ import time
 from types import SimpleNamespace
 
 import pytest
+from torch_untraced import untraced  # noqa: F401
 
 
 def _jax():

@@ -36,6 +36,7 @@ from fabric_tpu_torch.ledger.rwset_proto import serialize_tx_rwset
 from fabric_tpu_torch.ledger.txparse import ParsedTx
 from fabric_tpu_torch.protos import fabric, wire
 from fabric_tpu_torch.validation.blockparse import parse_block, parse_block_python
+from torch_untraced import untraced  # noqa: F401
 
 _ld, _varint_field = corpus._ld, corpus._varint_field
 

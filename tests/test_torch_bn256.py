@@ -34,6 +34,7 @@ import torch
 from fabric_tpu.common import fp256bn as jhost
 from fabric_tpu_torch.common import fp256bn as host
 from fabric_tpu_torch.ops import bn256_kernel as bk
+from torch_untraced import untraced  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 K, B = 4, 4

@@ -33,6 +33,7 @@ from fabric_tpu.common import fp256bn as jhost
 from fabric_tpu_torch.common import fp256bn as host
 from fabric_tpu_torch.ops import bn256_kernel as bk
 from fabric_tpu_torch.ops import pairing_kernel as pk
+from torch_untraced import untraced  # noqa: F401
 
 HARNESS = Path(__file__).resolve().parent / "cuda_emu"
 CU = Path(bk.__file__).resolve().parent.parent / "csrc" / "bn256.cu"

@@ -35,6 +35,7 @@ from fabric_tpu_torch.peer.pipeline import CommitPipeline, PipelineError
 from fabric_tpu_torch.policy.ast import from_dsl as tdsl
 from fabric_tpu_torch.protos import fabric, protoutil, wire
 from fabric_tpu_torch.validation import validator as tval
+from torch_untraced import untraced  # noqa: F401
 
 POLICY = "OR('Org1MSP.member','Org2MSP.member')"
 SW = SoftwareProvider()

@@ -51,6 +51,7 @@ from fabric_tpu_torch.peer.pipeline import CommitPipeline  # noqa: E402
 from fabric_tpu_torch.policy.ast import from_dsl as tdsl  # noqa: E402
 from fabric_tpu_torch.protos import fabric, wire  # noqa: E402
 from fabric_tpu_torch.validation import validator as tval  # noqa: E402
+from torch_untraced import untraced  # noqa: E402, F401
 
 CHANNEL = chip_smoke.CONFIG2_CHANNEL
 N_PLAIN = 5  # plain blocks: 6 blocks after the genesis block with the CONFIG block

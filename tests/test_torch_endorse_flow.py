@@ -20,6 +20,7 @@ import sqlite3
 
 import pytest
 import torch
+from torch_untraced import untraced  # noqa: F401
 
 pytest.importorskip("cryptography", reason="the reference MSP needs the cryptography package")
 

@@ -48,6 +48,7 @@ from fabric_tpu_torch.msp.signer import SigningIdentity as TSigner
 from fabric_tpu_torch.ops import p256_kernel
 from fabric_tpu_torch.protos import fabric, protoutil as tpu, wire
 from test_torch_chaincode import make_cc
+from torch_untraced import untraced  # noqa: F401
 
 SW = SoftwareProvider()
 CHANNEL = "ch"

@@ -35,6 +35,7 @@ from fabric_tpu_torch.common import fp256bn as bn
 from fabric_tpu_torch.crypto import bccsp
 from fabric_tpu_torch.crypto import hostbn as hb
 from fabric_tpu_torch.idemix import batch as ib
+from torch_untraced import untraced  # noqa: F401
 
 R = bn.R
 ATTRS = ["OU", "Role", "EnrollmentID", "RevocationHandle"]

@@ -29,6 +29,7 @@ from fabric_tpu_torch.common import der, fabobs, p256
 from fabric_tpu_torch.common import faults as tfaults
 from fabric_tpu_torch.crypto import bccsp, hostec
 from fabric_tpu_torch.crypto import hostec_np as hn
+from torch_untraced import untraced  # noqa: F401
 
 N, P, G = p256.N, p256.P, p256.GENERATOR
 SEED = 20261018

@@ -29,6 +29,7 @@ from fabric_tpu_torch import idemix
 from fabric_tpu_torch.common import fp256bn as bn
 from fabric_tpu_torch.idemix.batch import verify_signatures_batch
 from fabric_tpu_torch.protos import idemix as pb
+from torch_untraced import untraced  # noqa: F401
 
 ATTR_NAMES = ["OU", "Role", "EnrollmentID", "RevocationHandle"]
 ATTR_VALUES = [11, 22, 33, 44]

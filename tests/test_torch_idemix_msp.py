@@ -35,6 +35,7 @@ import hashlib
 import random
 
 import pytest
+from torch_untraced import untraced  # noqa: F401
 
 pytest.importorskip("cryptography", reason="the JAX revocation key is cryptography's")
 

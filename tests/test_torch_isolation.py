@@ -131,7 +131,11 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "ledger.simulator", "chaincode", "chaincode.shim", "chaincode.support",
                  "chaincode.package", "chaincode.extbuilder", "endorser.endorser", "scc",
                  "scc.qscc", "scc.cscc", "scc.lscc", "scc.lifecycle_scc", "orderer",
-                 "orderer.blockcutter", "orderer.blockwriter", "orderer.solo"):
+                 "orderer.blockcutter", "orderer.blockwriter", "orderer.solo", "protos.ab",
+                 "orderer.consenter_ids", "orderer.raft", "orderer.raft_chain",
+                 "orderer.msgprocessor", "orderer.multichannel", "orderer.broadcast",
+                 "orderer.follower", "deliver", "deliver.client", "deliver.server",
+                 "discovery", "discovery.inquire", "discovery.service"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -228,6 +232,28 @@ from fabric_tpu_torch.orderer import blockwriter
 from fabric_tpu_torch.scc import lifecycle_scc
 print(json.dumps(sorted(m for m in ("torch", "grpc", "yaml") if m in sys.modules)))
 """
+
+
+_ORDERING_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.orderer import (broadcast, consenter_ids, follower, msgprocessor,
+                                      multichannel, raft, raft_chain)
+from fabric_tpu_torch.deliver import client, server
+from fabric_tpu_torch.discovery import inquire, service
+from fabric_tpu_torch.protos import ab
+print(json.dumps(sorted(m for m in ("torch", "grpc", "yaml") if m in sys.modules)))
+"""
+
+
+def test_ordering_and_delivery_modules_import_no_torch():
+    """The raft orderer, the ordering front door, block delivery and
+    discovery (twelve modules and their schemas) touch no tensor: they load
+    neither torch nor grpc nor yaml, though their bundles verify through a
+    provider that may run K2."""
+    out = subprocess.run([sys.executable, "-c", _ORDERING_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_endorsement_and_orderer_modules_import_no_torch():

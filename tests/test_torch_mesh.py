@@ -36,6 +36,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_untraced import untraced  # noqa: F401
 
 pytest.importorskip("cryptography", reason="the reference MSP needs the cryptography package")
 

@@ -40,6 +40,7 @@ from fabric_tpu_torch.protos import fabric, wire
 from fabric_tpu_torch.validation import validator as tval
 from test_torch_validator import (SW, OracleProvider, bad_creator_sig, bad_txid, make_block,
                                   make_tx, net, registries, tampered_endorsement)
+from torch_untraced import untraced  # noqa: F401
 
 CHANNELS = ("chA", "chB", "chC")
 TXS = 12

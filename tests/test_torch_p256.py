@@ -33,6 +33,7 @@ from fabric_tpu_torch.common import p256
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, be_bytes_to_limbs
 from fabric_tpu_torch.ops import p256_kernel as pk
 from test_torch_provider import columns, oracle, signature_cases
+from torch_untraced import untraced  # noqa: F401
 
 LANES = 128
 KEY_COLUMNS = 32

@@ -32,6 +32,7 @@ import chip_smoke
 from fabric_tpu.common import p256 as jp
 from fabric_tpu_torch.crypto.cuda_provider import be_bytes_to_limbs
 from fabric_tpu_torch.ops import p256_kernel as pk
+from torch_untraced import untraced  # noqa: F401
 
 HARNESS = Path(__file__).resolve().parent / "cuda_emu"
 CU = Path(pk.__file__).resolve().parent.parent / "csrc" / "p256_verify.cu"

@@ -39,6 +39,7 @@ from fabric_tpu_torch.ops import bignum as bn
 from fabric_tpu_torch.ops import convert
 from fabric_tpu_torch.ops import fp12 as f12
 from fabric_tpu_torch.ops import pairing_kernel as pk
+from torch_untraced import untraced  # noqa: F401
 
 RNG_SEED = 20260731
 

@@ -19,6 +19,7 @@ from fabric_tpu_torch.common import der, p256
 from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, be_bytes_to_limbs
 from fabric_tpu_torch.ops import p256_kernel as pk
+from torch_untraced import untraced  # noqa: F401
 
 BAD_DER = b"\x30\x01\x00"
 

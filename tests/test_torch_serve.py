@@ -60,6 +60,7 @@ from fabric_tpu_torch.serve.client import (
 )
 from fabric_tpu_torch.serve.server import SidecarServer
 from test_torch_commit_pipeline import world  # noqa: F401  (the config #2 network)
+from torch_untraced import untraced  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 WAIT_S = 20.0  # the bound of every event wait and join here

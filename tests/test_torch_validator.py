@@ -49,6 +49,7 @@ from fabric_tpu_torch.policy.ast import from_dsl as tdsl
 from fabric_tpu_torch.protos import fabric, wire
 from fabric_tpu_torch.validation import validator as tval
 from fabric_tpu_torch.validation.blockparse import parse_block
+from torch_untraced import untraced  # noqa: F401
 
 CHANNEL = "testchannel"
 SW = SoftwareProvider()
