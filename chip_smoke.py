@@ -141,8 +141,9 @@ the persistent KVLedger; K2, the key-comb kernel and K5 on its path):
      equal to the channel stored alone, aggregate tx/s, the batcher's
      launches against the 8 blocks submitted;
  21. snapshot_config2: join by snapshot. Two ledgers seeded alike before
-     block 0 with mvcc_resident_chain's state (1,000,000 public and 50,000
-     hashed keys) and benchcc's committed `_lifecycle` definition (the
+     block 0 with 100,000 public and 5,000 hashed keys (SNAPSHOT_KEYS; cut
+     from mvcc_resident_chain's state) and benchcc's committed `_lifecycle`
+     definition (the
      "guard" validation plugin, coll0): A commits pipeline_config2's chain
      pipelined (K2, K5) with a snapshot taken after block 4, A' commits
      blocks 0-4 one at a time (host MVCC) and snapshots too; the snapshots
@@ -1057,10 +1058,10 @@ def point_err(got, want) -> int:
                default=0)
 
 
-def msm_edge_lanes(host, rng):
+def msm_edge_lanes(host, rng, random_lanes: int = 5):
     """K = 8 lanes with the edge cases of the MSM: identity bases, zero
     scalars, e = 1, e = r - 1, r * G = O, equal bases (doubling inside the
-    complete addition), and random bases and scalars."""
+    complete addition), and `random_lanes` of random bases and scalars."""
     def rand_point():
         return host.g1_mul(host.G1_GEN, rng.randrange(1, host.R))
 
@@ -1076,19 +1077,25 @@ def msm_edge_lanes(host, rng):
         ([p, q, p, q, g, None, p, q], [rng.randrange(r) for _ in range(8)]),
     ]
     lanes += [([rand_point() for _ in range(8)], [rng.randrange(r) for _ in range(8)])
-              for _ in range(5)]
+              for _ in range(random_lanes)]
     return lanes
 
 
-def msm_wide_lanes(host, rng, k_count):
-    """Four of msm_edge_lanes (r * G = O, equal bases, mixed, random)
-    widened to K bases: a lane's bases repeated, with new random scalars
-    past the eighth."""
-    lanes = msm_edge_lanes(host, rng)[4:8]
+def msm_wide_lanes(host, rng, k_count, edge=None):
+    """Four of msm_edge_lanes (r * G = O, equal bases, mixed, random; of
+    `edge` when given, else made anew) widened to K bases: a lane's bases
+    repeated, with new random scalars past the eighth."""
+    lanes = (edge or msm_edge_lanes(host, rng))[4:8]
     while len(lanes[0][0]) < k_count:
         more = k_count - len(lanes[0][0])
         lanes = [(b + b[:more], e + [rng.randrange(host.R) for _ in b[:more]]) for b, e in lanes]
     return lanes
+
+
+# the random lanes among idemix_kernel_vs_plain's K3 lanes, cut from 5 to
+# keep the whole smoke inside its time: each costs the host oracle 16 G1
+# multiplications; every edge case stays
+MSM_RANDOM_LANES = 1
 
 
 def idemix_kernel_vs_plain(torch, np, dev):
@@ -1104,7 +1111,7 @@ def idemix_kernel_vs_plain(torch, np, dev):
 
     t_phase = time.perf_counter()
     rng = random.Random(IDEMIX_SEED + 1)
-    lanes = msm_edge_lanes(host, rng)
+    lanes = msm_edge_lanes(host, rng, random_lanes=MSM_RANDOM_LANES)
     bases, scalars = bk.pack_batch([b for b, _ in lanes], [e for _, e in lanes])
     bases, scalars = torch.from_numpy(bases).to(dev), torch.from_numpy(scalars).to(dev)
     got = bk.unpack_points(bk.msm_batch(bases, scalars))
@@ -1121,7 +1128,7 @@ def idemix_kernel_vs_plain(torch, np, dev):
     if err3 or got != want or plain != want:
         raise AssertionError(f"bn256_msm: kernel, plain version and oracle differ ({err3})")
     # K = 33: a warp a lane whose first thread takes a second base
-    wide = msm_wide_lanes(host, rng, 33)
+    wide = msm_wide_lanes(host, rng, 33, lanes)
     bases, scalars = bk.pack_batch([b for b, _ in wide], [e for _, e in wide])
     got = bk.unpack_points(bk.msm_batch(torch.from_numpy(bases).to(dev),
                                         torch.from_numpy(scalars).to(dev)))
@@ -2621,6 +2628,12 @@ def pipeline_phases(torch, np, dev, n_blocks=PIPELINE_BLOCKS, n_txs=CONFIG2_TXS,
 
 
 SNAPSHOT_AT = 5  # the snapshot's ledger height: blocks 0-4 before it, 5-9 after
+# the state seeded before block 0, cut from mvcc_resident_chain's 1,000,000
+# public and 50,000 hashed keys to keep the whole smoke inside its time: the
+# seed, the exports and the imports scale with it (87.5 of 136.7 s at the
+# full size); the 1,000,000-key state stays mvcc_resident_chain's
+SNAPSHOT_KEYS = 100_000
+SNAPSHOT_HASHED_KEYS = 5_000
 SNAPSHOT_HISTORY_KEYS = 8  # benchcc keys whose history the joined peer resolves
 
 
@@ -2708,7 +2721,7 @@ def guard_plugin():
     return Guard()
 
 
-def snapshot_phase(torch, np, dev, net, raws, n_keys=CHAIN_KEYS, n_hashed=CHAIN_HASHED_KEYS,
+def snapshot_phase(torch, np, dev, net, raws, n_keys=SNAPSHOT_KEYS, n_hashed=SNAPSHOT_HASHED_KEYS,
                    n_txs=CONFIG2_TXS, conflict_block=PIPELINE_CONFLICT_BLOCK, at=SNAPSHOT_AT,
                    flipped=PIPELINE_FLIPPED, oracle_sample=ORACLE_SAMPLE) -> dict:
     """snapshot_config2: pipeline_config2's signed chain (`raws`, `net`'s)
@@ -5392,7 +5405,8 @@ class BenchCC:
     """benchcc as endorse_config2 runs it in process, over either package's
     shim module (`shim`): `put k` writes k (config #2's transaction shape,
     one write); `rw k [k2]` reads each key and writes k (config #4's
-    in-block conflict pattern when k2 is written earlier in the block)."""
+    in-block conflict pattern when k2 is written earlier in the block);
+    `pput k` writes k to the private collection coll0 (gossip_config2)."""
 
     def __init__(self, shim):
         self.shim = shim
@@ -5409,6 +5423,9 @@ class BenchCC:
             for key in params:
                 stub.get_state(key)
             stub.put_state(params[0], b"w")
+            return self.shim.success()
+        if fn == "pput" and len(params) == 1:
+            stub.put_private_data(GOSSIP_COLLECTION, params[0], b"p")
             return self.shim.success()
         return self.shim.error_response(f"benchcc: unknown function {fn}")
 
@@ -5521,14 +5538,15 @@ class EndorseNet:
 
 
 def endorsing_peer(en, k: int, path: str, provider, dev, endorser_cls=None, signer=None,
-                   device_mvcc=True):
+                   device_mvcc=True, transient_store=None, on_pvt_results=None):
     """Peer k of endorse_config2 (Org1's for k = 0, Org2's for k = 1): a
     bundle of the genesis block over `provider` (its MSPs verify a
     creator's signature there), a Channel with the orderer's signature
     checked through `block_signature_verifier` and the genesis block
     committed, a ChaincodeSupport with benchcc and qscc, and an Endorser
     (`endorser_cls`, default Endorser) signing with the peer's identity
-    (or `signer`). Returns (channel, endorser)."""
+    (or `signer`); `transient_store` goes to the Channel and
+    `on_pvt_results` to the Endorser. Returns (channel, endorser)."""
     from fabric_tpu_torch.chaincode import shim
     from fabric_tpu_torch.chaincode.support import ChaincodeSupport
     from fabric_tpu_torch.channelconfig.bundle import bundle_from_genesis_block
@@ -5544,7 +5562,7 @@ def endorsing_peer(en, k: int, path: str, provider, dev, endorser_cls=None, sign
     registry = ChaincodeRegistry([ChaincodeDefinition("benchcc", en.net.policy)])
     ch = Channel(en.channel, path, bundle.msp_manager, registry, provider,
                  verify_orderer_sig=block_signature_verifier(lambda: bundle),
-                 device_mvcc=device_mvcc, device=dev)
+                 device_mvcc=device_mvcc, device=dev, transient_store=transient_store)
     ch.ledger.commit(wire.decode(fabric.BLOCK, genesis_raw))
     support = ChaincodeSupport()
     support.register("benchcc", BenchCC(shim))
@@ -5552,11 +5570,12 @@ def endorsing_peer(en, k: int, path: str, provider, dev, endorser_cls=None, sign
                      system=True)
     endorser = (endorser_cls or Endorser)(
         signer or en.net.endorsers[k], bundle.msp_manager, support,
-        get_ledger=lambda cid: ch.ledger if cid == en.channel else None)
+        get_ledger=lambda cid: ch.ledger if cid == en.channel else None,
+        on_pvt_results=on_pvt_results)
     return ch, endorser
 
 
-def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None) -> dict:
+def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None, root=None) -> dict:
     """endorse_config2: Fabric's transaction flow at config #2's width on the
     card, proposal -> endorse -> order -> validate -> commit. Org1's client
     signs each round's proposals (`EndorseNet`); Org1's and Org2's peers
@@ -5589,7 +5608,8 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None) -> dict:
     with `keep`, keeps under keep["endorse_config2"] what raft_config2
     orders again: the network, each round's envelopes, the blocks as the
     solo chain delivered them, both peers' (filter, commit hash) pairs and
-    the committed .chain blocks and SQLite rows of peer 0."""
+    the committed .chain blocks and SQLite rows of peer 0. The ledgers live
+    under `root` (build/smoke_endorse by default), removed at the end."""
     import shutil
     import threading
     from pathlib import Path
@@ -5610,7 +5630,8 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None) -> dict:
     t_phase = time.perf_counter()
     rounds = ENDORSE_ROUNDS
     en = EndorseNet(n_txs=n_txs)
-    root = Path(__file__).resolve().parent / "build" / "smoke_endorse"
+    root = Path(root) if root is not None else (
+        Path(__file__).resolve().parent / "build" / "smoke_endorse")
     shutil.rmtree(root, ignore_errors=True)
     times = {"validate": 0.0, "simulate_endorse": 0.0, "sign": 0.0, "process": [0.0, 0.0]}
 
@@ -6515,6 +6536,785 @@ def raft_phase(torch, np, dev, kept: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Gossip and the gRPC transport: gossip_config2
+# ---------------------------------------------------------------------------
+
+GOSSIP_TICK_S = 0.1  # each node's tick: an alive to every member, anti-entropy, a pull round a 5
+GOSSIP_WAIT_S = 300.0  # the longest any wait of the phase may take before it fails
+GOSSIP_PVT_TXS = 100  # transactions of the block that writes coll0
+GOSSIP_COLLECTION = "coll0"
+
+
+class GossipOrderer:
+    """The ordering service of gossip_config2: a port DeliverHandler over
+    the blocks `release` has let out, served on 127.0.0.1:0 through
+    comm/services.register_atomic_broadcast (Broadcast answers
+    NOT_IMPLEMENTED: the blocks were ordered before). A session waiting on
+    the next block wakes when one is released or the orderer stops."""
+
+    class _Broadcast:
+        @staticmethod
+        def process_message(env):
+            from fabric_tpu_torch.protos import fabric
+
+            return fabric.NOT_IMPLEMENTED, "gossip_config2 orders no envelope"
+
+    def __init__(self, channel: str, blocks, wait_s: float = GOSSIP_WAIT_S):
+        import threading
+
+        from fabric_tpu_torch.comm.server import GRPCServer
+        from fabric_tpu_torch.comm.services import register_atomic_broadcast
+        from fabric_tpu_torch.deliver.server import BlockSource, DeliverHandler
+
+        self.channel = channel
+        self.blocks = list(blocks)
+        self._cv = threading.Condition()
+        self._closed = False
+        source = BlockSource(self.get_block, lambda: len(self.blocks), self._wait_for)
+        self.handler = DeliverHandler(lambda cid: source if cid == channel else None,
+                                      wait_timeout=wait_s)
+        self.server = GRPCServer("127.0.0.1:0")
+        register_atomic_broadcast(self.server, self._Broadcast(), self.handler)
+        self.addr = self.server.start()
+
+    def get_block(self, n):
+        with self._cv:
+            return self.blocks[n] if n < len(self.blocks) else None
+
+    def _wait_for(self, number, timeout):
+        with self._cv:
+            self._cv.wait_for(lambda: len(self.blocks) > number or self._closed, timeout)
+            return len(self.blocks) > number
+
+    def release(self, *blocks) -> None:
+        with self._cv:
+            self.blocks.extend(blocks)
+            self._cv.notify_all()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self.server.stop()
+
+
+class GossipPeer:
+    """One peer of gossip_config2, wired as a Fabric peer wires gossip for a
+    channel (`fabric_tpu/nodes/peer.py:665-750`, enable_gossip_for_channel):
+    an `endorsing_peer` on the genesis whose Channel commits through a
+    CommitPipeline over the phase's shared provider; a port GossipNode on
+    127.0.0.1:0 (require_signed_alive, alives signed by the peer's signer and
+    checked through the channel's MSPs, the certstore's identities validated
+    there, private-data requests signed and checked, requesters' eligibility
+    by coll0's member orgs); the gossip StateProvider committing through
+    the pipeline; with `orderer` set, the elected leader pulls through a
+    BlockDeliverer over comm/services.DeliverEndpoint and pushes each block
+    it commits. `submitted` is the next block number handed to the pipeline
+    (by gossip or by the deliverer): a block below it is not handed again."""
+
+    def __init__(self, phase, name: str, signer, orderer=None):
+        import threading
+
+        from fabric_tpu_torch.gossip.coordinator import TransientStore
+        from fabric_tpu_torch.peer.pipeline import CommitPipeline
+        from fabric_tpu_torch.protos import fabric
+
+        self.phase, self.name, self.signer = phase, name, signer
+        self.self_id = f"{signer.msp_id}:{name}"
+        self.orderer = orderer
+        self.commit_at = {}  # block number -> perf_counter of its commit
+        self.committed = []  # (filter, commit hash) of each committed block
+        self.errors = []
+        self.local_pvt = 0  # transient-store writes of this peer's own endorsements
+        self.pvt_writes = {}  # tx id -> [(ns, coll, write-set bytes)] it endorsed
+
+        class Transient(TransientStore):
+            def __init__(self):
+                super().__init__()
+                self.persisted = 0
+
+            def persist(self, *args):
+                with self._lock:
+                    self.persisted += 1
+                super().persist(*args)
+
+        self.transient = Transient()
+        self.ch, self.endorser = endorsing_peer(
+            phase.en, 0, str(phase.root / name), phase.bp, phase.dev, signer=signer,
+            transient_store=self.transient, on_pvt_results=self._on_pvt_results)
+        self.submitted = self.ch.ledger.height
+        self._submit_lock = threading.Lock()
+
+        def on_commit(block, flags):
+            n = block["header"]["number"]
+            self.commit_at[n] = time.perf_counter()
+            self.committed.append((flags.tobytes(), block["metadata"]["metadata"][
+                fabric.COMMIT_HASH]))
+            node = self.node
+            if node is not None and node.is_leader and self.orderer is not None:
+                node.broadcast_block(block)
+
+        self.pipe = CommitPipeline(self.ch, depth=PIPELINE_DEPTH, on_commit=on_commit,
+                                   on_error=lambda b, exc: self.errors.append(exc))
+        self.node = None
+        self.deliver = None  # (deliverer, endpoint, channel, thread) while leading
+        self.delivered = 0
+        self.reconciled = 0
+        self.missing_seen = 0
+        self.starts = 0
+
+    # -- the commit path ------------------------------------------------------
+    def submit(self, block) -> None:
+        with self._submit_lock:
+            n = block["header"]["number"]
+            if n < self.submitted:
+                return  # the deliverer or another route handed it already
+            if n != self.submitted:
+                raise AssertionError(f"{self.name}: block {n} before {self.submitted}")
+            self.pipe.submit(block)
+            self.submitted = n + 1
+
+    def _on_pvt_results(self, channel_id, tx_id, pvt_writes) -> None:
+        """The endorser's private write-sets: into this peer's transient
+        store, then out to the channel's members (DistributePrivateData)."""
+        self.pvt_writes[tx_id] = list(pvt_writes)
+        for ns, coll, raw in pvt_writes:
+            self.local_pvt += 1
+            self.transient.persist(tx_id, ns, coll, raw)
+        self.node.disseminate_pvt(tx_id, pvt_writes)
+
+    # -- gossip -------------------------------------------------------------
+    def start_node(self, state_transfer_only: bool = False):
+        """A new GossipNode for this peer, started, as a restarted peer starts
+        one (its alives of a new incarnation). With `state_transfer_only`
+        the node's block pull round asks for identities instead, so it
+        catches up by state transfer alone."""
+        import random
+
+        from fabric_tpu_torch.gossip.comm import GossipNode
+        from fabric_tpu_torch.gossip.state import StateProvider
+
+        ph, ch = self.phase, self.ch
+        state = StateProvider(ph.channel, self.submit, lambda: self.submitted)
+
+        def pvt_reader(block_num, tx_num, ns, coll):
+            for e in ch.ledger.pvt_store.get_pvt_data(block_num, tx_num):
+                if e.namespace == ns and e.collection == coll:
+                    return e.rwset
+            return None
+
+        def reconcile_commit(items):
+            self.reconciled += ch.ledger.commit_reconciled_pvt(items)
+
+        def missing():
+            out = ch.ledger.pvt_store.get_missing_pvt_data()
+            self.missing_seen = max(self.missing_seen, sum(len(v) for v in out.values()))
+            return out
+
+        node = GossipNode(
+            self.self_id, ph.channel, state, ch.ledger.block_store.get_block_by_number,
+            lambda: ch.ledger.height, tick_interval=GOSSIP_TICK_S,
+            identity_bytes=self.signer.serialize(), verify_identity=ph.verify_identity,
+            transient_store=self.transient, pvt_reader=pvt_reader,
+            pvt_verify_member_sig=ph.verify_member_sig,
+            pvt_requester_eligible=ph.requester_eligible,
+            pvt_sign_request=ph.request_signer(self.signer),
+            sign_message=self.signer.sign, require_signed_alive=True,
+            rng=random.Random(f"gossip {self.name} {self.starts}"))
+        self.starts += 1
+        if state_transfer_only:
+            node.pull.hello_blocks = node.pull.hello
+        node.enable_reconciliation(missing, reconcile_commit)
+        self.node = node
+        node.start()
+        return node
+
+    def elect(self) -> None:
+        """Wire the election to the deliverer (once the membership formed,
+        as the reference elects after its startup grace period), and start
+        pulling if this node leads now."""
+        self.node.election.on_leadership_change = self._on_leadership
+        if self.node.is_leader:
+            self._on_leadership(True)
+
+    def _on_leadership(self, leader: bool) -> None:
+        """The elected leader pulls from the orderer (one deliverer, started
+        on the first election; a demoted leader's deliverer stops)."""
+        import threading
+
+        from fabric_tpu_torch.comm.server import channel_to
+        from fabric_tpu_torch.comm.services import DeliverEndpoint
+        from fabric_tpu_torch.common.retry import RetryPolicy
+        from fabric_tpu_torch.deliver.client import BlockDeliverer
+
+        if not leader:
+            self.stop_deliver()
+            return
+        if self.deliver is not None:
+            return
+        self.phase.elected.append((self.name, time.perf_counter()))
+        conn = channel_to(self.orderer.addr)
+        ep = DeliverEndpoint(conn)
+
+        def on_block(block):
+            self.delivered += 1
+            self.submit(block)
+
+        d = BlockDeliverer(self.phase.channel, [ep], on_block=on_block,
+                           next_block=lambda: self.submitted, signer=self.signer,
+                           retry_policy=RetryPolicy(base_s=0.05, multiplier=1.2, cap_s=1.0,
+                                                    deadline_s=self.phase.wait_s))
+        t = threading.Thread(target=d.run, name=f"deliver-{self.name}", daemon=True)
+        self.deliver = (d, ep, conn, t)
+        t.start()
+
+    def stop_deliver(self) -> None:
+        if self.deliver is None:
+            return
+        d, ep, conn, t = self.deliver
+        d.stop()
+        ep.close()
+        t.join(timeout=self.phase.wait_s)
+        conn.close()
+        if t.is_alive():
+            raise AssertionError(f"gossip_config2: {self.name}'s deliverer did not stop")
+
+    def stop_node(self) -> None:
+        if self.node is not None:
+            self.node.stop()
+            self.node.check()
+        self.stop_deliver()
+
+    def check(self) -> None:
+        if self.node is not None:
+            self.node.check()
+        if self.errors or self.pipe.dead:
+            raise AssertionError(f"gossip_config2: {self.name} failed to commit: "
+                                 f"{self.errors or self.pipe.last_error!r}")
+
+    @property
+    def height(self) -> int:
+        return self.ch.ledger.height
+
+
+class GossipPhase:
+    """The shared pieces of gossip_config2: the network, the one recording
+    provider and BatchingProvider that every peer, alive check and
+    private-data request goes through, the channel's MSPs over it, the hooks
+    every GossipPeer's node takes, and `wait_s`, the longest any wait of the
+    phase may take."""
+
+    def __init__(self, en, dev, root, wait_s: float = GOSSIP_WAIT_S):
+        from fabric_tpu_torch.channelconfig.bundle import bundle_from_genesis_block
+        from fabric_tpu_torch.crypto.bccsp import VerifyError
+        from fabric_tpu_torch.msp.identity import MSPError
+        from fabric_tpu_torch.parallel.batcher import BatchingProvider
+        from fabric_tpu_torch.policy import proto_convert
+        from fabric_tpu_torch.protos import fabric, wire
+
+        self.en, self.dev, self.root, self.wait_s = en, dev, root, wait_s
+        self.channel = en.channel
+        base = type(recording_cuda_provider(dev))
+
+        class VerifyRecording(base):
+            """The recording provider, also keeping each verify() lane (a
+            one-lane K2 launch) and its verdict."""
+
+            def __init__(self, device):
+                super().__init__(device)
+                self.verify_lanes = []
+
+            def verify(self, key, signature, digest):
+                ok = super().verify(key, signature, digest)
+                self.verify_lanes.append((key, signature, digest, ok))
+                return ok
+
+        self.recorder = VerifyRecording(dev)
+        self.bp = BatchingProvider(self.recorder)
+        mgr = bundle_from_genesis_block(en.genesis, self.bp).msp_manager
+        self.elected = []  # (peer name, perf_counter) of each leader's first election
+        # seconds of each member-signature check by role ("alive", "pvt"),
+        # and of the identity's verify() within it (one one-lane K2 launch)
+        self.check_s = {"alive": [], "pvt": []}
+        self.verify_s = {"alive": [], "pvt": []}
+        self.request_bytes = set()  # what the peers signed as private-data requests
+        # coll0's member orgs (the reference's MemberOrgs): the principals of
+        # its member-orgs policy. One requester cannot satisfy the 2-of-3
+        # policy alone, so a requester is eligible when it is a member of
+        # one of those orgs
+        policy = proto_convert.unmarshal_envelope(wire.encode(
+            fabric.SIGNATURE_POLICY_ENVELOPE, _collection_policy()))
+        member_orgs = [proto_convert.principal_for(p) for p in policy.identities]
+
+        def verify_member_sig(identity, data, sig):
+            """True when `sig` is the member `identity`'s signature over
+            `data`; an identity the channel's MSPs refuse, or a signature
+            that does not verify (or does not parse), is False; a provider
+            that fails raises. A private-data request is told from an alive
+            by its bytes, which a peer signed through `request_signer`."""
+            role = "pvt" if data in self.request_bytes else "alive"
+            t0 = time.perf_counter()
+            try:
+                try:
+                    ident, msp = mgr.deserialize_identity(identity)
+                    msp.validate(ident)
+                except (MSPError, ValueError):
+                    return False
+                t1 = time.perf_counter()
+                try:
+                    ident.verify(data, sig)
+                    return True
+                except MSPError as exc:
+                    if exc.__context__ is None or isinstance(exc.__context__, VerifyError):
+                        return False
+                    raise
+                finally:
+                    self.verify_s[role].append(time.perf_counter() - t1)
+            finally:
+                self.check_s[role].append(time.perf_counter() - t0)
+
+        def verify_identity(pki_id: bytes, identity: bytes) -> bool:
+            """The certstore's gate: the claimed MSP id is the identity's,
+            and the identity validates under the channel's MSPs."""
+            try:
+                ident, msp = mgr.deserialize_identity(identity)
+                if ident.msp_id != pki_id.decode().split(":", 1)[0]:
+                    return False
+                msp.validate(ident)
+                return True
+            except (MSPError, ValueError):
+                return False
+
+        def requester_eligible(ns: str, coll: str, identity: bytes) -> bool:
+            """A requester may read benchcc's coll0 when it is a member of
+            one of coll0's member orgs (pull.go:614,662)."""
+            if (ns, coll) != ("benchcc", GOSSIP_COLLECTION):
+                return False
+            try:
+                ident, msp = mgr.deserialize_identity(identity)
+            except (MSPError, ValueError):
+                return False
+            for principal in member_orgs:
+                try:
+                    msp.satisfies_principal(ident, principal)
+                    return True
+                except MSPError:
+                    continue
+            return False
+
+        self.verify_member_sig = verify_member_sig
+        self.verify_identity = verify_identity
+        self.requester_eligible = requester_eligible
+
+    def request_signer(self, signer):
+        """`signer.sign` for a node's private-data requests, keeping the
+        bytes it signs so that their checks are counted apart."""
+        def sign(data: bytes) -> bytes:
+            self.request_bytes.add(data)
+            return signer.sign(data)
+
+        return sign
+
+    def k2_by_role(self) -> dict:
+        """K2 launches by role: one a check of an alive or a private-data
+        request that reached the identity's verify(), the rest of the
+        one-lane launches (the proposals' creator checks), and the batches
+        (the blocks' orderer signatures and endorsements)."""
+        alive, pvt = len(self.verify_s["alive"]), len(self.verify_s["pvt"])
+        return {"alive": alive, "pvt": pvt,
+                "creator": len(self.recorder.verify_lanes) - alive - pvt,
+                "blocks": len(self.recorder.records)}
+
+    def lanes(self) -> list:
+        """Every K2 lane of the phase: (key, signature, digest, verdict)."""
+        return list(self.recorder.verify_lanes) + [
+            lane for r in self.recorder.records
+            for lane in zip(r["keys"], r["sigs"], r["digests"], r["verdicts"])]
+
+    def stop(self) -> None:
+        self.bp.stop()
+
+
+def _collection_policy() -> dict:
+    """coll0's member-orgs policy as snapshot_config2 defines it
+    (CONFIG2_POLICY), a SignaturePolicyEnvelope dict."""
+    from fabric_tpu_torch.ledger.collections import build_collection_config_package
+
+    package = build_collection_config_package([{"name": GOSSIP_COLLECTION,
+                                                "policy": CONFIG2_POLICY, "block_to_live": 0}])
+    return package["config"][0]["static_collection_config"]["member_orgs_policy"][
+        "signature_policy"]
+
+
+def gossip_phase(torch, np, dev, kept: dict, n_pvt_txs=GOSSIP_PVT_TXS, wait_s=GOSSIP_WAIT_S,
+                 keep=None) -> dict:
+    """gossip_config2: endorse_config2's blocks spread by gossip to four
+    peers on the card. An orderer (`GossipOrderer`: a port DeliverHandler
+    over gRPC) lets the chain out a block at a time. Four `GossipPeer`s on
+    the genesis share one BatchingProvider(CUDAProvider) under their
+    CommitPipelines (the orderer signature and the endorsements on K2, the
+    key combs, K5): P1 (Org1) and P2 (Org2) know the orderer, P3 (Org3) and
+    P4 (Org3) do not; each alive is signed by the peer's signer and checked
+    through the channel's MSPs (a one-lane K2 launch). P1, elected (the
+    smallest id), pulls block 1 and pushes it; then P1's node and deliverer
+    stop, P2 is elected once P1's alives expire and pulls blocks 2 to n,
+    which it pushes to P3 (a follower takes a block by the leader's push or
+    by its own state request, whichever comes first). P4 starts after that
+    and catches up by state transfer alone (its block pull round asks for
+    identities instead). A forged alive (a flipped
+    signature), one from an identity outside the channel and an unsigned
+    one are sent to P3 and refused. Then P4 stops; P2 and P3 endorse
+    `n_pvt_txs` proposals writing benchcc's coll0 (`pput`), each endorser
+    keeping its private write-sets in its transient store and pushing them
+    to the other over gossip; the block of those envelopes (signed by the
+    orderer's writer) commits on P2 and P3 with the private data from their
+    transient stores. P4 restarts as a new incarnation (its alives are
+    taken at once), gets the block by state transfer,
+    records its private data missing and reconciles it from a peer: a
+    signed RemotePvtDataRequest checked through K2, each payload
+    hash-checked against the block, committed by commit_reconciled_pvt.
+    Checks (no difference allowed): every peer's filters and commit hashes,
+    stored headers, data, filters and commit hashes, and SQLite rows equal
+    endorse_config2's for its blocks (P1's, at height 2, those of a serial
+    host-MVCC ledger of the genesis and block 1) and each other's; P3's and
+    P4's private data and hashed rows equal the endorser P2's; the forged
+    alives refused; every K2 lane of the phase equal to
+    SoftwareProvider(hostec_np)'s; K2, the key combs and K5 launched.
+    Every wait fails after `wait_s`. Returns the phase's launches of K2,
+    the key combs and K5; with `keep`, keeps under keep["gossip_config2"]
+    the blocks, the private write-sets and each peer's committed pairs,
+    .chain bytes, rows and private data."""
+    import random
+    import shutil
+    from pathlib import Path
+
+    from fabric_tpu_torch.crypto import factory, hostec, hostec_np
+    from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
+    from fabric_tpu_torch.endorser import txbuilder as tb
+    from fabric_tpu_torch.gossip.comm import _alive_signing_bytes
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.msp.signer import SigningIdentity
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.orderer.blockwriter import BlockWriter
+    from fabric_tpu_torch.protos import fabric, wire
+
+    t_phase = time.perf_counter()
+    en = kept["en"]
+    channel = en.channel
+    blocks = [wire.decode(fabric.BLOCK, raw) for raw in kept["blocks"]]
+    n_blocks = len(blocks) - 1
+    root = Path(__file__).resolve().parent / "build" / "smoke_gossip"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = random.Random(f"gossip {channel}")
+    orgs = en.net.orgs
+    signers = [en.net.endorsers[0], en.net.endorsers[1],
+               SigningIdentity(orgs[2].peers[0], rng),
+               SigningIdentity(orgs[2].ca.enroll("peer1.org3.bench", ou="peer"), rng)]
+    names = ["peer0.org1.bench", "peer0.org2.bench", "peer0.org3.bench", "peer1.org3.bench"]
+    phase, orderer, peers, sw = None, None, [], None
+
+    def wait(pred, what):
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            for p in peers:
+                p.check()
+            if pred():
+                return
+            time.sleep(0.01)
+        raise AssertionError(f"gossip_config2: timed out waiting for {what}: heights "
+                             f"{[p.height for p in peers]}")
+
+    try:
+        phase = GossipPhase(en, dev, root, wait_s)
+        orderer = GossipOrderer(channel, blocks[:2], wait_s)
+        for k in range(4):
+            peers.append(GossipPeer(phase, names[k], signers[k],
+                                    orderer=orderer if k < 2 else None))
+        p1, p2, p3, p4 = peers
+        setup_s = time.perf_counter() - t_phase
+
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for key in table:
+                table[key] = 0
+        t_drive = time.perf_counter()
+        # -- P1, P2, P3 form the network; P1 leads and pulls block 1 ------------
+        for p in (p1, p2, p3):
+            p.start_node()
+        p2.node.connect(p1.node.addr)
+        p3.node.connect(p2.node.addr)
+        wait(lambda: all(len(p.node.membership.alive_peers()) == 2 for p in (p1, p2, p3)),
+             "the membership of P1-P3")
+        wait(lambda: [p.node.is_leader for p in (p1, p2, p3)] == [True, False, False],
+             "P1's election")
+        p1.elect()
+        p2.elect()
+        wait(lambda: all(p.height == 2 for p in (p1, p2, p3)), "block 1 on P1-P3")
+        # -- failover: P1's node and deliverer stop; P2 is elected ---------------
+        t0 = time.perf_counter()
+        p1.stop_node()
+        wait(lambda: p2.node.is_leader, "P2's election")
+        failover_s = time.perf_counter() - t0
+        orderer.release(*blocks[2:])
+        wait(lambda: p2.height == p3.height == n_blocks + 1, "blocks 2 to n on P2 and P3")
+        # -- P4 joins and catches up by state transfer alone ---------------------
+        t0 = time.perf_counter()
+        p4.start_node(state_transfer_only=True)
+        p4.node.connect(p3.node.addr)
+        wait(lambda: p4.height == n_blocks + 1, "P4's catch-up")
+        catch_up_s = time.perf_counter() - t0
+        arrivals_before_pvt = {p.name: dict(p.node.arrivals) for p in (p2, p3, p4)}
+        # -- forged alives to P3 ---------------------------------------------------
+        stranger = en.net.stranger
+        forged = []
+        alive = {"membership": {"endpoint": "127.0.0.1:1", "pki_id": p2.self_id.encode(),
+                                "ledger_height": 99}, "seq_num": 10 ** 9,
+                 "inc_num": p2.node.membership.incarnation}
+        sig = p2.signer.sign(_alive_signing_bytes(alive, channel))
+        forged.append({"channel": channel, "alive_msg": {**alive, "signature":
+                                                          sig[:-1] + bytes([sig[-1] ^ 1])}})
+        outsider = {"membership": {"endpoint": "127.0.0.1:2",
+                                   "pki_id": b"Org9MSP:peer0.org9.bench", "ledger_height": 99},
+                    "seq_num": 1}
+        forged.append({"channel": channel, "peer_identity": {
+            "pki_id": outsider["membership"]["pki_id"], "cert": stranger.serialize()}})
+        forged.append({"channel": channel, "alive_msg": {
+            **outsider, "signature": stranger.sign(_alive_signing_bytes(outsider, channel))}})
+        forged.append({"channel": channel, "alive_msg": {
+            "membership": {"endpoint": "127.0.0.1:3", "pki_id": b"Org2MSP:ghost.org2.bench",
+                           "ledger_height": 99}, "seq_num": 1}})
+        refused_before = [lane[3] for lane in phase.recorder.verify_lanes].count(False)
+        p2.node._send(p3.node.addr, forged)
+        members = set(p3.node.membership.alive_peers())
+        refused_alive = [lane[3] for lane in phase.recorder.verify_lanes].count(
+            False) - refused_before
+        if (members & {"Org9MSP:peer0.org9.bench", "Org2MSP:ghost.org2.bench"}
+                or p3.node._endpoints[p2.self_id] != p2.node.addr or refused_alive != 1
+                or p3.node.certstore.get(outsider["membership"]["pki_id"]) is not None):
+            raise AssertionError(f"gossip_config2: a forged alive was not refused: {members}, "
+                                 f"{refused_alive} refused signatures")
+        # -- the private-data block: P4 is down ------------------------------------
+        p4.stop_node()
+        t_pvt = time.perf_counter()
+        en.net.rng.seed(f"gossip pvt {channel}")
+        envs = []
+        for i in range(n_pvt_txs):
+            bundle = tb.create_proposal(en.net.client, channel, "benchcc",
+                                        [b"pput", b"p%d" % i])
+            signed = tb.create_signed_proposal(bundle, en.net.client)
+            responses = [p.endorser.process_proposal(signed) for p in (p2, p3)]
+            if [r["response"].get("status") for r in responses] != [200, 200] or (
+                    responses[0]["payload"] != responses[1]["payload"]):
+                raise AssertionError(f"gossip_config2: pput {i} answered "
+                                     f"{[r['response'] for r in responses]}")
+            envs.append(tb.create_signed_tx(bundle, en.net.client, responses))
+        endorse_pvt_s = time.perf_counter() - t_pvt
+        if p2.pvt_writes != p3.pvt_writes or len(p2.pvt_writes) != n_pvt_txs:
+            raise AssertionError("gossip_config2: the endorsers' private write-sets differ")
+        wait(lambda: all(p.transient.persisted - p.local_pvt == n_pvt_txs for p in (p2, p3)),
+             "the private write-sets pushed between P2 and P3")
+        out = []
+        writer = BlockWriter(signer=en.cn.orderer, sink=out.append, last_block=blocks[-1])
+        pvt_block = writer.create_next_block(envs)
+        writer.write_block(pvt_block)
+        pvt_raw = wire.encode(fabric.BLOCK, pvt_block)
+        orderer.release(wire.decode(fabric.BLOCK, pvt_raw))
+        wait(lambda: p2.height == p3.height == n_blocks + 2, "the private-data block on P2 and P3")
+        # -- P4 restarts, catches up and reconciles --------------------------------
+        t0 = time.perf_counter()
+        p4.start_node(state_transfer_only=True)
+        p4.node.connect(p3.node.addr)
+        wait(lambda: p4.height == n_blocks + 2, "the private-data block on P4")
+        p4_block_s = time.perf_counter() - t0
+        wait(lambda: not p4.ch.ledger.pvt_store.get_missing_pvt_data(), "P4's reconciliation")
+        reconcile_s = time.perf_counter() - t0
+        for p in peers:
+            if not p.pipe.drain(timeout=wait_s):
+                raise AssertionError(f"gossip_config2: {p.name}'s pipeline did not drain")
+            p.check()
+        drive_s = time.perf_counter() - t_drive
+        for p in peers:
+            p.stop_node()
+            p.pipe.stop()
+        orderer.stop()
+        orderer = None
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md)}
+        k2_roles = phase.k2_by_role()
+        arrivals = {p.name: {**p.node.arrivals, "deliver": p.delivered}
+                    for p in (p2, p3, p4)}
+        arrivals[p1.name] = {"deliver": p1.delivered}
+        alive_checks = list(phase.check_s["alive"])
+        pvt_checks = list(phase.check_s["pvt"])
+        # the identity's verify() within each alive check: the digest and
+        # K2's one-lane round trip
+        alive_k2 = list(phase.verify_s["alive"])
+
+        # --- the checks ---------------------------------------------------------
+        want = kept["committed"][0]
+        if p1.committed != want[:1] or any(p.committed[:n_blocks] != want for p in peers[1:]):
+            raise AssertionError("gossip_config2: a peer's filters or commit hashes differ from "
+                                 "endorse_config2's")
+        if not (p2.committed[n_blocks] == p3.committed[n_blocks] == p4.committed[n_blocks]):
+            raise AssertionError("gossip_config2: the private-data block committed differently")
+        if p2.committed[n_blocks][0] != bytes(n_pvt_txs):
+            raise AssertionError("gossip_config2: a private-data tx is not VALID")
+        # a follower takes a block by whichever route brings it first: the
+        # leader's push, or its own state request once an alive advertised
+        # the leader's new height; P4 was never pushed to
+        gossiped = {p.name: sum(p.node.arrivals.values()) for p in (p2, p3)}
+        if not (arrivals_before_pvt[p4.name] == {"push": 0, "pull": 0, "state": n_blocks}
+                and p4.node.arrivals == {"push": 0, "pull": 0, "state": 1}
+                and gossiped == {p2.name: 1, p3.name: n_blocks + 1}
+                and p3.node.arrivals["push"] >= 1 and p1.delivered == 1
+                and p2.delivered == n_blocks):
+            raise AssertionError(f"gossip_config2: blocks arrived {arrivals}, "
+                                 f"P4 before the private block {arrivals_before_pvt[p4.name]}")
+        if (p4.missing_seen != n_pvt_txs or p4.reconciled != n_pvt_txs
+                or p2.transient._by_txid or p3.transient._by_txid):
+            raise AssertionError(f"gossip_config2: P4 recorded {p4.missing_seen} missing and "
+                                 f"reconciled {p4.reconciled} private write-sets")
+        pvt = {}
+        for p in (p2, p3, p4):
+            pvt[p.name] = [(e.tx_num, e.namespace, e.collection, e.rwset)
+                           for t in range(n_pvt_txs)
+                           for e in p.ch.ledger.pvt_store.get_pvt_data(n_blocks + 1, t)]
+        want_pvt = [(t, "benchcc", GOSSIP_COLLECTION, wire.encode(wire.KV_RWSET, {"writes": [
+            {"key": "p%d" % t, "value": b"p"}]})) for t in range(n_pvt_txs)]
+        if not pvt[p2.name] == pvt[p3.name] == pvt[p4.name] == want_pvt:
+            raise AssertionError("gossip_config2: the peers' private data differ")
+        for p in peers:
+            p.ch.ledger.close()
+        rows = {p.name: ledger_rows(root / p.name / f"{channel}.state.db") for p in peers}
+        stored = {p.name: stored_blocks(root / p.name / f"{channel}.chain") for p in peers}
+        chains = {p.name: (root / p.name / f"{channel}.chain").read_bytes() for p in peers}
+        want_stored = [wire.decode(fabric.BLOCK, raw) for raw in kept["stored"]]
+
+        def public(b):
+            m = b["metadata"]["metadata"]
+            return b["header"], b["data"], m[fabric.TRANSACTIONS_FILTER], m[fabric.COMMIT_HASH]
+
+        for p in peers:
+            got = stored[p.name]
+            if (wire.encode(fabric.BLOCK, got[0]) != kept["stored"][0]
+                    or [public(b) for b in got[1:n_blocks + 1]] != [
+                        public(b) for b in want_stored[1:len(got)]]):
+                raise AssertionError(f"gossip_config2: {p.name}'s stored blocks differ from "
+                                     "endorse_config2's")
+        if not (rows[p2.name] == rows[p3.name] == rows[p4.name]):
+            raise AssertionError("gossip_config2: the rows of P2, P3 and P4 differ")
+        if not (chains[p2.name] == chains[p3.name] == chains[p4.name]):
+            raise AssertionError("gossip_config2: the .chain bytes of P2, P3 and P4 differ")
+        # the private-data block writes coll0 alone: the public tables stay
+        # endorse_config2's; the hashed and private rows are the endorser P2's
+        if any(rows[p2.name][t] != kept["rows"][t] for t in ("state", "history",
+                                                              "confighistory")):
+            raise AssertionError("gossip_config2: P2's public rows differ from endorse_config2's")
+        if len(rows[p2.name]["hashed"]) != n_pvt_txs or len(rows[p2.name]["pvt"]) != n_pvt_txs:
+            raise AssertionError("gossip_config2: the private-data block's rows are missing")
+        # K2 launches: every batch and every one-lane check counted; the
+        # one-lane launches besides the alives and the private-data requests
+        # are P2's and P3's creator checks of the pput proposals
+        if (launches["p256_verify_bytes"] != sum(k2_roles.values()) or k2_roles["alive"] < 1
+                or k2_roles["pvt"] < 1 or k2_roles["creator"] != 2 * n_pvt_txs
+                or k2_roles["blocks"] < 1
+                or launches["p256_key_tables"] < 1 or launches["p256_verify_limbs"]
+                or launches["mvcc_resolve"] < 1 or launches["mvcc_resolve_global"]):
+            raise AssertionError(f"gossip_config2 launches: {launches}, by role {k2_roles}")
+        phase.stop()
+        lanes = phase.lanes()
+
+        # --- P1's block against a serial host-MVCC ledger -------------------------
+        ref, _ = endorsing_peer(en, 0, str(root / "reference"), CUDAProvider(device=dev), dev,
+                                device_mvcc=False)
+        ref_pair = ref.store_block(wire.decode(fabric.BLOCK, kept["blocks"][1]))
+        ref.ledger.close()
+        if (rows[p1.name] != ledger_rows(root / "reference" / f"{channel}.state.db")
+                or [(ref_pair.tobytes(), want[0][1])] != p1.committed):
+            raise AssertionError("gossip_config2: P1's ledger differs from a serial one")
+
+        # --- every K2 lane against SoftwareProvider(hostec_np) -----------------
+        t0 = time.perf_counter()
+        sw = factory.provider_from_config({**FACTORY_CONFIG, "Default": "SW"})
+        if sw.describe_backend() != "sw:hostec_np":
+            raise AssertionError(f"gossip_config2: host tier {sw.describe_backend()}")
+        held = []
+        for off in range(0, len(lanes), K2_HOLD_CHUNK):
+            chunk = lanes[off: off + K2_HOLD_CHUNK]
+            held += sw.batch_verify([k for k, _, _, _ in chunk], [s for _, s, _, _ in chunk],
+                                    [d for _, _, d, _ in chunk])
+        if held != [ok for _, _, _, ok in lanes]:
+            raise AssertionError("gossip_config2: K2 and hostec_np disagree on a lane")
+        hold_s = time.perf_counter() - t0
+        if keep is not None:
+            keep["gossip_config2"] = {
+                "blocks": list(kept["blocks"]) + [pvt_raw], "pvt_writes": p2.pvt_writes,
+                "committed": {p.name: list(p.committed) for p in peers},
+                "chains": chains, "rows": rows, "pvt": pvt, "names": names}
+    finally:
+        if orderer is not None:
+            for p in peers:
+                try:
+                    p.stop_node()
+                except Exception:  # noqa: BLE001 - the phase's own error is raised
+                    pass
+            orderer.stop()
+        for p in peers:
+            p.pipe.stop()
+        if phase is not None:
+            phase.stop()
+        for p in peers:
+            p.ch.ledger.close()
+        hostec_np.shutdown_pool()
+        hostec.shutdown_pool()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # a follower commits a block that came by whichever route was first: the
+    # leader's push, its own state request (anti-entropy runs every tick) or
+    # its block pull round; `arrivals` counts the routes
+    first_arrival_ms = []
+    for n in range(1, n_blocks + 2):
+        leader = p1 if n == 1 else p2
+        first_arrival_ms.append({"block": n, "leader": leader.name, "followers_ms": {
+            p.name: (p.commit_at[n] - leader.commit_at[n]) * 1e3
+            for p in (p2, p3) if p is not leader}})
+    emit({"phase": "gossip_config2", "peers": names, "blocks": n_blocks + 1,
+          "txs_per_block": [len(b["data"]["data"]) for b in blocks[1:]] + [n_pvt_txs],
+          "tick_s": GOSSIP_TICK_S, "setup_seconds": setup_s, "drive_seconds": drive_s,
+          "first_arrival_ms_leader_commit_to_follower_commit": first_arrival_ms,
+          "p4_catch_up": {"seconds": catch_up_s, "blocks": n_blocks},
+          "failover_seconds": failover_s, "leaders": [n for n, _ in phase.elected],
+          "alive_checks": {"count": len(alive_checks),
+                           "ms_mean": sum(alive_checks) / max(len(alive_checks), 1) * 1e3,
+                           "ms_p50": sorted(alive_checks)[len(alive_checks) // 2] * 1e3
+                           if alive_checks else None,
+                           "verify_ms_mean": sum(alive_k2) / max(len(alive_k2), 1) * 1e3,
+                           "verify_ms_p50": sorted(alive_k2)[len(alive_k2) // 2] * 1e3
+                           if alive_k2 else None,
+                           "refused_forged": refused_alive},
+          "pvt": {"txs": n_pvt_txs, "endorse_seconds": endorse_pvt_s,
+                  "pushed_to_p3": p3.transient.persisted - p3.local_pvt,
+                  "request_checks": len(pvt_checks),
+                  "request_check_ms_mean": sum(pvt_checks) / max(len(pvt_checks), 1) * 1e3,
+                  "p4_block_seconds": p4_block_s, "p4_reconcile_seconds": reconcile_s,
+                  "reconciled": p4.reconciled},
+          "k2_launches_by_role": k2_roles, "arrivals": arrivals,
+          "k2_lanes_held": {"lanes": len(lanes), "seconds": hold_s},
+          "equal": {"endorse_config2": True, "peers": True, "private_data": True},
+          "launches": launches, "card": card_name_and_limit(dev),
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def card_name_and_limit(dev):
+    """nvidia-smi's name and power limit of the card, for a phase's line
+    (None when the phase ran on the CPU, as its rehearsal does)."""
+    return nvidia_smi("name,power.limit") if dev.type == "cuda" else None
+
+
+
 # the repetitions device_ms takes for K5 and K6 (20) and for K7 (50)
 FLOOR_REPS = (20, 50)
 
@@ -6629,7 +7429,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "p256_verify_limbs")["config5"] = k1_config5
     # --- The peer's commit path: the pipelined chain, four channels --------
     pipeline_launches = pipeline_phases(torch, np, dev, keep=chain)
-    # --- Join by snapshot: a peer joined from a 1M-key state commits the rest -
+    # --- Join by snapshot: a peer joined from a 100k-key state commits the rest -
     snapshot_launches = snapshot_phase(torch, np, dev, chain["net"], chain["raws"])
     # --- Channel configuration: a config update that adds Org4 -------------
     config_launches = config_phase(torch, np, dev, chain["net"], chain["raws"])
@@ -6670,10 +7470,13 @@ def main() -> int:
     endorse_launches = endorse_phase(torch, np, dev, keep=chain)
     # --- The Raft orderer and block delivery: the same envelopes, 3 consenters -
     raft_launches = raft_phase(torch, np, dev, chain["endorse_config2"])
+    # --- Gossip: the same blocks spread to four peers, private data -------------
+    gossip_launches = gossip_phase(torch, np, dev, chain["endorse_config2"])
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["endorse_config2"] = {"launches": endorse_launches[name]}
         row["raft_config2"] = {"launches": raft_launches[name]}
+        row["gossip_config2"] = {"launches": gossip_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -5,7 +5,7 @@ The port's counterpart of the JAX package's `common_pb2`, `peer_pb2`,
 two messages), `policies_pb2`, `collection_pb2` and `lifecycle_pb2`, as far
 as the block validator, the transaction builder, the policy conversion, the
 collections, `_lifecycle`, the legacy validation, the Idemix MSP, the
-endorser, the system chaincodes and the orderer use them
+endorser, the system chaincodes, the orderer and the snapshot service use them
 (`protos/src/{common,peer,identities,msp_principal,msp_config,policies,
 collection,lifecycle}.proto`). Messages
 are dicts in `wire.decode`'s form; `wire.encode` writes them byte for byte as
@@ -162,6 +162,16 @@ CHAINCODE_INFO: Schema = {
     7: Field("id", "bytes"),
 }
 CHAINCODE_QUERY_RESPONSE: Schema = {1: _msg("chaincodes", CHAINCODE_INFO, repeated=True)}
+# the peer's Snapshot service (peer.proto; google.protobuf.Empty as EMPTY)
+SNAPSHOT_QUERY: Schema = {1: Field("signature_header", "bytes"), 2: Field("channel_id", "string")}
+SNAPSHOT_REQUEST: Schema = {
+    1: Field("signature_header", "bytes"),
+    2: Field("channel_id", "string"),
+    3: Field("block_number", "uint64"),
+}
+SIGNED_SNAPSHOT_REQUEST: Schema = {1: Field("request", "bytes"), 2: Field("signature", "bytes")}
+QUERY_PENDING_SNAPSHOTS_RESPONSE: Schema = {1: Field("block_numbers", "uint64", repeated=True)}
+EMPTY: Schema = {}
 
 # identities.proto, msp_principal.proto
 SERIALIZED_IDENTITY: Schema = {1: Field("mspid", "string"), 2: Field("id_bytes", "bytes")}

@@ -8,7 +8,7 @@ together) and the native host runtime, signs pipeline_config2's chain (10
 linked config #2 blocks of 1,000 txs, in a pool of spawned processes, as
 `chip_smoke.pipeline_phases` does) and runs chip_smoke.py's snapshot_config2
 phase alone (`chip_smoke.snapshot_phase`) over a seed of N public keys
-(default 1,000,000). With --trace-host the run also reports, by thread, the
+(default the smoke's 100,000). With --trace-host the run also reports, by thread, the
 seconds spent in the seed, the exports, the imports and the SQLite block
 commits (wall and thread CPU time). The phase's JSON line comes first, then
 the probe's, then the card's name and power limit.
@@ -30,7 +30,7 @@ from pipeline_probe import HostTrace  # noqa: E402
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--keys", type=int, default=chip_smoke.CHAIN_KEYS)
+    parser.add_argument("--keys", type=int, default=chip_smoke.SNAPSHOT_KEYS)
     parser.add_argument("--trace-host", action="store_true")
     args = parser.parse_args()
     import numpy as np

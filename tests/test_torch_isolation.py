@@ -1,6 +1,7 @@
 """The port imports neither JAX, nor the JAX package, nor protobuf, nor
 cryptography (the card's machine has neither of the last two), nor yaml
-(not known to be on the card's machine), and its device
+(not known to be on the card's machine); only its three gRPC modules
+(`comm.server`, `comm.services`, `gossip.comm`) import grpc; and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
 raises at construction, and so do `bccsp.probe_provider()`, a serve
@@ -28,8 +29,12 @@ import importlib, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 import fabric_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fabric_tpu_torch.__path__, "fabric_tpu_torch.")]
+# the gRPC modules load grpc; _GRPC_PROBE imports them on their own
+GRPC_MODULES = {"fabric_tpu_torch.comm.server", "fabric_tpu_torch.comm.services",
+                "fabric_tpu_torch.gossip.comm"}
 for name in names:
-    importlib.import_module(name)
+    if name not in GRPC_MODULES:
+        importlib.import_module(name)
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
@@ -135,7 +140,10 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "orderer.consenter_ids", "orderer.raft", "orderer.raft_chain",
                  "orderer.msgprocessor", "orderer.multichannel", "orderer.broadcast",
                  "orderer.follower", "deliver", "deliver.client", "deliver.server",
-                 "discovery", "discovery.inquire", "discovery.service"):
+                 "discovery", "discovery.inquire", "discovery.service", "protos.gossip",
+                 "gossip", "gossip.msgstore", "gossip.membership", "gossip.state",
+                 "gossip.pull", "gossip.pvtdata", "gossip.coordinator", "gossip.comm", "comm",
+                 "comm.server", "comm.services"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -279,3 +287,52 @@ def test_host_tiers_import_no_torch():
     out = subprocess.run([sys.executable, "-c", _HOST_TIER_PROBE, str(REPO)],
                          capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"torch": False, "numpy": True}
+
+
+_GRPC_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.comm import server, services
+from fabric_tpu_torch.gossip import comm
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
+    or m == "google.protobuf" or m.startswith("google.protobuf.")
+    or m == "cryptography" or m.startswith("cryptography.")
+    or m == "yaml" or m.startswith("yaml.")
+)
+print(json.dumps({"leaked": leaked, "grpc": "grpc" in sys.modules,
+                  "torch": "torch" in sys.modules}))
+"""
+
+
+def test_grpc_modules_import_grpc_and_nothing_forbidden():
+    """comm.server, comm.services and gossip.comm, imported alone, load grpc
+    and none of jax, the JAX package, protobuf, cryptography or yaml; none
+    of them loads torch (gossip.comm reaches the card only through the
+    callables it is given)."""
+    out = subprocess.run([sys.executable, "-c", _GRPC_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "leaked": [], "grpc": True, "torch": False}
+
+
+_GOSSIP_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.protos import gossip
+from fabric_tpu_torch.gossip import coordinator, membership, msgstore, pull, pvtdata, state
+first = sorted(m for m in ("torch", "grpc", "yaml") if m in sys.modules)
+from fabric_tpu_torch.gossip import comm
+print(json.dumps({"modules_1_7": first, "with_comm": "torch" in sys.modules}))
+"""
+
+
+def test_gossip_modules_load_no_torch_or_grpc():
+    """The gossip schemas and modules (msgstore, membership, state, pull,
+    pvtdata, coordinator) load no torch, grpc or yaml; gossip.comm adds
+    grpc and still no torch."""
+    out = subprocess.run([sys.executable, "-c", _GOSSIP_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"modules_1_7": [],
+                                                                "with_comm": False}
