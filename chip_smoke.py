@@ -1183,9 +1183,8 @@ IDEMIX_ATTRS = ["OU", "Role", "EnrollmentID", "RevocationHandle"]
 IDEMIX_VALUES = [11, 22, 33, 44]
 IDEMIX_RH_INDEX = 3
 IDEMIX_MSG = b"idemix bench message"
-IDEMIX_SIZES = (64, 256)  # bench.py's ladder sizes from which it accepts (bench.py:555-563)
+IDEMIX_SIZES = (256,)  # bench.py's largest ladder size it accepts (bench.py:555-563); 64 cut for the smoke's time
 IDEMIX_UNIQUE = 8
-IDEMIX_ORACLE_SIGS = 4  # bench.py's n_host
 
 
 def idemix_world(random):
@@ -1214,6 +1213,32 @@ def idemix_world(random):
     return ipk, uniq, sign
 
 
+def _scheme_verdict(args):
+    """One signature through verify_signatures_batch(backend="scheme") (the
+    host oracle), with its seconds."""
+    from fabric_tpu_torch.idemix import batch as ib
+
+    t0 = time.perf_counter()
+    out = ib.verify_signatures_batch(*args, backend="scheme")
+    return out[0], time.perf_counter() - t0
+
+
+def scheme_oracle(batch_args, count: int):
+    """The scheme oracle's verdicts on batch_args(count)'s signatures, one
+    a process of a spawn pool, and its mean seconds a signature (each timed
+    in its process)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    sigs, disclosures, ipk, msgs, values, rh = batch_args(count)
+    with ProcessPoolExecutor(min(count, len(os.sched_getaffinity(0))),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = list(pool.map(_scheme_verdict, [([sigs[i]], [disclosures[i]], ipk, [msgs[i]],
+                                               [values[i]], rh) for i in range(count)]))
+    return [ok for ok, _ in out], sum(t for _, t in out) / count
+
+
 def idemix_phases(torch, np, dev, imad_rate, keep=None):
     """The Idemix phases; returns the K3 and K4 entries of the kernels line.
     A `keep` dict receives the arguments of config #3's largest batch and of
@@ -1240,12 +1265,11 @@ def idemix_phases(torch, np, dev, imad_rate, keep=None):
         return ([uniq[i % len(uniq)] for i in range(count)], [hidden] * count, ipk,
                 [IDEMIX_MSG] * count, [[None] * 4] * count, IDEMIX_RH_INDEX)
 
-    ib.verify_signatures_batch(*batch_args(1), backend="scheme")  # warm-up
-    t0 = time.perf_counter()
-    oracle_sample = ib.verify_signatures_batch(*batch_args(IDEMIX_ORACLE_SIGS), backend="scheme")
-    oracle_ms_per_sig = (time.perf_counter() - t0) * 1e3 / IDEMIX_ORACLE_SIGS
-    oracle_uniq = ib.verify_signatures_batch(*batch_args(IDEMIX_UNIQUE), backend="scheme")
-    if not all(oracle_sample) or not all(oracle_uniq):
+    # the oracle on the unique signatures, each in a process of a pool, and
+    # its time a signature as each process took it
+    oracle_uniq, oracle_s = scheme_oracle(batch_args, IDEMIX_UNIQUE)
+    oracle_ms_per_sig = oracle_s * 1e3
+    if not all(oracle_uniq):
         raise AssertionError("config #3: the scheme oracle rejects a signature")
 
     captured = {}
@@ -1338,7 +1362,7 @@ def idemix_phases(torch, np, dev, imad_rate, keep=None):
     msm_split = {key: [sp[key] for sp in big["split_ms"]]
                  for key in ("msm_pack", "msm_kernel", "msm_unpack")}
     emit({"phase": "idemix_config3", "setup_seconds": setup_s, "unique_signatures": IDEMIX_UNIQUE,
-          "oracle_ms_per_sig": oracle_ms_per_sig, "oracle_sigs": IDEMIX_ORACLE_SIGS,
+          "oracle_ms_per_sig": oracle_ms_per_sig, "oracle_sigs": IDEMIX_UNIQUE,
           "sizes": {str(s): {"ms_per_sig": sh["ms_per_sig"], "split_ms": sh["split_ms"],
                              "pairing_lanes": sh["k4"][1].shape[1],
                              "msm_lanes": sh["k3"][0].shape[-1], "msm_k": sh["k3"][0].shape[0],
@@ -2005,7 +2029,7 @@ def validator_phases(torch, np, dev, k2_block=None, n_txs=CONFIG2_TXS, runs=CONF
 
 CONFIG5_CHANNELS = 4  # bench.py bench_multichannel: 4 channels x 2,000-tx blocks
 CONFIG5_TXS = 2000
-CONFIG5_RUNS = 5  # timed runs after one warm-up, on one validator a channel as bench.py keeps
+CONFIG5_RUNS = 3  # timed runs after one warm-up, on one validator a channel as bench.py keeps
 
 
 def parsed_view(tx, hashed: bool):
@@ -2082,7 +2106,7 @@ def multichannel_phase(torch, np, dev, imad_rate, n_channels=CONFIG5_CHANNELS,
     t_phase = time.perf_counter()
     net = Config2Net()
     channels = [f"bench{i}" for i in range(n_channels)]
-    raw = {ch: wire.encode(fabric.BLOCK, net.block(n_txs, channel=ch)) for ch in channels}
+    raw = dict(zip(channels, build_blocks(net, n_txs, channels)))
     setup_s = time.perf_counter() - t_phase
     # each channel alone, through its own validate over CUDAProvider (K2)
     alone = {}
@@ -2190,6 +2214,29 @@ def _pool_chain_datas(args):
     return _POOL_NET.chain_datas(*args)
 
 
+def _pool_block(args):
+    from fabric_tpu_torch.protos import fabric, wire
+
+    n_txs, channel = args
+    _POOL_NET.rng.seed(f"block {channel}")
+    return wire.encode(fabric.BLOCK, _POOL_NET.block(n_txs, channel=channel))
+
+
+def build_blocks(net, n_txs: int, channels) -> list:
+    """One block of `n_txs` txs a channel (`Config2Net.block`, its client's
+    nonces seeded by the channel), as wire bytes, signed in a pool of
+    spawned processes as `build_chains` signs its chains."""
+    import multiprocessing
+    import os
+    import pickle
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(min(len(channels), len(os.sched_getaffinity(0))),
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_pool_init, initargs=(pickle.dumps(net),)) as pool:
+        return list(pool.map(_pool_block, [(n_txs, ch) for ch in channels]))
+
+
 def build_chains(net, jobs: dict) -> dict:
     """{label: (n_blocks, n_txs, conflict_block, channel, invalid)} ->
     {label: [raw block, ...]}: every block's envelopes signed in a pool of spawned
@@ -2244,6 +2291,10 @@ def recording_cuda_provider(dev):
     pipelined run can be held against the plain version and the oracle.
     Behind a BatchingProvider its launches come from the batcher's one
     dispatcher thread."""
+    return _recording_cuda_class()(dev)
+
+
+def _recording_cuda_class():
     from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider
 
     class RecordingCUDAProvider(CUDAProvider):
@@ -2269,7 +2320,27 @@ def recording_cuda_provider(dev):
 
             return resolved
 
-    return RecordingCUDAProvider(dev)
+    return RecordingCUDAProvider
+
+
+def creator_recording_cuda_provider(dev):
+    """`recording_cuda_provider`, also keeping each verify() lane (a
+    creator check: one K2 launch of one lane), its verdict and its
+    seconds."""
+    class CreatorRecording(_recording_cuda_class()):
+        def __init__(self, device):
+            super().__init__(device)
+            self.verify_lanes = []
+            self.verify_s = 0.0
+
+        def verify(self, key, signature, digest):
+            t0 = time.perf_counter()
+            ok = super().verify(key, signature, digest)
+            self.verify_s += time.perf_counter() - t0
+            self.verify_lanes.append((key, signature, digest, ok))
+            return ok
+
+    return CreatorRecording(dev)
 
 
 def lane_records(recorder) -> list:
@@ -4456,13 +4527,15 @@ def p256_privs(p256):
     return [(k * 0x9E3779B97F4A7C15 + SEED_PRIV) % (p256.N - 1) + 1 for k in range(64)]
 
 
-def p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys: int, nrows: int, tag: str):
-    """(key, DER signature, digest) rows signed with keys[0:nkeys]; rows
-    with i % 16 >= 8 corrupted: a flipped digest, the wrong key, s + 1, the
-    high S, bad DER, r = 0, r = n, a key off the curve."""
+def p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys: int, nrows: int, tag: str,
+              lo: int = 0):
+    """(key, DER signature, digest) rows lo..nrows - 1 signed with
+    keys[0:nkeys]; rows with i % 16 >= 8 corrupted: a flipped digest, the
+    wrong key, s + 1, the high S, bad DER, r = 0, r = n, a key off the
+    curve."""
     off_curve = ECDSAPublicKey(keys[0].x, (keys[0].y + 1) % p256.P)
     rows = []
-    for i in range(nrows):
+    for i in range(lo, nrows):
         kidx = i % nkeys
         key = keys[kidx]
         digest = hashlib.sha256(f"{tag} {i}".encode()).digest()
@@ -4490,6 +4563,54 @@ def p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys: int, nrows: int, ta
             sig = der.marshal_signature(r, s)
         rows.append((key, sig, digest))
     return rows
+
+
+P256_INPUT_CHUNK = 128  # rows a task of p256_inputs' pool
+
+
+def _p256_rows(args):
+    """One task of `p256_inputs`: rows [lo, hi) of a pool and the oracle's
+    verdict on each."""
+    from fabric_tpu_torch.common import der, p256
+    from fabric_tpu_torch.crypto.bccsp import ECDSAPublicKey, VerifyError, parse_and_precheck
+
+    nkeys, lo, hi, tag = args
+    privs = p256_privs(p256)
+    keys = [ECDSAPublicKey(*p256.scalar_mult(d, p256.GENERATOR)) for d in privs]
+    rows = p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys, hi, tag, lo=lo)
+
+    def oracle(key, sig, digest) -> bool:
+        try:
+            r, s = parse_and_precheck(sig)
+        except VerifyError:
+            return False
+        return p256.verify_digest(key.point, digest, r, s)
+
+    return rows, [oracle(*row) for row in rows]
+
+
+def p256_inputs(jobs, keys) -> list:
+    """[(nkeys, nrows, tag)] -> [(rows, the oracle's verdicts)]: each
+    `p256_pool` signed and checked in a pool of spawned processes, the rows
+    in order, each row's key the object of `keys` (or of the first row) with
+    its point: the provider takes a batch's distinct keys by object, as a
+    peer's identity cache hands it one object a key."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    tasks = [(nkeys, lo, min(lo + P256_INPUT_CHUNK, nrows), tag)
+             for nkeys, nrows, tag in jobs for lo in range(0, nrows, P256_INPUT_CHUNK)]
+    with ProcessPoolExecutor(min(len(tasks), len(os.sched_getaffinity(0))),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_p256_rows, tasks))
+    canon = {key.point: key for key in keys}
+    out = {tag: ([], []) for _, _, tag in jobs}
+    for (_, _, _, tag), (rows, verdicts) in zip(tasks, parts):
+        out[tag][0].extend((canon.setdefault(key.point, key), sig, digest)
+                           for key, sig, digest in rows)
+        out[tag][1].extend(verdicts)
+    return [out[tag] for _, _, tag in jobs]
 
 
 def p256_bounds(work, nbytes: int, imad_rate: float) -> dict:
@@ -4535,22 +4656,11 @@ def p256_phases(torch, np, dev, imad_rate, keep=None):
     t0 = time.perf_counter()
     privs = p256_privs(p256)
     keys = [ECDSAPublicKey(*p256.scalar_mult(d, p256.GENERATOR)) for d in privs]
-
-    def oracle(key, sig, digest) -> bool:
-        try:
-            r, s = parse_and_precheck(sig)
-        except VerifyError:
-            return False
-        return p256.verify_digest(key.point, digest, r, s)
-
-    def pool(nkeys: int, nrows: int, tag: str):
-        rows = p256_pool(p256, der, ECDSAPublicKey, keys, privs, nkeys, nrows, tag)
-        return rows, [oracle(*row) for row in rows]
-
-    pool8, want8 = pool(8, 1024, "headline")
-    pool3, want3 = pool(3, 300, "block")
-    pool64, want64 = pool(64, 192, "limb")
-    pool32, want32 = pool(31, 248, "keys32")  # with the off-curve key, 32 columns
+    # the rows signed and checked by the oracle in a pool of spawned
+    # processes, P256_INPUT_CHUNK rows a task (the signing is pure Python)
+    (pool8, want8), (pool3, want3), (pool64, want64), (pool32, want32) = p256_inputs(
+        [(8, 1024, "headline"), (3, 300, "block"), (64, 192, "limb"),
+         (31, 248, "keys32")], keys)  # keys32: with the off-curve key, 32 columns
     emit({"phase": "inputs", "unique_rows": len(pool8) + len(pool3) + len(pool64) + len(pool32),
           "seconds": time.perf_counter() - t0})
 
@@ -5668,26 +5778,7 @@ def endorse_phase(torch, np, dev, n_txs=CONFIG2_TXS, keep=None, root=None) -> di
             finally:
                 times["sign"] += time.perf_counter() - t0
 
-    base = type(recording_cuda_provider(dev))
-
-    class CreatorRecording(base):
-        """The recording provider, also keeping each verify() lane (a
-        creator check: one K2 launch of one lane), its verdict and its
-        seconds."""
-
-        def __init__(self, device):
-            super().__init__(device)
-            self.verify_lanes = []
-            self.verify_s = 0.0
-
-        def verify(self, key, signature, digest):
-            t0 = time.perf_counter()
-            ok = super().verify(key, signature, digest)
-            self.verify_s += time.perf_counter() - t0
-            self.verify_lanes.append((key, signature, digest, ok))
-            return ok
-
-    recorder = CreatorRecording(dev)
+    recorder = creator_recording_cuda_provider(dev)
     bp = BatchingProvider(recorder)
     peers, pipes, committed, errors = [], [], [[], []], []
     sw = None
@@ -6078,7 +6169,16 @@ class RaftNet:
                 raise AssertionError(f"raft_config2: timed out waiting for {what}")
 
     def wait_leader(self, exclude=()) -> int:
-        self.wait(lambda: self.leader(exclude) is not None, "a leader")
+        """A leader, once every node that is not partitioned or excluded
+        knows it: a follower that still reads leader 0 would answer a
+        broadcast SERVICE_UNAVAILABLE instead of forwarding it."""
+        def known():
+            leader = self.leader(exclude)
+            return leader is not None and all(
+                self.chain(i).node.leader_id == leader for i in self.regs
+                if i not in self.partitioned and i not in exclude)
+
+        self.wait(known, "a leader that every live node knows")
         return self.leader(exclude)
 
     def wait_height(self, ids, height: int) -> None:
@@ -7308,6 +7408,609 @@ def gossip_phase(torch, np, dev, kept: dict, n_pvt_txs=GOSSIP_PVT_TXS, wait_s=GO
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The peer and orderer nodes over gRPC: nodes_config2
+# ---------------------------------------------------------------------------
+
+NODES_TICK_S = 0.02  # each OrdererNode's raft tick, raft_config2's
+NODES_WAIT_S = 300.0  # the longest any wait of the phase may take before it fails
+NODES_ROUNDS = 2  # ENDORSE_ROUNDS' "put" and "read_write": two config #2 blocks
+NODES_CCAAS_TXS = 10  # transactions of block 1 that go to the ccaas chaincode
+NODES_CCAAS = "ccaascc"  # its name; its package is installed through _lifecycle
+# the ccaas chaincode's endorsement policy: one of Org1 and Org2, so a peer
+# that knows only itself (no gossip in the phase) can answer its endorsers
+NODES_CCAAS_POLICY = "OutOf(1,'Org1MSP.member','Org2MSP.member')"
+# the genesis' BatchTimeout: a block is cut by its count (the round's txs),
+# never by the timer while one broadcast stream feeds the orderers
+NODES_BATCH_TIMEOUT = "10m"
+
+
+def free_ports(n: int) -> list:
+    """`n` loopback ports free now (bound, read and closed together)."""
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def http_get(addr: str, path: str):
+    """(status, body) of a GET on an operations server."""
+    import http.client
+
+    conn = http.client.HTTPConnection(addr, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+class LaunchesByRole(dict):
+    """A kernel module's LAUNCHES table that also tallies each launch under
+    the role of the thread that made it (`role()`), in `tally`."""
+
+    def __init__(self, table, role, tally):
+        super().__init__(table)
+        self._role, self._tally = role, tally
+
+    def __setitem__(self, key, value):
+        delta = value - self.get(key, 0)
+        if delta > 0:
+            by = self._tally.setdefault(self._role(), {})
+            by[key] = by.get(key, 0) + delta
+        super().__setitem__(key, value)
+
+
+def nodes_phase(torch, np, dev, n_txs=CONFIG2_TXS, ccaas_txs=NODES_CCAAS_TXS,
+                wait_s=NODES_WAIT_S, tick_s=NODES_TICK_S) -> dict:
+    """nodes_config2: config #2 at full width through the port's Fabric
+    nodes over loopback gRPC. Three `OrdererNode` consenters (raft ids 1-3,
+    each with its own orderer-org signer and operations server) form an
+    etcdraft cluster over `orderer/cluster`'s Step streams (their bundles
+    over a recording CUDAProvider: SigFilter's checks, one K2 launch each) from
+    endorse_config2's network (`EndorseNet`: config #2's policy, a BatchSize
+    of the round's txs) with its consenters on loopback ports. Two
+    `PeerNode`s, Org1's and Org2's, over one recording CUDAProvider (each
+    wraps it in its own BatchingProvider), device MVCC, `ops_address` set
+    (the logging and metrics interceptors wrap their servers); each joins
+    the genesis and runs `start_deliver_for_channel` against the three
+    consenters, a consenter that is not the leader first. benchcc is
+    registered in process on both; a chaincode-as-a-service package of
+    `NODES_CCAAS` is installed and approved on both through `_lifecycle`
+    proposals over gRPC, and an `extshim.CcaasServer` on loopback serves it
+    to both peers' `ChaincodeListener`s. Traffic: Org1's client sends the
+    proposals of two config #2 blocks (ENDORSE_ROUNDS' put round, of which
+    `ccaas_txs` go to the ccaas chaincode, then its read-write round) over
+    gRPC ProcessProposal to both peers side by side, one after another,
+    assembles each envelope and
+    broadcasts it on one Broadcast stream to a consenter that is not the
+    leader, which forwards it with cluster Submit; 8 envelopes with a
+    flipped signature and 4 signed outside the channel are answered
+    FORBIDDEN. Once block 1 is committed on both peers the leader
+    OrdererNode is stopped; the other two elect a leader and order block 2;
+    the stopped node restarts on its directory and port and catches up over
+    Step. A discovery client queries peers, config and the ccaas
+    chaincode's endorsers over gRPC; a stranger is refused. Checks (no
+    difference allowed): both peers' block data, filters, commit hashes and
+    SQLite rows equal each other's and a serial commit of the orderers'
+    blocks through the port's Channel over SoftwareProvider(hostec_np);
+    every consenter's blocks agree in header and data; every K2 lane of
+    the phase equals hostec_np's verdict; K2, the key combs and K5 on each
+    peer, K5 once a block; each peer's /healthz 200 and /metrics counting
+    the ProcessProposal calls the client made; the ccaas writes in both
+    ledgers; no thread of a node left after its stop(). Returns the phase's
+    launches of K2, the key combs and K5."""
+    import random
+    import shutil
+    import statistics
+    import threading
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    from pathlib import Path
+
+    import grpc
+
+    from fabric_tpu_torch.chaincode import extshim, shim
+    from fabric_tpu_torch.chaincode.package import package as cc_package
+    from fabric_tpu_torch.channelconfig.bundle import bundle_from_genesis_block
+    from fabric_tpu_torch.comm.server import channel_to, wire_codec
+    from fabric_tpu_torch.comm.services import process_proposal
+    from fabric_tpu_torch.common import fabobs
+    from fabric_tpu_torch.crypto import factory, hostec, hostec_np
+    from fabric_tpu_torch.discovery.server import query as discover
+    from fabric_tpu_torch.discovery.service import DiscoveryError
+    from fabric_tpu_torch.endorser import txbuilder as tb
+    from fabric_tpu_torch.ledger import mvcc_device as md
+    from fabric_tpu_torch.nodes.orderer import OrdererNode
+    from fabric_tpu_torch.nodes.peer import PeerNode
+    from fabric_tpu_torch.ops import p256_kernel as p256k
+    from fabric_tpu_torch.orderer import raft_chain
+    from fabric_tpu_torch.peer.channel import Channel
+    from fabric_tpu_torch.policy.ast import from_dsl
+    from fabric_tpu_torch.protos import ab, fabric, protoutil, wire
+    from fabric_tpu_torch.validation.validator import ChaincodeDefinition, ChaincodeRegistry
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    en = EndorseNet(n_txs=n_txs)
+    channel = en.channel
+    ports = free_ports(RAFT_CONSENTERS)
+    en.consenters = [("127.0.0.1", p, b"", b"") for p in ports]
+    en.genesis = en.cn.genesis(channel, orderer_type="etcdraft", raft_consenters=en.consenters,
+                               max_message_count=n_txs, absolute_max_bytes=ENDORSE_MAX_BYTES,
+                               preferred_max_bytes=ENDORSE_MAX_BYTES,
+                               batch_timeout=NODES_BATCH_TIMEOUT)
+    genesis = en.genesis
+    signers = en.consenter_signers()[:RAFT_CONSENTERS]
+    root = Path(__file__).resolve().parent / "build" / "smoke_nodes"
+    shutil.rmtree(root, ignore_errors=True)
+    ccaas_policy = from_dsl(NODES_CCAAS_POLICY)
+    peer_rec, orderer_rec = creator_recording_cuda_provider(dev), creator_recording_cuda_provider(
+        dev)
+    msp_manager = bundle_from_genesis_block(genesis, peer_rec).msp_manager
+
+    # -- launches by role: the thread that launched -------------------------
+    roles_by_thread, roles_by_prefix, tally = {}, {}, {}
+
+    def role():
+        t = threading.current_thread()
+        if t in roles_by_thread:
+            return roles_by_thread[t]
+        for prefix, who in roles_by_prefix.items():
+            if t.name.startswith(prefix):
+                return who
+        return "other"
+
+    tables = {"p256k": p256k.LAUNCHES, "md": md.LAUNCHES}
+    proposed_at = []
+    propose_batch = raft_chain.RaftChain._propose_batch
+
+    def stamped_propose(self, batch, is_config=False):
+        proposed_at.append(time.perf_counter())
+        return propose_batch(self, batch, is_config)
+
+    orderers, peers, ccaas, conns, client_pool = {}, [], None, [], None
+    committed = [[], []]
+    commit_at, arrived_at, written_at = [{}, {}], [{}, {}], {}
+    obs_before = fabobs.active()
+    sw = None
+
+    def start_orderer(i: int):
+        node = OrdererNode(str(root / f"orderer{i}"), signer=signers[i - 1],
+                           listen_address=f"127.0.0.1:{ports[i - 1]}",
+                           ops_address="127.0.0.1:0", provider=orderer_rec,
+                           raft_node_id=i, raft_tick_seconds=tick_s)
+        node.registrar.on_block(lambda cid, b, i=i: written_at.setdefault(
+            (i, b["header"].get("number", 0)), time.perf_counter()))
+        node.join_channel(genesis)
+        node.start()
+        roles_by_prefix[node.server._pool._thread_name_prefix + "_"] = "orderers"
+        orderers[i] = node
+        return node
+
+    def chain(i):
+        support = orderers[i].registrar.get_chain(channel)
+        return support.chain if support is not None else None
+
+    def wait(pred, what):
+        deadline = time.perf_counter() + wait_s
+        while not pred():
+            for i, node in orderers.items():
+                if node.loop_error is not None:
+                    raise AssertionError(f"nodes_config2: orderer {i}: {node.loop_error!r}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"nodes_config2: timed out waiting for {what}")
+            time.sleep(0.005)
+
+    def leader(ids):
+        return next((i for i in ids if chain(i).node.role == "leader"), None)
+
+    try:
+        p256k.LAUNCHES = LaunchesByRole(tables["p256k"], role, tally)
+        md.LAUNCHES = LaunchesByRole(tables["md"], role, tally)
+        raft_chain.RaftChain._propose_batch = stamped_propose
+        ids = list(range(1, RAFT_CONSENTERS + 1))
+        for i in ids:
+            start_orderer(i)
+        wait(lambda: leader(ids) is not None, "a leader")
+        first_leader = leader(ids)
+        non_leaders = [i for i in ids if i != first_leader]
+
+        # -- the chaincode-as-a-service server and its package ----------------
+        ccaas = extshim.CcaasServer(BenchCC(shim), NODES_CCAAS)
+        ccaas_addr = ccaas.start()
+        ccaas_pkg = cc_package(NODES_CCAAS, {"connection.json": json.dumps(
+            {"address": ccaas_addr, "dial_timeout": "10s"}).encode()}, cc_type="ccaas")
+
+        # -- the peers ----------------------------------------------------------
+        def registry(channel_id):
+            return ChaincodeRegistry([ChaincodeDefinition("benchcc", en.net.policy),
+                                      ChaincodeDefinition(NODES_CCAAS, ccaas_policy)])
+
+        endpoints = [f"127.0.0.1:{ports[i - 1]}" for i in non_leaders + [first_leader]]
+        for k in range(2):
+            peer = PeerNode(str(root / f"peer{k}"), msp_manager, en.net.endorsers[k], registry,
+                            ops_address="127.0.0.1:0", provider=peer_rec, device_mvcc=True,
+                            device=dev, rng=random.Random(f"nodes peer{k}"))
+            peer.support.register("benchcc", BenchCC(shim))
+            peer.join_channel(genesis)
+            peer.on_commit(lambda cid, b, k=k: (
+                committed[k].append((b["metadata"]["metadata"][fabric.TRANSACTIONS_FILTER],
+                                     b["metadata"]["metadata"][fabric.COMMIT_HASH])),
+                commit_at[k].__setitem__(b["header"]["number"], time.perf_counter())))
+            peer.start()
+            peers.append(peer)
+            roles_by_thread[peer.provider.batcher._thread] = f"peer{k}"
+            roles_by_prefix[peer.server._pool._thread_name_prefix + "_"] = f"peer{k}"
+        for k, peer in enumerate(peers):
+            pipe = peer.commit_pipeline(channel)
+            submit = pipe.submit
+
+            def stamped_submit(block, k=k, submit=submit):
+                arrived_at[k][block["header"]["number"]] = time.perf_counter()
+                return submit(block)
+
+            pipe.submit = stamped_submit  # the block's arrival from the deliver stream
+            roles_by_thread[peer.start_deliver_for_channel(channel, endpoints)] = f"peer{k}"
+            roles_by_thread[pipe._committer] = f"peer{k}"
+        peer_conns = [channel_to(p.addr) for p in peers]
+        conns += peer_conns
+        setup_s = time.perf_counter() - t_phase
+
+        for table in (p256k.LAUNCHES, md.LAUNCHES):
+            for key in table:
+                table[key] = 0
+        tally.clear()
+        t_drive = time.perf_counter()
+        rtt_ms, ack_ms, calls = [], [], {"proposals": 0}
+        client_pool = Pool(2, thread_name_prefix="nodes-client")
+
+        def endorse(k, signed):
+            """One SignedProposal to peer k over gRPC, its round trip kept."""
+            t0 = time.perf_counter()
+            resp = process_proposal(peer_conns[k], signed)
+            rtt_ms.append((time.perf_counter() - t0) * 1e3)
+            return resp
+
+        def lifecycle(k, fn, arg):
+            admin = en.cn.admins[k]
+            bundle = tb.create_proposal(admin, channel, "_lifecycle", [fn, arg])
+            calls["proposals"] += 1
+            resp = process_proposal(peer_conns[k], tb.create_signed_proposal(bundle, admin))
+            if resp["response"].get("status") != 200:
+                raise AssertionError(f"nodes_config2: _lifecycle {fn!r}: {resp['response']}")
+            return resp["response"].get("payload", b"")
+
+        # install and approve the ccaas package on both peers (org admins)
+        pkg_ids = [lifecycle(k, b"InstallChaincode", ccaas_pkg).decode() for k in range(2)]
+        if pkg_ids[0] != pkg_ids[1]:
+            raise AssertionError(f"nodes_config2: package ids {pkg_ids}")
+        for k in range(2):
+            lifecycle(k, b"ApproveChaincodeDefinitionForOrg", json.dumps(
+                {"channel": channel, "name": NODES_CCAAS, "package_id": pkg_ids[0]}).encode())
+
+        # -- the broadcast stream to a consenter that is not the leader ---------
+        env_codec, resp_codec = wire_codec(fabric.ENVELOPE), wire_codec(ab.BROADCAST_RESPONSE)
+
+        class BroadcastStream:
+            def __init__(self, addr):
+                import queue as _queue
+
+                self.conn = channel_to(addr)
+                conns.append(self.conn)
+                self.q = _queue.Queue()
+
+                def requests():
+                    while True:
+                        item = self.q.get()
+                        if item is None:
+                            return
+                        yield item
+
+                self.responses = self.conn.stream_stream(
+                    "/orderer.AtomicBroadcast/Broadcast", request_serializer=env_codec[1],
+                    response_deserializer=resp_codec[0])(requests())
+
+            def send(self, env):
+                t0 = time.perf_counter()
+                self.q.put(env)
+                resp = next(self.responses)
+                ack_ms.append((time.perf_counter() - t0) * 1e3)
+                return resp.get("status", 0), resp.get("info", "")
+
+            def close(self):
+                self.q.put(None)
+                for _ in self.responses:
+                    pass
+
+        statuses = {"success": 0, "forbidden": 0}
+
+        def broadcast(stream, envs, want):
+            for env in envs:
+                status, info = stream.send(env)
+                if status != want:
+                    raise AssertionError(f"nodes_config2: broadcast answered {status} {info!r}")
+                statuses["success" if want == fabric.SUCCESS else "forbidden"] += 1
+
+        def round_envelopes(rnd):
+            """Round `rnd`'s proposals endorsed by both peers over gRPC, and
+            the envelopes; in round 0 the last `ccaas_txs` go to the ccaas
+            chaincode."""
+            props = en.proposals(rnd, n_txs)
+            if rnd == 0 and ccaas_txs:
+                props = props[:n_txs - ccaas_txs] + [
+                    (b, tb.create_signed_proposal(b, en.net.client), False)
+                    for b in (tb.create_proposal(en.net.client, channel, NODES_CCAAS,
+                                                 [b"put", b"cc%d" % i])
+                              for i in range(ccaas_txs))]
+            # each proposal to both peers side by side, one after another
+            calls["proposals"] += 2 * len(props)
+            endorsed = []
+            for bundle, signed, _ in props:
+                responses = [f.result() for f in [client_pool.submit(endorse, k, signed)
+                                                  for k in range(2)]]
+                if [r["response"].get("status") for r in responses] != [200, 200] or \
+                        responses[0]["payload"] != responses[1]["payload"]:
+                    raise AssertionError(f"nodes_config2: round {rnd} responses "
+                                         f"{[r['response'] for r in responses]}")
+                endorsed.append((bundle, responses))
+            return en.envelopes(rnd, endorsed, n_txs)
+
+        envs_by_round = [round_envelopes(0)]
+        rng = random.Random(f"nodes {channel}")
+        bad = []
+        for env in rng.sample(envs_by_round[0], RAFT_FLIPPED):
+            sig = env["signature"]
+            bad.append({**env, "signature": sig[:-1] + bytes([sig[-1] ^ 0x01])})
+        outsider = en.net.stranger
+        for j in range(RAFT_OUTSIDERS):
+            payload = wire.decode(fabric.PAYLOAD, envs_by_round[0][j]["payload"])
+            payload["header"]["signature_header"] = wire.encode(
+                fabric.SIGNATURE_HEADER, protoutil.make_signature_header(
+                    outsider.serialize(), outsider.new_nonce()))
+            raw = wire.encode(fabric.PAYLOAD, payload)
+            bad.append({"payload": raw, "signature": outsider.sign(raw)})
+        stream = BroadcastStream(f"127.0.0.1:{ports[non_leaders[0] - 1]}")
+        broadcast(stream, bad, fabric.FORBIDDEN)
+        broadcast(stream, envs_by_round[0], fabric.SUCCESS)
+        stream.close()
+        wait(lambda: all(p.channels[channel].ledger.height >= 2 for p in peers),
+             "block 1 on both peers")
+
+        # -- failover: the leader node stops; the other two carry on -----------
+        t0 = time.perf_counter()
+        orderers[first_leader].stop()
+        live = non_leaders
+        wait(lambda: leader(live) is not None, "a new leader")
+        new_leader = leader(live)
+        failover_s = time.perf_counter() - t0
+        envs_by_round.append(round_envelopes(1))
+        via = next(i for i in live if i != new_leader)
+        stream = BroadcastStream(f"127.0.0.1:{ports[via - 1]}")
+        broadcast(stream, envs_by_round[1], fabric.SUCCESS)
+        stream.close()
+        n_blocks = NODES_ROUNDS
+        # a block is readable once stored, a moment after the height moves
+        wait(lambda: all(chain(i).get_block(n_blocks) is not None for i in live),
+             "block 2 on the live")
+        # -- the stopped node restarts on its directory and port ---------------
+        t0 = time.perf_counter()
+        start_orderer(first_leader)
+        wait(lambda: chain(first_leader).get_block(n_blocks) is not None,
+             "the restarted node's catch-up")
+        catch_up_s = time.perf_counter() - t0
+        wait(lambda: all(p.channels[channel].ledger.height >= n_blocks + 1 for p in peers),
+             "block 2 on both peers")
+        if not all(p.commit_pipeline(channel).drain(timeout=wait_s) for p in peers):
+            raise AssertionError("nodes_config2: a pipeline did not drain")
+
+        # -- discovery over gRPC --------------------------------------------------
+        discovery = {}
+        for who, signer in (("org1", en.net.client), ("org2", en.cn.clients[1])):
+            discovery[who] = {
+                "peers": [p["endpoint"] for p in discover(peers[0].addr, signer, channel,
+                                                          "peers")],
+                "config": discover(peers[0].addr, signer, channel, "config"),
+                "layouts": discover(peers[0].addr, signer, channel, "endorsers",
+                                    NODES_CCAAS)["layouts"]}
+        try:
+            discover(peers[0].addr, outsider, channel, "peers")
+            raise AssertionError("nodes_config2: discovery answered a stranger")
+        except DiscoveryError:
+            pass
+        # -- the operations servers ---------------------------------------------
+        ops = []
+        for k, peer in enumerate(peers):
+            health = http_get(peer.ops.addr, "/healthz")
+            metrics = http_get(peer.ops.addr, "/metrics")[1].decode()
+            ops.append({"healthz": health[0], "metrics": metrics})
+        drive_s = time.perf_counter() - t_drive
+        launches = {"p256_verify_bytes": p256k.LAUNCHES["p256_verify_bytes"],
+                    "p256_key_tables": p256k.LAUNCHES["p256_key_tables"],
+                    "p256_verify_limbs": p256k.LAUNCHES["p256_verify_limbs"],
+                    **k5_launches(md)}
+        by_role = {who: dict(sorted(v.items())) for who, v in sorted(tally.items())}
+        pipeline_errors = {k: dict(p.deliver_errors) for k, p in enumerate(peers)
+                           if any("pipeline" in e for e in p.deliver_errors.values())}
+        if pipeline_errors:
+            raise AssertionError(f"nodes_config2: commit failures {pipeline_errors}")
+        ledgers = {i: [chain(i).get_block(n) for n in range(n_blocks + 1)] for i in ids}
+        ccaas_values = [[getattr(p.channels[channel].ledger.state_db.get_state(
+            NODES_CCAAS, f"cc{i}"), "value", None) for i in range(ccaas_txs)] for p in peers]
+        peer_heights = [p.channels[channel].ledger.height for p in peers]
+        stats = [p.commit_pipeline(channel).stage_stats() for p in peers]
+
+        # -- stop every node; no thread of one is left ---------------------------
+        client_pool.shutdown()
+        for conn in conns:
+            conn.close()
+        conns = []
+        for peer in peers:
+            peer.stop()
+        ccaas.stop()
+        for node in orderers.values():
+            node.stop()
+        deadline = time.perf_counter() + 10
+        while True:
+            left = [t for t in threading.enumerate() if t not in threads_before and t.is_alive()]
+            if not left or time.perf_counter() > deadline:
+                break
+            time.sleep(0.05)
+        if left:
+            raise AssertionError(f"nodes_config2: threads left after stop(): "
+                                 f"{sorted(t.name for t in left)}")
+
+        # --- the checks ---------------------------------------------------------
+        n_env = sum(len(r) for r in envs_by_round)
+        if statuses != {"success": n_env, "forbidden": RAFT_FLIPPED + RAFT_OUTSIDERS}:
+            raise AssertionError(f"nodes_config2: broadcast statuses {statuses}")
+        if peer_heights != [n_blocks + 1] * 2:
+            raise AssertionError(f"nodes_config2: peer heights {peer_heights}")
+        for n in range(1, n_blocks + 1):
+            heads = {wire.encode(fabric.BLOCK_HEADER, ledgers[i][n]["header"]) +
+                     wire.encode(fabric.BLOCK_DATA, ledgers[i][n]["data"]) for i in ids}
+            if len(heads) != 1:
+                raise AssertionError(f"nodes_config2: the consenters' block {n} differs")
+            if len(ledgers[1][n]["data"]["data"]) != n_txs:
+                raise AssertionError(f"nodes_config2: block {n} holds "
+                                     f"{len(ledgers[1][n]['data']['data'])} txs")
+        want_codes = [bytes(n_txs), en.codes(1, n_txs)]
+        if committed[0] != committed[1] or [f for f, _ in committed[0]] != want_codes:
+            raise AssertionError("nodes_config2: the peers' filters or commit hashes differ")
+        if ccaas_values != [[b"v"] * ccaas_txs] * 2:
+            raise AssertionError(f"nodes_config2: the ccaas writes {ccaas_values}")
+        # the same blocks committed serially through the port's Channel over
+        # SoftwareProvider(hostec_np), as the orderers gave them
+        sw = factory.provider_from_config({**FACTORY_CONFIG, "Default": "SW"})
+        if sw.describe_backend() != "sw:hostec_np":
+            raise AssertionError(f"nodes_config2: host tier {sw.describe_backend()}")
+        ref = Channel(channel, str(root / "reference"),
+                      bundle_from_genesis_block(genesis, sw).msp_manager, registry(channel), sw)
+        ref.ledger.commit(wire.decode(fabric.BLOCK, wire.encode(fabric.BLOCK, genesis)))
+        ref_out = []
+        for n in range(1, n_blocks + 1):
+            b = wire.decode(fabric.BLOCK, wire.encode(fabric.BLOCK, ledgers[1][n]))
+            ref_out.append((ref.store_block(b).tobytes(),
+                            b["metadata"]["metadata"][fabric.COMMIT_HASH]))
+        ref.ledger.close()
+        if ref_out != committed[0]:
+            raise AssertionError("nodes_config2: the serial hostec_np commit differs")
+        stored = {p: stored_blocks(root / p / channel / f"{channel}.chain")
+                  for p in ("peer0", "peer1")}
+        stored["reference"] = stored_blocks(root / "reference" / f"{channel}.chain")
+        rows = {p: ledger_rows(root / p / channel / f"{channel}.state.db")
+                for p in ("peer0", "peer1")}
+        rows["reference"] = ledger_rows(root / "reference" / f"{channel}.state.db")
+
+        def public(b):
+            m = b["metadata"]["metadata"]
+            return (b["header"], b["data"], m[fabric.TRANSACTIONS_FILTER], m[fabric.COMMIT_HASH])
+
+        if not ([public(b) for b in stored["peer0"]] == [public(b) for b in stored["peer1"]]
+                == [public(b) for b in stored["reference"]]) or not (
+                rows["peer0"] == rows["peer1"] == rows["reference"]):
+            raise AssertionError("nodes_config2: stored blocks or SQLite rows differ")
+        # /healthz and /metrics: the ProcessProposal calls the client made
+        # (one fabobs registry a process: both peers serve the same series)
+        want_calls = (f'grpc_server_unary_requests_completed{{service="protos.Endorser",'
+                      f'method="ProcessProposal",code="OK"}} {calls["proposals"]}')
+        for k, o in enumerate(ops):
+            if o["healthz"] != 200 or want_calls not in o["metrics"].splitlines():
+                raise AssertionError(f"nodes_config2: peer {k}'s operations server: "
+                                     f"{o['healthz']}, {want_calls!r} not in /metrics")
+        want_layouts = [{"G0": 1}]
+        for who, answer in discovery.items():
+            if (answer["peers"] != [peers[0].addr] or answer["layouts"] != want_layouts
+                    or answer["config"]["msps"] != ["OrdererMSP", "Org1MSP", "Org2MSP",
+                                                    "Org3MSP"]):
+                raise AssertionError(f"nodes_config2: discovery answered {who}: {answer}")
+        # launches: K2 on each peer (creator checks, blocks, discovery), the
+        # key combs, K5 once a block on each peer
+        for k in range(2):
+            mine = by_role.get(f"peer{k}", {})
+            if (mine.get("p256_verify_bytes", 0) < calls["proposals"] // 2
+                    or mine.get("mvcc_resolve", 0) != n_blocks):
+                raise AssertionError(f"nodes_config2: peer {k}'s launches {mine}")
+        if (launches["p256_verify_bytes"] != sum(v.get("p256_verify_bytes", 0)
+                                                 for v in by_role.values())
+                or launches["mvcc_resolve"] != 2 * n_blocks or launches["mvcc_resolve_global"]
+                or launches["p256_key_tables"] < 1 or launches["p256_verify_limbs"]
+                or by_role.get("orderers", {}).get("p256_verify_bytes", 0)
+                < 2 * n_env + RAFT_FLIPPED):
+            raise AssertionError(f"nodes_config2 launches: {launches}, by role {by_role}")
+
+        # --- every K2 lane against SoftwareProvider(hostec_np) -----------------
+        t0 = time.perf_counter()
+        lanes = [lane for rec in (peer_rec, orderer_rec) for lane in rec.verify_lanes]
+        lanes += [lane for rec in (peer_rec, orderer_rec) for r in rec.records
+                  for lane in zip(r["keys"], r["sigs"], r["digests"], r["verdicts"])]
+        held = []
+        for off in range(0, len(lanes), K2_HOLD_CHUNK):
+            chunk = lanes[off: off + K2_HOLD_CHUNK]
+            held += sw.batch_verify([k for k, _, _, _ in chunk], [s for _, s, _, _ in chunk],
+                                    [d for _, _, d, _ in chunk])
+        if held != [ok for _, _, _, ok in lanes]:
+            raise AssertionError("nodes_config2: K2 and hostec_np disagree on a lane")
+        hold_s = time.perf_counter() - t0
+    finally:
+        if client_pool is not None:
+            client_pool.shutdown()
+        for module, key in ((p256k, "p256k"), (md, "md")):
+            tables[key].update(module.LAUNCHES)
+            module.LAUNCHES = tables[key]
+        raft_chain.RaftChain._propose_batch = propose_batch
+        for conn in conns:
+            conn.close()
+        for peer in peers:
+            peer.stop()
+        if ccaas is not None:
+            ccaas.stop()
+        for node in orderers.values():
+            node.stop()
+        if obs_before is None:
+            fabobs.disable()
+        hostec_np.shutdown_pool()
+        hostec.shutdown_pool()
+        shutil.rmtree(root, ignore_errors=True)
+
+    block_ms = []
+    for n in range(1, n_blocks + 1):
+        t_cut = proposed_at[n - 1]  # the leader's proposal of block n
+        block_ms.append({"block": n,
+                         "written_ms": {str(i): (t - t_cut) * 1e3
+                                        for (i, m), t in sorted(written_at.items()) if m == n},
+                         "arrived_ms": [(arrived_at[k][n] - t_cut) * 1e3 for k in range(2)],
+                         "peers_ms": [(commit_at[k][n] - t_cut) * 1e3 for k in range(2)]})
+    emit({"phase": "nodes_config2", "card": card_name_and_limit(dev),
+          "consenters": RAFT_CONSENTERS, "blocks": n_blocks, "txs_per_block": n_txs,
+          "ccaas_txs": ccaas_txs, "tick_s": tick_s,
+          "threads_at_start": len(threads_before),
+          "broadcast": {**statuses, "flipped": RAFT_FLIPPED, "outsiders": RAFT_OUTSIDERS},
+          "setup_seconds": setup_s, "drive_seconds": drive_s,
+          "proposal_rtt_ms": {"mean": statistics.fmean(rtt_ms),
+                              "p50": statistics.median(rtt_ms), "calls": len(rtt_ms)},
+          "broadcast_ack_ms": {"mean": statistics.fmean(ack_ms),
+                               "p50": statistics.median(ack_ms), "envelopes": len(ack_ms)},
+          "ms_per_block_cut_to_commit": block_ms, "stage_stats": stats,
+          "failover_seconds": failover_s, "leaders": [first_leader, new_leader],
+          "restart_catch_up_seconds": catch_up_s, "peer_endpoints": endpoints,
+          "process_proposal_calls": calls["proposals"],
+          "discovery": {"clients": sorted(discovery), "layouts": want_layouts,
+                        "stranger": "refused"},
+          "launches_by_role": by_role,
+          "k2_lanes_held": {"lanes": len(lanes), "seconds": hold_s},
+          "equal": {"peers": True, "serial_hostec_np": True, "consenters": True},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def card_name_and_limit(dev):
     """nvidia-smi's name and power limit of the card, for a phase's line
     (None when the phase ran on the CPU, as its rehearsal does)."""
@@ -7355,6 +8058,13 @@ def module_probe(names=("grpc", "yaml")) -> dict:
         out[name] = {"imports": proc.returncode == 0, "version": proc.stdout.strip() or None,
                      "error": err[-1] if proc.returncode and err else None}
     return out
+
+
+def settle() -> None:
+    """Collect the heap and freeze what survives (`gc.freeze`): later
+    collections skip it."""
+    gc.collect()
+    gc.freeze()
 
 
 def main() -> int:
@@ -7466,17 +8176,28 @@ def main() -> int:
     for name in ("p256_verify_limbs", "p256_verify_bytes", "p256_key_tables", "ate2_unity"):
         row = next(k for k in kernels if k["name"] == name)
         row["mesh_sharded"] = {"launches": mesh_launches[name]}
+    # the network phases allocate many small objects on several threads:
+    # before each, the heap so far is collected and frozen, so the collector
+    # stops rescanning the earlier phases' survivors
+    settle()
     # --- The endorsement side and the solo orderer: proposals to blocks -----
     endorse_launches = endorse_phase(torch, np, dev, keep=chain)
+    settle()
     # --- The Raft orderer and block delivery: the same envelopes, 3 consenters -
     raft_launches = raft_phase(torch, np, dev, chain["endorse_config2"])
+    settle()
     # --- Gossip: the same blocks spread to four peers, private data -------------
     gossip_launches = gossip_phase(torch, np, dev, chain["endorse_config2"])
+    # --- The peer and orderer nodes over gRPC: config #2 through the nodes ---
+    chain.clear()  # no later phase reads the earlier phases' inputs
+    settle()
+    nodes_launches = nodes_phase(torch, np, dev)
     for name in ("p256_verify_bytes", "p256_key_tables", "mvcc_resolve"):
         row = next(k for k in kernels if k["name"] == name)
         row["endorse_config2"] = {"launches": endorse_launches[name]}
         row["raft_config2"] = {"launches": raft_launches[name]}
         row["gossip_config2"] = {"launches": gossip_launches[name]}
+        row["nodes_config2"] = {"launches": nodes_launches[name]}
     floor = floor_ms(torch, cudalib, dev)
     emit({"phase": "totals", "seconds": time.perf_counter() - t_start,
           "sms": sms, "max_sm_clock_hz": clock_hz})

@@ -13,11 +13,10 @@ Builder contract (externalbuilder.go):
 detect exits 0 to claim a package; run gets RUN_METADATA_DIR/chaincode.json
 with {"chaincode_id", "peer_address"} (the reference's connection info).
 
-The port's counterpart of the JAX package's `chaincode/extbuilder.py`. The
-JAX package's built-in python builder (its package's chaincode launcher as
-a subprocess) is left out: the port's launcher needs the shim stream over
-grpc, which comes with a later slice, so a package that no external
-builder claims raises `BuildError`.
+The port's counterpart of the JAX package's `chaincode/extbuilder.py`. A
+python package that no external builder claims runs under the built-in
+builder: `python -m fabric_tpu_torch.chaincode.launcher`, whose child
+imports no torch.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 from typing import Dict, List, Optional
 
 from fabric_tpu_torch.chaincode.package import InstalledPackage, parse_package
@@ -141,10 +141,27 @@ class Launcher:
                 self._procs[pkg.package_id] = proc
                 return proc
 
-        raise BuildError(
-            f"no builder claimed package {pkg.package_id} "
-            f"(type {meta.get('type')})"
+        if meta.get("type", "python") != "python":
+            raise BuildError(
+                f"no builder claimed package {pkg.package_id} "
+                f"(type {meta.get('type')})"
+            )
+        proc = subprocess.Popen(
+            [
+                sys.executable,
+                "-m",
+                "fabric_tpu_torch.chaincode.launcher",
+                "--source-dir",
+                dirs["source"],
+                "--peer-address",
+                peer_address,
+                "--chaincode-id",
+                pkg.package_id,
+            ],
+            env={**os.environ, "PYTHONPATH": _pythonpath()},
         )
+        self._procs[pkg.package_id] = proc
+        return proc
 
     def stop(self, package_id: Optional[str] = None) -> None:
         targets = (
@@ -159,3 +176,12 @@ class Launcher:
                 except subprocess.TimeoutExpired:
                     proc.kill()
 
+
+def _pythonpath() -> str:
+    """The launcher subprocess must import fabric_tpu_torch (the shim library),
+    like reference chaincodes vendoring fabric-chaincode-go."""
+    repo_root = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    )
+    current = os.environ.get("PYTHONPATH", "")
+    return f"{repo_root}:{current}" if current else repo_root

@@ -10,14 +10,18 @@ metric families of `CANONICAL_METRICS` (counters, gauges and histograms of
 `ObsRegistry.value`) and records spans and events into a bounded flight
 ring, read through `ObsRegistry.trace_events`.
 
-Left out: the metric families of the paths the port does not have
-(gossip, the operations server), the operations
-server's text exposition (`render`) and metric snapshot, the flight
-ring's Chrome-trace dump to disk (so `obs_trigger` records its event and
-writes no file), installation from the environment (``FABRIC_TPU_OBS``),
-and `ensure_enabled`'s sharing with a node shell. An observability
-failure is swallowed with a debug log: a hook can slow a verify path
-down, never alter it or fail it.
+The operations server reads it through the registry's `render` (the
+provider's Prometheus text), `snapshot` and `dump` (the flight ring as
+Chrome trace-event JSON), and a node shares one registry with its
+operations server through `ensure_enabled`.
+
+Left out: the metric families of the JAX serve path's XLA caches and of its
+resident MVCC table, automatic dumps to a directory on `obs_trigger` (the
+port records the event and writes no file; `dump(path)` writes one on
+request), and installation from the environment (``FABRIC_TPU_OBS``): the
+port reads no ``FABRIC_TPU_*`` routing, so a caller enables the registry
+itself. An observability failure is swallowed with a debug log: a hook can
+slow a verify path down, never alter it or fail it.
 
 Enable programmatically (tests and chip_smoke.py use the scoped form)::
 
@@ -28,6 +32,7 @@ Enable programmatically (tests and chip_smoke.py use the scoped form)::
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -506,6 +511,62 @@ class ObsRegistry:
         with self._lock:
             return [dict(r) for r in self._ring]
 
+    def dump(self, path: Optional[str] = None) -> str:
+        """Chrome trace-event JSON of the flight ring (load it in
+        ``chrome://tracing`` or Perfetto).  Writes ``path`` when given,
+        returns the JSON text either way."""
+        payload = json.dumps(
+            {
+                "traceEvents": self.trace_events(),
+                "displayTimeUnit": "ms",
+                "otherData": {"source": "fabric_tpu.fabobs"},
+            },
+            sort_keys=True,
+        )
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                fh.write(payload)
+            os.replace(tmp, path)
+        return payload
+
+    # -- scrape-side views -------------------------------------------------
+    def render(self) -> str:
+        """Prometheus text exposition of the provider (empty string for
+        non-prometheus providers — the ops server answers 404 then)."""
+        gather = getattr(self.provider, "gather", None)
+        return gather() if callable(gather) else ""
+
+    def snapshot(self) -> Dict:
+        """JSON-able {family: {kind, series}} snapshot.  Histogram series
+        collapse to the bucket-quantized summary
+        (:func:`metrics.summary_from_histogram_state`)."""
+        out: Dict[str, Dict] = {}
+        prov = self.provider
+        if not isinstance(prov, metrics_mod.PrometheusProvider):
+            return out
+        with prov._lock:
+            families = dict(prov._metrics)
+        for name, metric in sorted(families.items()):
+            with metric.lock:
+                series = dict(metric.series)
+            rendered: Dict[str, object] = {}
+            for labels, value in sorted(series.items()):
+                key = ",".join(
+                    f"{n}={v}"
+                    for n, v in zip(metric.opts.label_names, labels)
+                ) or "_"
+                if isinstance(value, metrics_mod._HistState):
+                    rendered[key] = metrics_mod.summary_from_histogram_state(
+                        value, metric.opts.buckets  # type: ignore[attr-defined]
+                    )
+                else:
+                    rendered[key] = value
+            if rendered:
+                out[name] = {"kind": metric.kind, "series": rendered}
+        return out
+
     def value(self, name: str, **labels) -> float:
         """The current value of one counter or gauge series (0 when the
         series has not been written): what a caller reads back in
@@ -549,6 +610,46 @@ def enable(
     with _OBS_LOCK:
         _OBS = reg
     return reg
+
+
+def ensure_enabled(
+    provider: Optional[metrics_mod.Provider] = None, ring: int = 4096
+) -> ObsRegistry:
+    """Enable unless a registry is already installed (first enabler
+    wins — one process, one obs hub).  Used by the node shells so a
+    peer and its ops server share the provider without trampling an
+    earlier installation.  The registry is built outside the lock
+    (construction registers every canonical family) and installed only
+    if no racer got there first."""
+    global _OBS
+    existing = _OBS
+    if existing is None:
+        candidate = ObsRegistry(provider=provider, ring=ring)
+        with _OBS_LOCK:
+            if _OBS is None:
+                _OBS = candidate
+                return candidate
+            existing = _OBS
+    if provider is not None and existing.provider is not provider:
+        logger.warning(
+            "fabobs already enabled; keeping the existing provider "
+            "(a second ops surface will not see data-plane series)"
+        )
+    return existing
+
+
+def disable() -> None:
+    global _OBS
+    with _OBS_LOCK:
+        _OBS = None
+
+
+def enabled() -> bool:
+    return _OBS is not None
+
+
+def active() -> Optional[ObsRegistry]:
+    return _OBS
 
 
 class obs_installed:
@@ -622,3 +723,23 @@ def obs_trigger(reason: str, **attrs) -> None:
     if reg is None:
         return
     reg.trigger(reason, **attrs)
+
+
+def snapshot() -> Dict:
+    """{} when disabled; else the active registry's metric snapshot."""
+    reg = _OBS
+    return {} if reg is None else reg.snapshot()
+
+
+def metric_table() -> List[Dict[str, str]]:
+    """The canonical table as rows (docs generation and gates)."""
+    return [
+        {
+            "name": s.name,
+            "kind": s.kind,
+            "labels": ",".join(s.labels),
+            "seam": s.seam,
+            "help": s.help,
+        }
+        for s in CANONICAL_METRICS
+    ]

@@ -1,16 +1,18 @@
 """Metrics provider SPI (reference common/metrics/provider.go:11-121).
 
-The part of the JAX package's `common/metrics` that the port's commit path
-uses: the histogram state that `peer/pipeline.CommitPipeline` keeps per
-stage (`new_histogram_state`, `observe_into`,
-`summary_from_histogram_state`), `latency_summary` over raw samples (the
-serve sidecar's `ServeStats`), the counter, gauge and histogram
-instruments with their options, and `PrometheusProvider`, the in-process
-registry behind `common/fabobs` and `ledger/ledgermetrics.CommitterMetrics`.
-Its series are read in process (`fabobs.snapshot`); the text exposition,
-the statsd provider and the disabled provider are not ported.
+The port's counterpart of the JAX package's `common/metrics`: the histogram
+state that `peer/pipeline.CommitPipeline` keeps per stage
+(`new_histogram_state`, `observe_into`, `summary_from_histogram_state`),
+`latency_summary` over raw samples (the serve sidecar's `ServeStats`), the
+counter, gauge and histogram instruments with their options, and the three
+providers of the reference:
 
-Thread-safe; histograms keep fixed buckets + sum/count like Prometheus.
+* ``PrometheusProvider`` — the in-process registry behind `common/fabobs`
+  and `ledger/ledgermetrics.CommitterMetrics`; `gather()` renders the
+  Prometheus text exposition that the operations server serves at /metrics.
+* ``StatsdProvider`` — formats ``%{#fqname}.%{label}`` style bucket names
+  and hands each line to a sink callable (UDP emitter or test buffer).
+* ``DisabledProvider`` — no-ops.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import bisect
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 DEFAULT_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
@@ -260,3 +262,174 @@ class PrometheusProvider(Provider):
 
     def new_histogram(self, opts: HistogramOpts) -> Histogram:
         return Histogram(self._register(opts, "histogram"))
+
+    def gather(self) -> str:
+        """Prometheus text exposition format, sorted for determinism."""
+        out: List[str] = []
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        for name, metric in metrics:
+            if metric.opts.help:
+                out.append(f"# HELP {name} {metric.opts.help}")
+            out.append(f"# TYPE {name} {metric.kind}")
+            with metric.lock:
+                series = sorted(metric.series.items())
+                for labels, value in series:
+                    label_str = _format_labels(metric.opts.label_names, labels)
+                    if metric.kind == "histogram":
+                        assert isinstance(value, _HistState)
+                        buckets = metric.opts.buckets  # type: ignore
+                        cum = 0
+                        for ub, c in zip(buckets, value.counts):
+                            cum += c
+                            le = _format_labels(
+                                metric.opts.label_names + ("le",),
+                                labels + (_fmt_float(ub),),
+                            )
+                            out.append(f"{name}_bucket{le} {cum}")
+                        inf = _format_labels(
+                            metric.opts.label_names + ("le",),
+                            labels + ("+Inf",),
+                        )
+                        out.append(f"{name}_bucket{inf} {value.total}")
+                        out.append(f"{name}_sum{label_str} {_fmt_float(value.sum)}")
+                        out.append(f"{name}_count{label_str} {value.total}")
+                    else:
+                        out.append(f"{name}{label_str} {_fmt_float(value)}")
+        return "\n".join(out) + ("\n" if out else "")
+
+
+def _fmt_float(v: float) -> str:
+    if v == int(v):
+        return str(int(v))
+    return repr(v)
+
+
+def _format_labels(names: Sequence[str], values: Sequence[str]) -> str:
+    if not names:
+        return ""
+    pairs = ",".join(f'{n}="{v}"' for n, v in zip(names, values))
+    return "{" + pairs + "}"
+
+
+class StatsdProvider(Provider):
+    """Formats per-event statsd lines into ``sink(line)`` (reference
+    common/metrics/statsd). Bucket names come from statsd_format with
+    ``%{#fqname}`` and ``%{label}`` substitutions."""
+
+    def __init__(self, sink: Callable[[str], None], prefix: str = ""):
+        self._sink = sink
+        self._prefix = prefix
+
+    def _bucket(self, opts: MetricOpts, labels: Tuple[str, ...]) -> str:
+        fmt = opts.statsd_format or "%{#fqname}"
+        name = fmt.replace("%{#fqname}", opts.fq_name().replace("_", "."))
+        for label_name, value in zip(opts.label_names, labels):
+            name = name.replace("%{" + label_name + "}", value)
+        return f"{self._prefix}.{name}" if self._prefix else name
+
+    def new_counter(self, opts: MetricOpts) -> Counter:
+        provider = self
+
+        class _C(Counter):
+            def __init__(self, labels: Tuple[str, ...] = ()):
+                self._labels = labels
+
+            def with_labels(self, *label_values: str) -> "Counter":
+                return _C(validate_label_values(opts, label_values))
+
+            def add(self, delta: float = 1.0) -> None:
+                provider._sink(
+                    f"{provider._bucket(opts, self._labels)}:{_fmt_float(delta)}|c"
+                )
+
+        return _C()
+
+    def new_gauge(self, opts: MetricOpts) -> Gauge:
+        provider = self
+
+        class _G(Gauge):
+            def __init__(self, labels: Tuple[str, ...] = ()):
+                self._labels = labels
+
+            def with_labels(self, *label_values: str) -> "Gauge":
+                return _G(validate_label_values(opts, label_values))
+
+            def set(self, value: float) -> None:
+                provider._sink(
+                    f"{provider._bucket(opts, self._labels)}:{_fmt_float(value)}|g"
+                )
+
+            def add(self, delta: float) -> None:
+                provider._sink(
+                    f"{provider._bucket(opts, self._labels)}:{_fmt_float(delta)}|g"
+                )
+
+        return _G()
+
+    def new_histogram(self, opts: HistogramOpts) -> Histogram:
+        provider = self
+
+        class _H(Histogram):
+            def __init__(self, labels: Tuple[str, ...] = ()):
+                self._labels = labels
+
+            def with_labels(self, *label_values: str) -> "Histogram":
+                return _H(validate_label_values(opts, label_values))
+
+            def observe(self, value: float) -> None:
+                provider._sink(
+                    f"{provider._bucket(opts, self._labels)}:{_fmt_float(value)}|ms"
+                )
+
+        return _H()
+
+
+class _DisabledCounter(Counter):
+    """A no-op whose ``with_labels`` returns itself, so a labelled child
+    records nothing either."""
+
+    def __init__(self):  # no backing _Metric: nothing accumulates
+        pass
+
+    def with_labels(self, *label_values: str) -> "Counter":
+        return self
+
+    def add(self, delta: float = 1.0) -> None:
+        return None
+
+
+class _DisabledGauge(Gauge):
+    def __init__(self):
+        pass
+
+    def with_labels(self, *label_values: str) -> "Gauge":
+        return self
+
+    def set(self, value: float) -> None:
+        return None
+
+    def add(self, delta: float) -> None:
+        return None
+
+
+class _DisabledHistogram(Histogram):
+    def __init__(self):
+        pass
+
+    def with_labels(self, *label_values: str) -> "Histogram":
+        return self
+
+    def observe(self, value: float) -> None:
+        return None
+
+
+class DisabledProvider(Provider):
+    def new_counter(self, opts: MetricOpts) -> Counter:
+        return _DisabledCounter()
+
+    def new_gauge(self, opts: MetricOpts) -> Gauge:
+        return _DisabledGauge()
+
+    def new_histogram(self, opts: HistogramOpts) -> Histogram:
+        return _DisabledHistogram()

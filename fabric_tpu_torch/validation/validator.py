@@ -111,6 +111,9 @@ class ChaincodeRegistry:
     def get(self, name: str) -> Optional[ChaincodeDefinition]:
         return self._defs.get(name)
 
+    def names(self) -> List[str]:
+        return sorted(self._defs)
+
 
 # (policy envelope, plugin) -> (definition, [(tx index, namespace), ...])
 PolicyGroups = Dict[

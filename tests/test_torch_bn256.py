@@ -21,11 +21,7 @@ are exact.
 """
 
 import json
-import os
 import random
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,9 +30,9 @@ import torch
 from fabric_tpu.common import fp256bn as jhost
 from fabric_tpu_torch.common import fp256bn as host
 from fabric_tpu_torch.ops import bn256_kernel as bk
+from torch_jax_child import child_json, shared
 from torch_untraced import untraced  # noqa: F401
 
-TESTS = Path(__file__).resolve().parent
 K, B = 4, 4
 MSM_CASES = ["single-base", "multi-base", "edge-scalars-and-identity"]
 
@@ -128,19 +124,12 @@ def _jax_child():
 
 
 @pytest.fixture(scope="module")
-def jax_side():
-    env = dict(os.environ)
-    env.update(JAX_PLATFORMS="cpu", FABRIC_TPU_CIOS_UNROLL="0")
-    code = (
-        "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
-        "import test_torch_bn256; test_torch_bn256._jax_child()"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code, str(TESTS), str(TESTS.parent)],
-        capture_output=True, text=True, env=env, timeout=1200, check=False,
-    )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+def jax_side(tmp_path_factory):
+    """The JAX MSM program in a child process, once per test session
+    (`torch_jax_child`)."""
+    out = shared(tmp_path_factory, __file__, lambda: child_json(
+        "test_torch_bn256", "_jax_child",
+        {"JAX_PLATFORMS": "cpu", "FABRIC_TPU_CIOS_UNROLL": "0"}))
     assert out.pop("calls") == len(MSM_CASES)
     return out
 

@@ -452,8 +452,14 @@ def test_builder_without_tools_and_unclaimed_packages(tmp_path):
     installed = tpkg.PackageStore(str(tmp_path / "s")).install(raw)
     with pytest.raises(text.BuildError, match=r"no builder claimed .* \(type golang\)"):
         text.Launcher(str(tmp_path / "w")).launch(installed, "peer:1")
-    # the port has no built-in python builder (its launcher needs grpc): a
-    # python package that no builder claims is refused too
+    # a python package that no builder claims runs under the built-in
+    # builder, as in the JAX package: the port's chaincode launcher
     py = tpkg.PackageStore(str(tmp_path / "s")).install(tpkg.package("pycc", FILES))
-    with pytest.raises(text.BuildError, match=r"no builder claimed .* \(type python\)"):
-        text.Launcher(str(tmp_path / "w")).launch(py, "peer:1")
+    launcher = text.Launcher(str(tmp_path / "w"))
+    proc = launcher.launch(py, "peer:1")
+    try:
+        assert proc.args[1:3] == ["-m", "fabric_tpu_torch.chaincode.launcher"]
+        assert proc.args[3:] == ["--source-dir", launcher._dirs(py)["source"],
+                                 "--peer-address", "peer:1", "--chaincode-id", py.package_id]
+    finally:
+        launcher.stop()

@@ -1,7 +1,8 @@
 """The port imports neither JAX, nor the JAX package, nor protobuf, nor
 cryptography (the card's machine has neither of the last two), nor yaml
-(not known to be on the card's machine); only its three gRPC modules
-(`comm.server`, `comm.services`, `gossip.comm`) import grpc; and its device
+(not known to be on the card's machine); only its gRPC modules
+(`comm.*`, `gossip.comm`, `orderer.cluster`, `discovery.server`,
+`chaincode.{extserver,extshim}` and the nodes) import grpc; and its device
 entry points refuse to run without a card instead of falling back to the
 CPU: a KVLedger or Channel asked for MVCC on the card without a device
 raises at construction, and so do `bccsp.probe_provider()`, a serve
@@ -31,7 +32,10 @@ import fabric_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fabric_tpu_torch.__path__, "fabric_tpu_torch.")]
 # the gRPC modules load grpc; _GRPC_PROBE imports them on their own
 GRPC_MODULES = {"fabric_tpu_torch.comm.server", "fabric_tpu_torch.comm.services",
-                "fabric_tpu_torch.gossip.comm"}
+                "fabric_tpu_torch.comm.interceptors", "fabric_tpu_torch.gossip.comm",
+                "fabric_tpu_torch.orderer.cluster", "fabric_tpu_torch.discovery.server",
+                "fabric_tpu_torch.chaincode.extserver", "fabric_tpu_torch.chaincode.extshim",
+                "fabric_tpu_torch.nodes.orderer", "fabric_tpu_torch.nodes.peer"}
 for name in names:
     if name not in GRPC_MODULES:
         importlib.import_module(name)
@@ -143,7 +147,11 @@ def test_port_imports_no_jax_and_needs_a_card():
                  "discovery", "discovery.inquire", "discovery.service", "protos.gossip",
                  "gossip", "gossip.msgstore", "gossip.membership", "gossip.state",
                  "gossip.pull", "gossip.pvtdata", "gossip.coordinator", "gossip.comm", "comm",
-                 "comm.server", "comm.services"):
+                 "comm.server", "comm.services", "comm.interceptors", "operations",
+                 "operations.pprof", "operations.system", "protos.cluster",
+                 "protos.discovery", "protos.chaincode", "orderer.cluster",
+                 "discovery.server", "chaincode.extserver", "chaincode.extshim",
+                 "chaincode.launcher", "nodes", "nodes.orderer", "nodes.peer"):
         assert f"fabric_tpu_torch.{name}" in report["modules"]
     assert report["leaked"] == []
     # the port's native library, never the JAX package's native/libfabric_native.so
@@ -292,8 +300,13 @@ def test_host_tiers_import_no_torch():
 _GRPC_PROBE = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
-from fabric_tpu_torch.comm import server, services
+from fabric_tpu_torch.comm import interceptors, server, services
 from fabric_tpu_torch.gossip import comm
+from fabric_tpu_torch.orderer import cluster
+from fabric_tpu_torch.discovery import server as discovery_server
+from fabric_tpu_torch.chaincode import extserver, extshim
+no_torch = "torch" not in sys.modules
+from fabric_tpu_torch.nodes import orderer, peer
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "fabric_tpu" or m.startswith("fabric_tpu.")
@@ -301,20 +314,42 @@ leaked = sorted(
     or m == "cryptography" or m.startswith("cryptography.")
     or m == "yaml" or m.startswith("yaml.")
 )
-print(json.dumps({"leaked": leaked, "grpc": "grpc" in sys.modules,
-                  "torch": "torch" in sys.modules}))
+print(json.dumps({"leaked": leaked, "grpc": "grpc" in sys.modules, "no_torch": no_torch}))
 """
 
 
 def test_grpc_modules_import_grpc_and_nothing_forbidden():
-    """comm.server, comm.services and gossip.comm, imported alone, load grpc
-    and none of jax, the JAX package, protobuf, cryptography or yaml; none
-    of them loads torch (gossip.comm reaches the card only through the
-    callables it is given)."""
+    """The gRPC modules, imported alone, load grpc and none of jax, the JAX
+    package, protobuf, cryptography or yaml; all but the nodes load no torch
+    (gossip.comm, the cluster, discovery's server and the shim stream reach
+    the card only through the callables they are given; a peer node's
+    channels run the kernels)."""
     out = subprocess.run([sys.executable, "-c", _GRPC_PROBE, str(REPO)],
                          capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "leaked": [], "grpc": True, "torch": False}
+        "leaked": [], "grpc": True, "no_torch": True}
+
+
+_CHAINCODE_PROCESS_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from fabric_tpu_torch.chaincode import launcher
+first = sorted(m for m in ("torch", "grpc") if m in sys.modules)
+from fabric_tpu_torch.chaincode import extshim
+print(json.dumps({"launcher": first,
+                  "with_shim": sorted(m for m in ("torch", "grpc") if m in sys.modules)}))
+"""
+
+
+def test_chaincode_process_imports_no_torch():
+    """What a chaincode process runs (`python -m
+    fabric_tpu_torch.chaincode.launcher`, then the shim stream) loads no
+    torch: the launcher alone loads neither torch nor grpc, the shim adds
+    grpc."""
+    out = subprocess.run([sys.executable, "-c", _CHAINCODE_PROCESS_PROBE, str(REPO)],
+                         capture_output=True, text=True, check=True, timeout=120, cwd=REPO)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"launcher": [],
+                                                                "with_shim": ["grpc"]}
 
 
 _GOSSIP_PROBE = r"""

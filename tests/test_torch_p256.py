@@ -19,10 +19,6 @@ in one child process, which hands that memory back when it exits.
 
 import hashlib
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,11 +29,11 @@ from fabric_tpu_torch.common import p256
 from fabric_tpu_torch.crypto.cuda_provider import CUDAProvider, be_bytes_to_limbs
 from fabric_tpu_torch.ops import p256_kernel as pk
 from test_torch_provider import columns, oracle, signature_cases
+from torch_jax_child import child_json, shared
 from torch_untraced import untraced  # noqa: F401
 
 LANES = 128
 KEY_COLUMNS = 32
-TESTS = Path(__file__).resolve().parent
 
 
 def _priv(i):
@@ -206,27 +202,15 @@ def _jax_child():
 
 
 @pytest.fixture(scope="module")
-def jax_side():
-    """The JAX side, computed once per module in a child process: XLA:CPU's
-    compile memory (about 8 GB for the two programs) is returned when the
-    child exits instead of staying with the test worker for the rest of the
-    run."""
-    env = dict(os.environ)
-    env.update(
-        JAX_PLATFORMS="cpu",
-        FABRIC_TPU_CIOS_UNROLL="0",
-        FABRIC_TPU_KERNEL_VARIANT="micro",
-    )
-    code = (
-        "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
-        "import test_torch_p256; test_torch_p256._jax_child()"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code, str(TESTS), str(TESTS.parent)],
-        capture_output=True, text=True, env=env, timeout=1200, check=False,
-    )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+def jax_side(tmp_path_factory):
+    """The JAX side, computed once per test session in a child process
+    (`torch_jax_child`): XLA:CPU's compile memory (about 8 GB for the two
+    programs) is returned when the child exits instead of staying with a test
+    worker for the rest of the run, and the other workers read its JSON."""
+    out = shared(tmp_path_factory, __file__, lambda: child_json(
+        "test_torch_p256", "_jax_child",
+        {"JAX_PLATFORMS": "cpu", "FABRIC_TPU_CIOS_UNROLL": "0",
+         "FABRIC_TPU_KERNEL_VARIANT": "micro"}))
     # one direct call of each program and one through each TPUProvider
     # route: no provider batch fell back to its software path
     assert out.pop("calls") == {"limbs": 2, "bytes": 2}
